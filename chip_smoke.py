@@ -1,27 +1,47 @@
-"""Drive effocr_torch's main path on one NVIDIA GPU and check its kernels.
+"""Drive effocr_torch's main paths on one NVIDIA GPU and check its kernels.
 
     python3 chip_smoke.py [--profile] [--out DIR]
 
 Phases (any failure exits non-zero; nothing is caught and reported ok):
 
 1. setup: the card's name and power limit, torch/CUDA versions; build the
-   native preprocessing library and the CUDA NMS kernel in parallel.
+   native preprocessing library and the two CUDA kernel libraries (NMS,
+   top-1 retrieval) in parallel.
 2. K1 (csrc/nms.cu, the greedy-NMS keep-mask kernel) against its plain
    PyTorch version on the card, bit for bit: [512, 1024] boxes at IoU 0.25,
    a ragged N = 300, a tie-heavy batch and a 384-box cross-tile chain.
-3. slice: a seeded random-init artifact directory (yolov5s with the loc2k
-   model.json, mobilenetv3_small_050 with the rec2k_mn_hn model.json, 90
-   random unit prototypes with rec2k_mn_hn's ref.txt), 2048 synthetic gray
-   line PNGs, and ``load_engine`` with BENCH_TRAINED.json's flags (paths
-   swapped) run twice; the second run is timed.  K1's launch count is read
-   around the timed run.  The kernel is then held against the plain
-   version on the NMS inputs the main path produced, the engine's output
-   with the kernel NMS against the same engine with plain-torch NMS, and
-   both models in float32 on the card against the CPU.
-4. a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+3. K2 (csrc/top1.cu, the fused masked top-1 retrieval kernel) against its
+   plain version: the jp path's shape [4096, 320] x [11051, 320] with ~1%
+   of rows masked, a ragged C = 300 with N = 1, duplicate prototypes
+   (exact products: the tie rule), every row masked.  Scores within 1e-5,
+   indices identical wherever the plain top-2 margin exceeds 1e-5 (and
+   everywhere on the exact cases), all-masked rows exactly (0, -1e30).
+   The kernel, the plain version and the library call (torch.matmul +
+   mask + argmax) are timed with CUDA events.
+4. English slice: a seeded random-init artifact directory (yolov5s with the
+   loc2k model.json, mobilenetv3_small_050 with the rec2k_mn_hn
+   model.json, 90 random unit prototypes with rec2k_mn_hn's ref.txt),
+   2048 synthetic gray line PNGs, and ``load_engine`` with
+   BENCH_TRAINED.json's flags (paths swapped) run twice; the second run is
+   timed.  K1's launch count is read around the timed run.  The kernel is
+   then held against the plain version on the NMS inputs the main path
+   produced, the engine's output with the kernel NMS against the same
+   engine with plain-torch NMS, and both models in float32 on the card
+   against the CPU.
+5. Japanese vertical slice: yolov5n with the loc_vert model.json,
+   convnext_atto with the rec_knn6k3 model.json, 11,051 random unit
+   prototypes with rec_knn6k3's ref.txt, 600 synthetic RGB vertical line
+   PNGs, and ``load_engine`` with the jp_v3 benchmark's flags (paths
+   swapped, plus ``--nms_kernel pallas``) run twice; the second run is
+   timed, with K1's and K2's launch counts read around it.  K1 and K2 are
+   then held against their plain versions on the inputs this path gave
+   them, the engine's text against the same engine with top1_plain
+   (identical apart from crop slots whose plain top-2 margin is <= 1e-5),
+   and both models in float32 on the card against the CPU.
+6. a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
-``--profile`` adds a torch.profiler run over one chunk: device time per
-engine stage, the top kernels, and the device busy share.
+``--profile`` adds a torch.profiler run over one chunk of each slice:
+device time per engine stage and per kernel, and the device busy share.
 
 Needs a CUDA device, nvcc (sm_90a) and g++.  Writes its artifacts,
 line images and results under build/chip_smoke/ in the checkout (the
@@ -49,8 +69,10 @@ from effocr_torch.cli.infer import add_engine_args, load_engine
 from effocr_torch.core.device import use_full_f32
 from effocr_torch.interop.flax_bridge import state_dict_to_flax
 from effocr_torch.interop.flax_msgpack import write_variables
-from effocr_torch.kernels import cuda_nms
+from effocr_torch.kernels import cuda_nms, cuda_top1
+from effocr_torch.kernels.cuda_build import BUILD_DIR
 from effocr_torch.kernels.nms import MAX_WH, nms_mask
+from effocr_torch.kernels.retrieval import NEG_INF, top1_plain
 from effocr_torch.models.factory import (
     create_encoder,
     create_localizer,
@@ -62,6 +84,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 R5 = os.path.join(ROOT, "bench_results", "r5", "runs")
 N_LINES = 2048
+N_JP_LINES = 600     # the size of the jp_v3 benchmark's eval split
 SEED = 0
 # detect-head bias offsets per scale, by output channel (4 = obj, 5 =
 # class 0 "char", 6 = class 1 "word"), added after the heads are scaled to
@@ -71,6 +94,16 @@ SEED = 0
 DETECT_BIAS = {0: {4: -1.2, 5: 4.0, 6: -4.0},
                1: {4: -6.0},
                2: {4: 0.0, 5: -4.0, 6: 4.0}}
+# the same for the jp vertical detector: char candidates from the stride-8
+# scale only (jp decodes no word boxes); the objectness offset is set for
+# ~30 chars per synthetic line after NMS at IoU 0.01, under the 34 crop
+# slots per line of crop_batch 4096 / line_batch 120
+JP_DETECT_BIAS = {0: {4: -2.6, 5: 4.0, 6: -4.0},
+                  1: {4: -6.0},
+                  2: {4: -6.0}}
+# K2: plain top-2 margins at or below this may flip the index under
+# another summation order; scores must agree within it
+K2_TOL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 SIMT ops/s
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
@@ -182,12 +215,115 @@ def phase_k1(dev):
     return rows
 
 
+# ---------------------------------------------------------------- K2
+def top1_bound_ms(n, d, mask):
+    """Least time for the top-1 on these inputs: queries, prototypes and
+    the mask read once, scores and indices written once, against the
+    2*D operations of each (query, unmasked prototype) product."""
+    c = mask.shape[0]
+    t_bytes = ((n + c) * d * 4 + c + n * 8) / HBM_BYTES_S * 1e3
+    t_ops = 2.0 * n * int(mask.sum()) * d / F32_OPS_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def top1_library(q, p, mask):
+    """One PyTorch computation of the same function: cuBLAS SGEMM, the
+    mask, argmax (the yardstick; the port never calls it)."""
+    sims = torch.matmul(q, p.t())
+    sims = torch.where(mask[None, :], sims, NEG_INF)
+    return torch.argmax(sims, dim=1)
+
+
+def k2_case(name, q, p, mask, exact=False, timed=False):
+    """Kernel vs plain on the card.  Scores within K2_TOL; indices equal
+    wherever the plain top-2 margin exceeds K2_TOL (everywhere if
+    ``exact``: products exact in float32)."""
+    kernel = cuda_top1.top1_kernel
+    s, i = kernel(q, p, mask)
+    rs, ri = top1_plain(q, p, mask)
+    torch.cuda.synchronize()
+    err = float((s - rs).abs().max())
+    diff = i != ri
+    if p.shape[0] > 1:
+        sims = torch.where(mask[None, :], q @ p.t(), NEG_INF)
+        top2 = torch.topk(sims, 2, dim=1).values
+        unsure = top2[:, 0] - top2[:, 1] <= K2_TOL
+    else:
+        unsure = torch.zeros_like(diff)
+    n_diff, n_unsure = int(diff.sum()), int(unsure.sum())
+    log(f"K2 {name}: queries {tuple(q.shape)} prototypes {tuple(p.shape)} "
+        f"masked {int((~mask).sum())}; max|score kernel-plain| {err:.3g}; "
+        f"index differs at {n_diff} queries, {n_unsure} queries have a "
+        f"plain top-2 margin <= {K2_TOL}")
+    if not err <= K2_TOL:
+        raise AssertionError(f"K2 {name}: scores differ by {err}")
+    if exact and not (torch.equal(i, ri) and torch.equal(s, rs)):
+        raise AssertionError(f"K2 {name}: exact case differs")
+    if bool((diff & ~unsure).any()):
+        raise AssertionError(f"K2 {name}: index differs at a query whose "
+                             f"top-2 margin exceeds {K2_TOL}")
+    row = {"max_abs_err": err, "index_differs": n_diff,
+           "low_margin": n_unsure}
+    if timed:
+        row["ms"] = time_ms(lambda: kernel(q, p, mask))
+        row["plain_ms"] = time_ms(lambda: top1_plain(q, p, mask))
+        row["library_ms"] = time_ms(lambda: top1_library(q, p, mask))
+        row["bound_ms"], row["bound_by"] = top1_bound_ms(
+            q.shape[0], q.shape[1], mask)
+        row["splits"] = kernel.splits(q.shape[0], p.shape[0])
+        log(f"K2 {name}: {row['splits']} prototype splits; kernel "
+            f"{row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library (matmul+mask+argmax) "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+    return row
+
+
+def unit_rows(rng, n, d, dev):
+    x = torch.tensor(rng.normal(size=(n, d)), dtype=torch.float32,
+                     device=dev)
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def phase_k2(dev):
+    rng = np.random.default_rng(SEED + 20)
+    rows = {}
+    q, p = unit_rows(rng, 4096, 320, dev), unit_rows(rng, 11051, 320, dev)
+    mask = torch.tensor(rng.uniform(size=11051) >= 0.01, device=dev)
+    rows["synthetic_4096x11051"] = k2_case(
+        "synthetic [4096,320]x[11051,320], ~1% masked", q, p, mask,
+        timed=True)
+    rows["ragged"] = k2_case("ragged C=300, N=1", unit_rows(rng, 1, 320, dev),
+                             unit_rows(rng, 300, 320, dev),
+                             torch.ones(300, dtype=torch.bool, device=dev))
+    # duplicate rows, quarter-step values: exact products, exact ties
+    pd = torch.tensor(rng.integers(-2, 3, (3000, 320)) / 4,
+                      dtype=torch.float32, device=dev)
+    src = torch.tensor(rng.integers(0, 3000, 600), device=dev)
+    pd[torch.tensor(rng.integers(0, 3000, 600), device=dev)] = pd[src]
+    qd = pd[torch.tensor(rng.integers(0, 3000, 1000), device=dev)].clone()
+    rows["duplicates"] = k2_case(
+        "duplicate prototypes (tie rule)", qd, pd,
+        torch.ones(3000, dtype=torch.bool, device=dev), exact=True)
+    none = torch.zeros(11051, dtype=torch.bool, device=dev)
+    rows["all_masked"] = k2_case("every row masked", q[:300], p, none,
+                                 exact=True)
+    s, i = cuda_top1.top1_kernel(q[:300], p, none)
+    if not (bool((i == 0).all()) and bool((s == NEG_INF).all())):
+        raise AssertionError("K2: all-masked queries must give (0, -1e30)")
+    return rows
+
+
 # ------------------------------------------------------------- slice
-def write_png_gray(path: str, img: np.ndarray) -> None:
-    """8-bit grayscale non-interlaced PNG with filter 0 (stdlib zlib)."""
-    h, w = img.shape
-    raw = np.zeros((h, w + 1), np.uint8)
-    raw[:, 1:] = img
+def write_png(path: str, img: np.ndarray) -> None:
+    """8-bit non-interlaced PNG with filter 0 (stdlib zlib): grayscale
+    (colour type 0) for [H, W], RGB (colour type 2) for [H, W, 3]."""
+    h, w = img.shape[:2]
+    color_type = 2 if img.ndim == 3 else 0
+    rows = img.reshape(h, -1)
+    raw = np.zeros((h, rows.shape[1] + 1), np.uint8)
+    raw[:, 1:] = rows
 
     def chunk(tag, data):
         return (struct.pack(">I", len(data)) + tag + data
@@ -195,7 +331,8 @@ def write_png_gray(path: str, img: np.ndarray) -> None:
 
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
+                                             0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
                 + chunk(b"IEND", b""))
 
@@ -223,13 +360,39 @@ def synth_line(rng) -> np.ndarray:
     return img
 
 
-def make_artifacts(dev, sample_paths):
-    """Seeded random-init artifact dirs in the JAX package's format.
+def letterboxed(paths, channels, width, height):
+    """Decode PNGs and letterbox them to a [N, height, width, C] canvas."""
+    from effocr_torch.pipelines.infer import _png_header
 
-    Activations of the random-init detector shrink layer by layer, so its
-    raw outputs barely vary; each detect head's weights are rescaled so
-    its outputs have unit spread on ``sample_paths`` (letterboxed at the
-    trained 96x1024 canvas) before the bias offsets are added."""
+    arrs, _ = native.decode_png_batch(
+        paths, [_png_header(p)[:2] + (channels,) for p in paths])
+    canvas, _, _, _ = native.letterbox_batch(arrs, width, out_h=height)
+    return canvas
+
+
+def scaled_detector(dev, loc, canvas, offsets_by_scale):
+    """Activations of the random-init detector shrink layer by layer, so
+    its raw outputs barely vary; each detect head's weights are rescaled
+    so its outputs have unit spread on ``canvas`` before the bias offsets
+    are added."""
+    loc = loc.to(dev).eval()
+    with torch.no_grad():
+        raw = loc(torch.from_numpy(canvas).to(dev).float() / 255.0,
+                  decode=False)
+        for i, r in enumerate(raw):
+            getattr(loc, f"detect{i}").weight /= r.float().std()
+        loc = loc.cpu()
+        for i, offsets in offsets_by_scale.items():
+            bias = getattr(loc, f"detect{i}").bias.view(3, 7)
+            for ch, v in offsets.items():   # v: one value or one per anchor
+                bias[:, ch] += torch.as_tensor(v, dtype=bias.dtype)
+    return loc
+
+
+def make_artifacts(dev, sample_paths):
+    """Seeded random-init artifact dirs in the JAX package's format; the
+    detect heads scaled on ``sample_paths`` letterboxed at the trained
+    96x1024 canvas."""
     loc_dir = os.path.join(WORK, "loc")
     rec_dir = os.path.join(WORK, "rec")
     for d in (loc_dir, rec_dir):
@@ -241,22 +404,8 @@ def make_artifacts(dev, sample_paths):
     loc = init_params(create_localizer(
         "yolov5s", 2, in_channels=1,
         anchors=tuple(tuple(a) for a in loc_meta["anchors"])), SEED)
-    from effocr_torch.pipelines.infer import _png_header
-
-    arrs, _ = native.decode_png_batch(
-        sample_paths, [_png_header(p)[:2] + (1,) for p in sample_paths])
-    canvas, _, _, _ = native.letterbox_batch(arrs, 1024, out_h=96)
-    loc = loc.to(dev).eval()
-    with torch.no_grad():
-        raw = loc(torch.from_numpy(canvas).to(dev).float() / 255.0,
-                  decode=False)
-        for i, r in enumerate(raw):
-            getattr(loc, f"detect{i}").weight /= r.float().std()
-        loc = loc.cpu()
-        for i, offsets in DETECT_BIAS.items():
-            bias = getattr(loc, f"detect{i}").bias.view(3, 7)
-            for ch, v in offsets.items():   # v: one value or one per anchor
-                bias[:, ch] += torch.as_tensor(v, dtype=bias.dtype)
+    loc = scaled_detector(dev, loc, letterboxed(sample_paths, 1, 1024, 96),
+                          DETECT_BIAS)
     write_variables(state_dict_to_flax(loc.state_dict()),
                     os.path.join(loc_dir, "best_bbox_mAP.msgpack"))
     enc = init_params(create_encoder("mobilenetv3_small_050", in_channels=1),
@@ -278,7 +427,7 @@ def make_lines():
     paths = []
     for i in range(N_LINES):
         p = os.path.join(d, f"{i:05d}.png")
-        write_png_gray(p, synth_line(rng))
+        write_png(p, synth_line(rng))
         paths.append(p)
     return paths
 
@@ -294,6 +443,35 @@ def engine_args(loc_dir, rec_dir, *extra):
     p = argparse.ArgumentParser()
     add_engine_args(p)
     return p.parse_args(flags + list(extra))   # --device: cuda by default
+
+
+def timed_run(engine, paths, res0, tag):
+    """The timed run of a slice: both kernels' launch counts from 0, the
+    stage timer and peak memory from here; its results must be those of
+    the warm-up run ``res0``."""
+    cuda_nms.nms_kernel.launches = cuda_top1.top1_kernel.launches = 0
+    engine.timer.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = engine.run(paths)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = dict(results=results, wall=wall, lines_s=len(paths) / wall,
+               k1_launches=cuda_nms.nms_kernel.launches,
+               k2_launches=cuda_top1.top1_kernel.launches,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               chunks=-(-len(paths) // engine.config.line_batch),
+               dispatches=engine.timer.counts["prep/h2d+dispatch"])
+    missing = [p for p in paths if not isinstance(results.get(p), str)]
+    if missing:
+        raise AssertionError(f"{tag}: {len(missing)} lines without a "
+                             f"string result, e.g. {missing[:3]}")
+    if results != res0:
+        raise AssertionError(f"{tag}: warm and timed runs decoded "
+                             "differently")
+    log(f"{tag}: stage split of the timed run (host wall clock; prep/* = "
+        "prefetch worker, main/* = consumer):\n" + engine.timer.report())
+    return run
 
 
 def phase_slice(dev, card, out_dir, profile=False):
@@ -333,31 +511,17 @@ def phase_slice(dev, card, out_dir, profile=False):
     n_chars = [len(im_chars) for im_chars in _chars_per_line(coco)]
     mean_chars = float(np.mean(n_chars))
 
-    # timed run: launch counts from 0, peak memory from here
-    kernel.launches = 0
-    engine.timer.reset()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    results = engine.run(paths)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernel.launches
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    if launches == 0:
+    run = timed_run(engine, paths, res0, "slice")
+    results = run["results"]
+    if run["k1_launches"] == 0:
         raise AssertionError("the main path launched the NMS kernel 0 times")
-    missing = [p for p in paths if not isinstance(results.get(p), str)]
-    if missing:
-        raise AssertionError(f"{len(missing)} lines without a string "
-                             f"result, e.g. {missing[:3]}")
-    if results != res0:
-        raise AssertionError("warm and timed runs decoded differently")
-    lines_s = len(paths) / wall
-    log(f"slice: {len(paths)} lines in {wall:.3f} s = {lines_s:.1f} "
-        f"lines/s ({card}); mean chars/line {mean_chars:.1f} (min "
-        f"{min(n_chars)}, max {max(n_chars)}); NMS kernel launches "
-        f"{launches}; peak device memory {peak_gib:.2f} GiB")
-    log("slice: stage split of the timed run (host wall clock; prep/* = "
-        "prefetch worker, main/* = consumer):\n" + engine.timer.report())
+    log(f"slice: {len(paths)} lines in {run['wall']:.3f} s = "
+        f"{run['lines_s']:.1f} lines/s ({card}); mean chars/line "
+        f"{mean_chars:.1f} (min {min(n_chars)}, max {max(n_chars)}); "
+        f"{run['dispatches']} dispatches for {run['chunks']} chunks; NMS "
+        f"kernel launches {run['k1_launches']}, top-1 kernel launches "
+        f"{run['k2_launches']} (not on this path); peak device memory "
+        f"{run['peak_gib']:.2f} GiB")
     example = paths[0]
     log(f"slice: example result {os.path.basename(example)} -> "
         f"{results[example][:60]!r}")
@@ -376,13 +540,241 @@ def phase_slice(dev, card, out_dir, profile=False):
     log(f"slice: {len(sub)} lines decode identically with plain-torch NMS")
     models_vs_cpu(engine, paths[:2])
     if profile:
-        profile_run(engine, paths[:c.line_batch], card, out_dir)
-    return dict(lines_s=lines_s, wall=wall, launches=launches,
-                peak_gib=peak_gib, mean_chars=mean_chars,
-                n_lines=len(paths), k1_main=k1_main)
+        profile_run(engine, paths[:c.line_batch], card, out_dir, "en")
+    return dict(lines_s=run["lines_s"], wall=run["wall"],
+                launches=run["k1_launches"], k2_launches=run["k2_launches"],
+                peak_gib=run["peak_gib"], mean_chars=mean_chars,
+                n_lines=len(paths),
+                spilled=run["dispatches"] - run["chunks"], k1_main=k1_main)
 
 
-def profile_run(engine, paths, card, out_dir):
+# ------------------------------------------------------ jp vertical slice
+INK = (28, 22, 60)          # dark ink on cream paper, RGB
+PAPER = (246, 240, 226)
+
+
+def synth_vline(rng) -> np.ndarray:
+    """A vertical printed-line-like RGB image: widths 40-64 px, heights
+    300-1600 px, glyph-like groups of 2-5 strokes stacked top to bottom
+    with small gaps (and a wider one now and then)."""
+    w = int(rng.integers(40, 65))
+    h = int(rng.integers(300, 1601))
+    img = np.empty((h, w, 3), np.uint8)
+    img[:] = PAPER
+    left, right = w // 8, w - w // 8
+    y = w // 4
+    while True:
+        g = int(w * rng.uniform(0.6, 0.9))
+        if y + g > h - w // 4:
+            break
+        for _ in range(int(rng.integers(2, 6))):
+            tone = rng.integers(0, 50)
+            color = np.clip(np.asarray(INK) + tone, 0, 255).astype(np.uint8)
+            if rng.uniform() < 0.5:   # vertical stroke
+                x0 = int(rng.integers(left, max(left + 1, right - 3)))
+                img[y:y + g, x0:x0 + max(2, w // 12)] = color
+            else:                     # horizontal stroke
+                y0 = y + int(rng.integers(0, max(1, g - 2)))
+                img[y0:y0 + max(2, w // 14), left:right] = color
+        y += g + (w // 2 if rng.uniform() < 0.1 else max(3, w // 8))
+    return img
+
+
+def make_vlines():
+    d = os.path.join(WORK, "vlines")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(SEED + 13)
+    paths = []
+    for i in range(N_JP_LINES):
+        p = os.path.join(d, f"{i:05d}.png")
+        write_png(p, synth_vline(rng))
+        paths.append(p)
+    return paths
+
+
+def make_jp_artifacts(dev, sample_paths):
+    """Seeded random-init jp artifact dirs: yolov5n (loc_vert model.json,
+    default anchors) with its detect heads scaled on ``sample_paths``
+    letterboxed at the trained 96-wide, 640-tall canvas; convnext_atto
+    (rec_knn6k3 model.json) with LayerScale ``gamma`` drawn from U(0.5,
+    1.5) instead of Flax's 1e-6, so no block is near the identity; 11,051
+    random unit prototypes of width 320 with rec_knn6k3's ref.txt."""
+    loc_dir = os.path.join(WORK, "jp_loc")
+    rec_dir = os.path.join(WORK, "jp_rec")
+    for d in (loc_dir, rec_dir):
+        os.makedirs(d, exist_ok=True)
+    shutil.copy(os.path.join(R5, "loc_vert", "model.json"), loc_dir)
+    shutil.copy(os.path.join(R5, "rec_knn6k3", "model.json"), rec_dir)
+    loc = init_params(create_localizer("yolov5n", 2, in_channels=3),
+                      SEED + 10)
+    loc = scaled_detector(dev, loc, letterboxed(sample_paths, 3, 96, 640),
+                          JP_DETECT_BIAS)
+    write_variables(state_dict_to_flax(loc.state_dict()),
+                    os.path.join(loc_dir, "best_bbox_mAP.msgpack"))
+    enc = init_params(create_encoder("convnext_atto", in_channels=3),
+                      SEED + 11)
+    g = torch.Generator().manual_seed(SEED + 12)
+    with torch.no_grad():
+        for name, prm in enc.named_parameters():
+            if name.endswith("gamma"):
+                prm.copy_(0.5 + torch.rand(prm.shape, generator=g))
+    write_variables(state_dict_to_flax(enc.state_dict()),
+                    os.path.join(rec_dir, "enc_best.msgpack"))
+    with open(os.path.join(R5, "rec_knn6k3", "ref.txt"), newline="") as f:
+        chars = f.read().split("\n")     # no trailing newline: 11,051 rows
+    protos = np.random.default_rng(SEED + 14).normal(size=(len(chars), 320))
+    PrototypeIndex(protos.astype(np.float32), chars).save(rec_dir)
+    shutil.copy(os.path.join(R5, "rec_knn6k3", "ref.txt"), rec_dir)
+    return loc_dir, rec_dir
+
+
+def jp_engine_args(loc_dir, rec_dir, *extra):
+    """The jp_v3 benchmark's flag list, artifact paths swapped."""
+    import argparse
+
+    with open(os.path.join(ROOT, "bench_results", "r5",
+                           "jp_v3.result.json")) as f:
+        flags = json.load(f)["flags"]
+    swap = {"--localizer_dir": loc_dir, "--recognizer_dir": rec_dir}
+    flags = [swap.get(flags[i - 1], f) if i else f
+             for i, f in enumerate(flags)]
+    p = argparse.ArgumentParser()
+    add_engine_args(p)
+    return p.parse_args(flags + list(extra))   # --device: cuda by default
+
+
+class Top1Check:
+    """Stands in for cuda_top1.top1_kernel during one run: launches the
+    kernel, keeps the first input of the path, and holds each result
+    against top1_plain on the same queries."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+        self.first = None
+        self.calls = self.slots = self.differs = self.low_margin = 0
+        self.max_err = 0.0
+
+    def __call__(self, q, p, mask):
+        s, i = self.kernel(q, p, mask)
+        if self.first is None:
+            self.first = (q.clone(), p, mask.clone())
+        rs, ri = top1_plain(q, p, mask)
+        sims = torch.where(mask[None, :], q @ p.t(), NEG_INF)
+        top2 = torch.topk(sims, 2, dim=1).values
+        unsure = top2[:, 0] - top2[:, 1] <= K2_TOL
+        diff = i != ri
+        if bool((diff & ~unsure).any()):
+            raise AssertionError("K2 on the jp path: index differs from "
+                                 f"top1_plain at a margin above {K2_TOL}")
+        self.calls += 1
+        self.slots += q.shape[0]
+        self.differs += int(diff.sum())
+        self.low_margin += int(unsure.sum())
+        self.max_err = max(self.max_err, float((s - rs).abs().max()))
+        return s, i
+
+
+def phase_jp(dev, card, out_dir, profile=False):
+    t0 = time.perf_counter()
+    paths = make_vlines()
+    loc_dir, rec_dir = make_jp_artifacts(dev, paths[:16])
+    log(f"jp: artifacts + {len(paths)} RGB vertical line PNGs written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    engine = load_engine(jp_engine_args(loc_dir, rec_dir,
+                                        "--nms_kernel", "pallas"))
+    c = engine.config
+    log(f"jp: lang {c.lang} vertical {c.vertical} line_batch {c.line_batch}"
+        f" crop_batch {c.crop_batch} max_det {c.localizer.max_det} max_nms "
+        f"{c.localizer.max_nms} iou {c.localizer.iou_thresh} conf "
+        f"{c.localizer.conf_thresh} nms_kernel {c.nms_kernel} (-> "
+        f"{engine._nms_kernel}) retrieval_kernel {c.retrieval_kernel} "
+        f"(top-1 kernel: {engine._top1}) out_quant {c.out_quant} "
+        f"transfer_bits {c.transfer_bits} canvas {c.localizer.input_size} "
+        f"wide x {c.localizer.input_height} tall, {c.input_channels} "
+        f"channels, crop_geometry {c.crop_geometry}, {len(engine.index)} "
+        "prototypes")
+
+    # warm-up run: K2 checked against top1_plain on every chunk, the first
+    # NMS and top-1 inputs of the path kept
+    nms_captured = {}
+    nms = cuda_nms.nms_kernel
+    top1 = cuda_top1.top1_kernel
+    check = Top1Check(top1)
+
+    def capture(boxes, valid, thr):
+        if not nms_captured:
+            nms_captured.update(boxes=boxes.clone(), valid=valid.clone(),
+                                thr=thr)
+        return nms(boxes, valid, thr)
+
+    cuda_nms.nms_kernel, cuda_top1.top1_kernel = capture, check
+    t0 = time.perf_counter()
+    try:
+        res0, coco = engine.run(paths, return_coco=True)
+    finally:
+        cuda_nms.nms_kernel, cuda_top1.top1_kernel = nms, top1
+    torch.cuda.synchronize()
+    log(f"jp: warm-up run {time.perf_counter() - t0:.2f} s; K2 held "
+        f"against top1_plain on {check.calls} chunks, {check.slots} crop "
+        f"slots: index differs at {check.differs}, all within the "
+        f"{check.low_margin} slots whose plain top-2 margin is <= {K2_TOL}; "
+        f"max|score diff| {check.max_err:.3g}")
+    if check.calls == 0:
+        raise AssertionError("the jp path never reached the top-1 kernel")
+    n_chars = [len(im_chars) for im_chars in _chars_per_line(coco)]
+    mean_chars = float(np.mean(n_chars))
+
+    run = timed_run(engine, paths, res0, "jp")
+    results = run["results"]
+    k1_launches, k2_launches = run["k1_launches"], run["k2_launches"]
+    if k1_launches == 0 or k2_launches == 0:
+        raise AssertionError(f"the jp path launched K1 {k1_launches} and K2 "
+                             f"{k2_launches} times")
+    spilled = run["dispatches"] - run["chunks"]
+    log(f"jp: {len(paths)} lines in {run['wall']:.3f} s = "
+        f"{run['lines_s']:.1f} lines/s ({card}); mean chars/line "
+        f"{mean_chars:.1f} (min {min(n_chars)}, max {max(n_chars)}); "
+        f"{run['dispatches']} dispatches for {run['chunks']} chunks "
+        f"({spilled} spilled past crop_batch); K1 launches {k1_launches}, "
+        f"K2 launches {k2_launches}; peak device memory "
+        f"{run['peak_gib']:.2f} GiB")
+    example = paths[0]
+    log(f"jp: example result {os.path.basename(example)} -> "
+        f"{results[example][:30]!r}")
+
+    # the kernels on the inputs this path gave them
+    k1_main = k1_case("jp main-path input", nms_captured["boxes"],
+                      nms_captured["valid"], nms_captured["thr"], timed=True)
+    k2_main = k2_case("jp main-path input", *check.first, timed=True)
+    k2_main["engine_differs"] = check.differs
+    k2_main["engine_low_margin"] = check.low_margin
+    k2_main["max_abs_err"] = max(k2_main["max_abs_err"], check.max_err)
+
+    # the same engine with top1_plain: identical text apart from lines
+    # holding a slot where the kernel's index differs (low margin only)
+    cuda_top1.top1_kernel = top1_plain
+    try:
+        plain_res = engine.run(paths)
+    finally:
+        cuda_top1.top1_kernel = top1
+    n_diff = sum(plain_res[p] != results[p] for p in paths)
+    log(f"jp: {len(paths)} lines with top1_plain: {n_diff} lines differ "
+        f"(at most as many as the {check.differs} low-margin slots where "
+        "K2's index differed may)")
+    if n_diff > check.differs:
+        raise AssertionError("top-1 kernel and top1_plain engines differ "
+                             "beyond the low-margin slots")
+    models_vs_cpu(engine, paths[:2])
+    if profile:
+        profile_run(engine, paths[:c.line_batch], card, out_dir, "jp")
+    return dict(lines_s=run["lines_s"], wall=run["wall"],
+                k1_launches=k1_launches, k2_launches=k2_launches,
+                peak_gib=run["peak_gib"], mean_chars=mean_chars,
+                n_lines=len(paths), spilled=spilled, k1_main=k1_main,
+                k2_main=k2_main, plain_lines_differ=n_diff)
+
+
+def profile_run(engine, paths, card, out_dir, tag):
     """torch.profiler over one chunk of ``paths``, prepared, issued and
     finished on this thread (the profiler records the CPU-side ranges of
     the thread it runs on): device time per engine stage (the
@@ -392,7 +784,8 @@ def profile_run(engine, paths, card, out_dir):
 
     from effocr_torch.pipelines.infer import _LazyImage
 
-    chunk = [_LazyImage(p, gray=True) for p in paths]
+    chunk = [_LazyImage(p, gray=engine.config.input_channels == 1)
+             for p in paths]
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
@@ -401,7 +794,7 @@ def profile_run(engine, paths, card, out_dir):
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    with open(os.path.join(out_dir, "profile_table.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_table_{tag}.txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total",
                              row_limit=40))
     # device-side events: the kernels, plus one span per stage range
@@ -409,7 +802,7 @@ def profile_run(engine, paths, card, out_dir):
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels = [e for e in dev_events if not e.key.startswith("ocr/")]
     kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"profile: one chunk of {len(paths)} lines ({card}); wall "
+    log(f"profile {tag}: one chunk of {len(paths)} lines ({card}); wall "
         f"{wall_ms:.1f} ms (profiler on), device kernel time "
         f"{kernel_ms:.1f} ms in {sum(e.count for e in kernels)} kernel "
         f"launches, busy share {kernel_ms / wall_ms:.3f}")
@@ -418,13 +811,22 @@ def profile_run(engine, paths, card, out_dir):
     for e in sorted((e for e in events if e.key.startswith("ocr/")
                      and e.device_type == torch.autograd.DeviceType.CPU),
                     key=lambda e: -e.device_time_total):
-        log(f"profile: stage {e.key:16s} kernels {e.device_time_total / 1e3:8.2f}"
+        log(f"profile {tag}: stage {e.key:16s} kernels "
+            f"{e.device_time_total / 1e3:8.2f}"
             f" ms  device span {spans.get(e.key, 0.0):8.2f} ms  host "
             f"{e.cpu_time_total / 1e3:8.2f} ms  x{e.count}  (kernels "
             "launched through ctypes are not attributed to a stage)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"profile: kernel {e.self_device_time_total / 1e3:8.2f} ms "
+        log(f"profile {tag}: kernel {e.self_device_time_total / 1e3:8.2f} ms "
             f"x{e.count:<5d} {e.key[:90]}")
+    # the hand-written kernels by name (their ctypes launches sit outside
+    # the stage ranges)
+    for name in ("nms_mask_kernel", "top1_partial_kernel",
+                 "top1_combine_kernel"):
+        ms = sum(e.self_device_time_total for e in kernels
+                 if name in e.key) / 1e3
+        n = sum(e.count for e in kernels if name in e.key)
+        log(f"profile {tag}: {name} {ms:.3f} ms x{n}")
 
 
 def _chars_per_line(coco):
@@ -436,19 +838,21 @@ def _chars_per_line(coco):
 
 def models_vs_cpu(engine, two_paths):
     """Both models in float32, on the card vs on the CPU, on real inputs:
-    2 letterboxed lines and 16 crops of them."""
-    from effocr_torch.pipelines.infer import _png_header
-
-    arrs, _ = native.decode_png_batch(
-        two_paths, [_png_header(p)[:2] + (1,) for p in two_paths])
-    out, _, _, _ = native.letterbox_batch(arrs, 1024, out_h=96)
-    x = torch.from_numpy(out).float() / 255.0
-    for name, model, inp in (
-        ("yolov5s", engine.localizer, x),
-        ("mobilenetv3_small_050", engine.encoder,
-         torch.nn.functional.interpolate(
-             x[:, :, :96].permute(0, 3, 1, 2), size=(128, 128)).permute(
-                 0, 2, 3, 1).repeat(8, 1, 1, 1)),
+    2 lines letterboxed to the engine's canvas, and 16 crops of them (the
+    canvas's top-left square resized to the encoder's input size)."""
+    c = engine.config
+    size = c.localizer.input_size
+    x = torch.from_numpy(letterboxed(
+        two_paths, c.input_channels, size,
+        c.localizer.input_height or size)).float() / 255.0
+    side = min(x.shape[1], x.shape[2])
+    crops = torch.nn.functional.interpolate(
+        x[:, :side, :side].permute(0, 3, 1, 2),
+        size=(c.encoder.image_size,) * 2).permute(0, 2, 3, 1).repeat(
+            8, 1, 1, 1)
+    for name, model, inp, detector in (
+        (c.localizer.arch, engine.localizer, x, True),
+        (c.encoder.arch, engine.encoder, crops, False),
     ):
         gpu = _f32_copy(model, "cuda")
         cpu = _f32_copy(model, "cpu")
@@ -457,15 +861,13 @@ def models_vs_cpu(engine, two_paths):
             r = cpu(inp)
         g = (g[0] if isinstance(g, tuple) else g).float().cpu()
         r = (r[0] if isinstance(r, tuple) else r).float()
-        if name == "yolov5s":
+        if detector:
             err = float((g[..., 4:] - r[..., 4:]).abs().max())
-            tol = 1e-3
         else:
             err = float((g - r).abs().max() / r.abs().max())
-            tol = 1e-3
+        tol = 1e-3
         log(f"models: {name} float32 card vs CPU max |d| "
-            f"{'prob' if name == 'yolov5s' else 'rel'} {err:.3g} "
-            f"(tolerance {tol})")
+            f"{'prob' if detector else 'rel'} {err:.3g} (tolerance {tol})")
         if not err <= tol:
             raise AssertionError(f"{name}: card and CPU disagree ({err})")
 
@@ -486,10 +888,10 @@ def main(argv) -> int:
 
     p = argparse.ArgumentParser(prog="chip_smoke.py")
     p.add_argument("--profile", action="store_true",
-                   help="add a torch.profiler split of one chunk")
+                   help="add a torch.profiler split of one chunk per slice")
     p.add_argument("--out", default=WORK,
                    help="directory for chip_smoke.json (and the profiler "
-                        "table)")
+                        "tables)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -508,26 +910,36 @@ def main(argv) -> int:
         f"torch.backends.cudnn.allow_tf32 = "
         f"{torch.backends.cudnn.allow_tf32}")
 
+    # every library built at once, one compiler process each
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = [pool.submit(native.build), pool.submit(cuda_nms.build)]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        builds = [pool.submit(native.build), pool.submit(cuda_nms.build),
+                  pool.submit(cuda_top1.build)]
         libs = [f.result() for f in builds]
     log(f"build: {libs} in {time.perf_counter() - t0:.1f} s")
-    with open(os.path.join(cuda_nms.BUILD_DIR, "nms_ptxas.txt")) as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "smem" in ln]
-    log("build: ptxas " + " | ".join(ptxas))
+    for name in ("nms", "top1"):
+        with open(os.path.join(BUILD_DIR, f"{name}_ptxas.txt")) as f:
+            ptxas = [ln.strip() for ln in f
+                     if "registers" in ln or "smem" in ln or "spill" in ln]
+        log(f"build: ptxas {name}: " + " | ".join(ptxas))
 
     k1 = phase_k1(dev)
+    k2 = phase_k2(dev)
     sl = phase_slice(dev, card, args.out, profile=args.profile)
+    jp = phase_jp(dev, card, args.out, profile=args.profile)
 
     main_row = sl["k1_main"]
-    err = max(r["max_abs_err"] for r in list(k1.values()) + [main_row])
+    err = max(r["max_abs_err"] for r in list(k1.values())
+              + [main_row, jp["k1_main"]])
+    k2_main = jp["k2_main"]
+    k2_err = max(r["max_abs_err"] for r in list(k2.values()) + [k2_main])
     kernels = [{
         "name": "nms_keep_mask",
         "route": "cuda",
         "source": "effocr_torch/csrc/nms.cu",
         "replaces": "effocr_tpu/kernels/pallas_nms.py:51",
-        "launches": sl["launches"],
+        "launches": sl["launches"] + jp["k1_launches"],
+        "launches_by_path": {"en": sl["launches"], "jp": jp["k1_launches"]},
         "max_abs_err": err,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -537,11 +949,32 @@ def main(argv) -> int:
         "library_note": "no PyTorch call computes greedy NMS "
                         "(torchvision is not installed and is not a torch op)",
         "synthetic_512x1024": k1["synthetic_512x1024"],
+        "jp_main_path": jp["k1_main"],
+    }, {
+        "name": "top1_retrieval",
+        "route": "cuda",
+        "source": "effocr_torch/csrc/top1.cu",
+        "replaces": "effocr_tpu/kernels/pallas_retrieval.py:28",
+        "launches": jp["k2_launches"],
+        "launches_by_path": {"en": sl["k2_launches"],
+                             "jp": jp["k2_launches"]},
+        "max_abs_err": k2_err,
+        "ms": k2_main["ms"],
+        "plain_ms": k2_main["plain_ms"],
+        "bound_ms": k2_main["bound_ms"],
+        "bound_by": k2_main["bound_by"],
+        "library_ms": k2_main["library_ms"],
+        "library_note": "torch.matmul + mask + argmax on the same tensors",
+        "synthetic_4096x11051": k2["synthetic_4096x11051"],
+        "jp_main_path": k2_main,
     }]
     summary = dict(card=card, lines_per_s=sl["lines_s"],
                    timed_wall_s=sl["wall"], n_lines=sl["n_lines"],
                    mean_chars_per_line=sl["mean_chars"],
-                   peak_device_gib=sl["peak_gib"], kernels=kernels,
+                   peak_device_gib=sl["peak_gib"], spilled=sl["spilled"],
+                   jp={k: v for k, v in jp.items()
+                       if k not in ("k1_main", "k2_main")},
+                   kernels=kernels,
                    total_s=time.perf_counter() - t_start)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)

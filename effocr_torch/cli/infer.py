@@ -205,7 +205,10 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--out_quant", type=str, default="i32",
                    choices=["i32", "u16"])
     p.add_argument("--retrieval_kernel", type=str, default="xla",
-                   choices=["xla", "pallas"])
+                   choices=["xla", "pallas"],
+                   help="pallas (the TPU name) = the hand-written fused "
+                        "top-1 retrieval kernel; xla = torch matmul + "
+                        "top-k")
     p.add_argument("--nms_kernel", type=str, default="xla",
                    choices=["xla", "pallas", "cuda"],
                    help="cuda (or pallas, its TPU name) = the hand-written "

@@ -11,7 +11,10 @@ and relayouts it:
 - BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
   (batch_stats) -> ``weight``/``bias``/``running_mean``/``running_var``.
   Each BatchNorm keeps its own epsilon in the module definition (1e-3 in
-  ConvBnAct, 1e-5 in MobileNetV3), not in the checkpoint.
+  ConvBnAct, 1e-5 in MobileNetV3), not in the checkpoint;
+- LayerNorm ``scale``/``bias`` -> ``weight``/``bias`` (ConvNeXt's
+  ``stem_norm``, ``downsample_norm{i}``, the blocks' ``LayerNorm_0``,
+  ``head_norm``), and ConvNeXt's LayerScale ``gamma`` keeps its name.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-_PARAM_NAMES = {"scale": "weight", "bias": "bias"}
+_PARAM_NAMES = {"scale": "weight", "bias": "bias", "gamma": "gamma"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -69,7 +72,8 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Inverse of ``flax_to_state_dict``: writes checkpoints the JAX
     package (and this package's loader) read.  A 4-D ``weight`` is a conv
-    kernel, a 2-D one a Dense kernel, a 1-D one a BatchNorm scale."""
+    kernel, a 2-D one a Dense kernel, a 1-D one a BatchNorm or LayerNorm
+    scale."""
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     inv_stats = {v: k for k, v in _STAT_NAMES.items()}
@@ -84,8 +88,8 @@ def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             tree, name, arr = params, "kernel", arr.T
         elif leaf == "weight":
             tree, name = params, "scale"
-        elif leaf == "bias":
-            tree, name = params, "bias"
+        elif leaf in ("bias", "gamma"):
+            tree, name = params, leaf
         else:
             raise KeyError(f"unexpected state_dict entry {key}")
         for s in scope:

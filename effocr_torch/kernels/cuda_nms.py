@@ -2,8 +2,9 @@
 
 Replaces the TPU kernel effocr_tpu/kernels/pallas_nms.py
 (``pallas_nms_mask``).  The CUDA source is compiled with nvcc for sm_90a
-into a shared library with a plain C interface on first use (git-ignored
-``csrc/build/``) and called through ctypes on PyTorch's current stream.
+into a shared library with a plain C interface on first use
+(kernels/cuda_build.py, git-ignored ``csrc/build/``) and called through
+ctypes on PyTorch's current stream.
 
 ``nms_keep`` is the entry the pipeline calls: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes the plain version,
@@ -14,57 +15,23 @@ one to the other.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
 
 import torch
 
+from effocr_torch.kernels.cuda_build import build_library
 from effocr_torch.kernels.nms import nms_mask
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "nms.cu")
-BUILD_DIR = os.path.join(_PKG, "csrc", "build")
-LIBRARY = os.path.join(BUILD_DIR, "libeffocr_nms.so")
 # H100: 227 KB of shared memory per block (232,448 bytes), less the
 # kernel's static word
 _SMEM_LIMIT = 232448 - 16
 
 
-def nvcc_path() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin); "
-                           "the CUDA NMS kernel cannot be built")
-    return nvcc
-
-
 def build() -> str:
-    """Compile csrc/nms.cu for sm_90a unless an up-to-date library exists;
-    returns the library path.  Raises RuntimeError with nvcc's output."""
-    if (os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return LIBRARY
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp, SOURCE]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stderr}{res.stdout}")
-        with open(os.path.join(BUILD_DIR, "nms_ptxas.txt"), "w") as f:
-            f.write(res.stderr)
-        os.replace(tmp, LIBRARY)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return LIBRARY
+    """Compile csrc/nms.cu (no FMA contraction: the keep mask is
+    bit-identical to the plain version) unless an up-to-date library
+    exists; returns the library path."""
+    return build_library("nms.cu", "nms", ["-fmad=false"])
 
 
 class NmsKernel:

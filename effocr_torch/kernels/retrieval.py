@@ -1,5 +1,6 @@
 """kNN retrieval: L2-normalize -> float32 matmul -> top-k (the JAX
-package's kernels/retrieval.py).
+package's kernels/retrieval.py), and ``top1_plain``, the plain version of
+the fused top-1 kernel (K2, kernels/cuda_top1.py).
 
 The matmul is ``torch.matmul`` in full float32: the port's entry points
 turn TF32 off (core/device.py), because retrieval margins between glyph
@@ -45,3 +46,20 @@ def knn_topk(
         return torch.gather(sims, 1, idx), idx
     scores, idx = torch.sort(sims, dim=1, descending=True, stable=True)
     return scores[:, :k], idx[:, :k]
+
+
+def top1_plain(queries: torch.Tensor, prototypes: torch.Tensor,
+               row_mask: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scores [N] float32, indices [N] int32) of the best inner-product
+    prototype: the contract of the JAX package's pallas_top1.
+
+    queries [N, D] (already L2-normalized), prototypes [C, D], row_mask
+    [C] bool (False = blacklisted, scores -1e30).  Ties go to the first
+    index; with every row masked a query gets (-1e30, 0)."""
+    sims = torch.matmul(queries.float(), prototypes.float().t())
+    if row_mask is not None:
+        sims = torch.where(row_mask[None, :], sims,
+                           torch.full_like(sims, NEG_INF))
+    idx = torch.argmax(sims, dim=1, keepdim=True)   # first maximal index
+    return torch.gather(sims, 1, idx)[:, 0], idx[:, 0].to(torch.int32)

@@ -1,8 +1,8 @@
 """Model registry: the entries the ported inference path loads.
 
 Names follow the JAX package's models/factory.py registry; only the
-architectures of the pinned English inference path are ported so far
-(ROADMAP.md lists the rest).  ``create_*`` default to bfloat16 compute,
+architectures of the ported inference paths (the pinned English and the
+Japanese vertical configs) are here so far (ROADMAP.md lists the rest).  ``create_*`` default to bfloat16 compute,
 as the JAX factory does.
 """
 
@@ -13,14 +13,21 @@ from typing import Callable, Dict
 import torch
 from torch import nn
 
-from effocr_torch.models import layers, mobilenetv3, yolo
+from effocr_torch.models import convnext, layers, mobilenetv3, yolo
 
 ENCODER_REGISTRY: Dict[str, Callable] = {
+    "convnext_atto": convnext.convnext_atto,
+    "convnext_femto": convnext.convnext_femto,
+    "convnext_nano": convnext.convnext_nano,
+    "convnext_tiny": convnext.convnext_tiny,
+    "convnext_small": convnext.convnext_small,
     "mobilenetv3_small_050": mobilenetv3.mobilenetv3_small_050,
 }
 
 LOCALIZER_REGISTRY: Dict[str, Callable] = {
+    "yolov5n": yolo.yolov5n,
     "yolov5s": yolo.yolov5s,
+    "yolov5m": yolo.yolov5m,
 }
 
 
@@ -47,7 +54,8 @@ def create_localizer(name: str, num_classes: int = 2, in_channels: int = 3,
 
 def init_params(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random init in place: conv and Dense weights ~ N(0, 1/fan_in)
-    (Flax's lecun_normal scale), biases 0, BatchNorm at identity."""
+    (Flax's lecun_normal scale), biases 0, BatchNorm and LayerNorm at
+    identity, ConvNeXt's LayerScale ``gamma`` at its Flax init (1e-6)."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
@@ -57,4 +65,9 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
                                / fan_in ** 0.5)
                 if m.bias is not None:
                     m.bias.zero_()
+            elif isinstance(m, layers.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, convnext.ConvNeXtBlock):
+                m.gamma.fill_(1e-6)
     return model

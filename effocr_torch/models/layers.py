@@ -84,6 +84,32 @@ class BatchNorm(nn.Module):
         return y * mul.view(shape) + self.bias.float().view(shape)
 
 
+class LayerNorm(nn.Module):
+    """Flax ``nn.LayerNorm(dtype=float32)`` over the last axis: float32
+    statistics with the fast variance ``max(E[x^2] - E[x]^2, 0)`` (Flax's
+    ``use_fast_variance=True`` default) and Flax's operation order
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.  Returns float32."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        mean2 = torch.square(x).mean(dim=-1, keepdim=True)
+        var = torch.clamp(mean2 - torch.square(mean), min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return (x - mean) * mul + self.bias.float()
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """NHWC -> [B, C]."""
+    return x.mean(dim=(1, 2))
+
+
 class ConvBnAct(nn.Module):
     """Conv2D + BatchNorm (eps 1e-3) + activation (YOLOv5's ``Conv``)."""
 

@@ -195,5 +195,13 @@ def decode_predictions(
     return torch.cat(outs, dim=1)
 
 
+def yolov5n(**kw):
+    return YOLOv5(depth_multiple=0.33, width_multiple=0.25, **kw)
+
+
 def yolov5s(**kw):
     return YOLOv5(depth_multiple=0.33, width_multiple=0.50, **kw)
+
+
+def yolov5m(**kw):
+    return YOLOv5(depth_multiple=0.67, width_multiple=0.75, **kw)

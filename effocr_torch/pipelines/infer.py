@@ -9,17 +9,20 @@ Per chunk of ``line_batch`` lines:
                            (native/preproc.cpp), one upload
   device (one stream):     unpack -> detector -> decode + greedy NMS (CUDA
                            kernel) -> per-line reading-order sort ->
-                           crop-slot compaction -> ROI crops -> encoder ->
-                           retrieval, run per ``encoder_sub_batch`` ->
-                           ONE packed result buffer, copied back async
-  host (consumer):         word boundaries + postprocess per line
+                           crop-slot compaction -> ROI crops -> encoder
+                           (run per ``encoder_sub_batch``) -> retrieval
+                           (matmul + argmax, or the fused top-1 CUDA
+                           kernel) -> ONE packed result buffer, copied
+                           back async
+  host (consumer):         word boundaries + postprocess per line (jp:
+                           the joined chars)
 
-Device work is issued eagerly by the prefetch worker; the copy of chunk
-k's buffer overlaps the issue of chunk k+1.  Out of this slice (each
-raises NotImplementedError; ROADMAP.md tracks them): crop_source
+Horizontal lines read left to right, vertical ones (``vertical``) top to
+bottom.  Device work is issued eagerly by the prefetch worker; the copy
+of chunk k's buffer overlaps the issue of chunk k+1.  Out of this slice
+(each raises NotImplementedError; ROADMAP.md tracks them): crop_source
 'original', bucket transfer, data-parallel meshes, wide-line tiling,
-classifier mode, spell check, the jp/vertical path and the Pallas
-retrieval kernel.
+classifier mode and spell check.
 """
 
 from __future__ import annotations
@@ -37,8 +40,9 @@ from torch.profiler import record_function
 from effocr_torch import native
 from effocr_torch.core.config import PipelineConfig
 from effocr_torch.core.device import resolve_device, use_full_f32
+from effocr_torch.kernels import cuda_top1
 from effocr_torch.kernels.image_ops import dither_offsets, quantize_2bit
-from effocr_torch.kernels.retrieval import knn_topk
+from effocr_torch.kernels.retrieval import knn_topk, l2_normalize
 from effocr_torch.kernels.roi import crop_lines_to_squares
 from effocr_torch.kernels.yolo_decode import decode_and_nms
 from effocr_torch.pipelines.lang import (
@@ -170,15 +174,18 @@ class EffOCRInference:
             (c.transfer != "canvas", f"transfer {c.transfer!r}"),
             (c.tile_min_content_h > 0, "wide-line tiling (tile_min_h)"),
             (c.spell_check, "spell check"),
-            (c.lang != "en" or c.vertical, "the jp/vertical path"),
-            (c.retrieval_kernel != "xla",
-             f"retrieval_kernel {c.retrieval_kernel!r} (kernel K2)"),
             (index is None, "classifier mode"),
         ):
             if cond:
                 raise _not_ported(what)
         if c.nms_kernel not in ("xla", "pallas", "cuda"):
             raise ValueError(f"nms_kernel {c.nms_kernel!r}")
+        if c.retrieval_kernel not in ("xla", "pallas"):
+            raise ValueError(f"retrieval_kernel {c.retrieval_kernel!r}")
+        if c.retrieval_kernel == "pallas" and c.knn_k != 1:
+            raise ValueError(f"retrieval_kernel 'pallas' is the fused top-1 "
+                             f"kernel; knn_k {c.knn_k} needs retrieval_kernel "
+                             "'xla'")
         if c.transfer_bits not in (2, 4, 8):
             raise ValueError(f"transfer_bits {c.transfer_bits}")
         if c.compute_dtype not in ("f32", "bf16"):
@@ -189,6 +196,8 @@ class EffOCRInference:
         # the TPU build's "pallas" NMS kernel is the CUDA kernel here
         self._nms_kernel = ("cuda" if c.nms_kernel in ("pallas", "cuda")
                             else "plain")
+        # likewise its "pallas" top-1 retrieval kernel (K2)
+        self._top1 = c.retrieval_kernel == "pallas"
         self.timer = StageTimer()
 
         def _prepare(m):
@@ -225,6 +234,18 @@ class EffOCRInference:
         return x.to(torch.bfloat16) if self.config.compute_dtype == "bf16" \
             else x
 
+    def _classify(self, emb: torch.Tensor) -> torch.Tensor:
+        """Embeddings [N, D] float32 -> top-1 prototype index [N]: the
+        fused top-1 kernel on the L2-normalized embeddings (CUDA tensors;
+        its plain version on CPU tensors), else matmul + top-k."""
+        if self._top1:
+            _, idx = cuda_top1.top1(l2_normalize(emb), self._protos,
+                                    self._row_mask)
+            return idx
+        _, idx = knn_topk(emb, self._protos, k=self.config.knn_k,
+                          row_mask=self._row_mask)
+        return idx[:, 0]
+
     # ------------------------------------------------------ device program
     @torch.inference_mode()
     def _ocr_from_canvas(self, imgs: torch.Tensor, content_meta: torch.Tensor
@@ -252,8 +273,8 @@ class EffOCRInference:
                 nms_kernel=self._nms_kernel,
             )
         b, m = valid.shape
-        # reading-order key = left edge (horizontal lines)
-        center = boxes[..., 0]
+        # reading-order key = left edge, or top edge for vertical lines
+        center = boxes[..., 1] if c.vertical else boxes[..., 0]
         char_mask = valid & (classes == 0)
         n_chars = char_mask.sum(dim=1)
 
@@ -283,11 +304,16 @@ class EffOCRInference:
         pad = c.box_pad
         rx0 = torch.round(flat_boxes[:, 0] - pad).to(torch.int32)
         rx1 = torch.round(flat_boxes[:, 2] + pad).to(torch.int32)
+        ry0 = torch.round(flat_boxes[:, 1] - pad).to(torch.int32)
+        ry1 = torch.round(flat_boxes[:, 3] + pad).to(torch.int32)
         if c.crop_geometry == "tight":
             # box-exact crops (encoders trained on unclipped paired crops)
-            ry0 = torch.round(flat_boxes[:, 1] - pad).to(torch.int32)
-            ry1 = torch.round(flat_boxes[:, 3] + pad).to(torch.int32)
             rects = torch.stack([rx0, ry0, rx1, ry1], dim=1)
+        elif c.vertical:
+            # the box's rows, the line's full content width
+            left = content_meta[flat_b, 1]
+            nw = content_meta[flat_b, 3]
+            rects = torch.stack([left, ry0, left + nw, ry1], dim=1)
         else:
             top = content_meta[flat_b, 0]
             nh = content_meta[flat_b, 2]
@@ -304,7 +330,7 @@ class EffOCRInference:
         else:
             sub = n_slots
         window = min(c.localizer.input_size, c.crop_window)
-        idx_parts = []
+        embs = []
         for s in range(0, n_slots, sub):
             with record_function("ocr/crop"):
                 crops = self._cast_in(crop_lines_to_squares(
@@ -313,44 +339,42 @@ class EffOCRInference:
                     window=window,
                 ))  # the ROI crop computes in f32; re-cast for bf16 convs
             with record_function("ocr/encoder"):
-                emb = self.encoder(crops).float()  # exact retrieval margins
-            with record_function("ocr/retrieval"):
-                _, idx = knn_topk(emb, self._protos, k=c.knn_k,
-                                  row_mask=self._row_mask)
-            idx_parts.append(idx[:, 0])
-        nn_idx = torch.cat(idx_parts)
-
-        # per-line word boxes, reading-order sorted
-        word_mask = valid & (classes == 1)
-        word_key = torch.where(word_mask, center,
-                               torch.full_like(center, float("inf")))
-        worder = torch.argsort(word_key, dim=1,
-                               stable=True)[:, :c.max_words_per_line]
-        nw = worder.shape[1]
-        word_boxes = torch.gather(boxes, 1,
-                                  worder[..., None].expand(b, nw, 4))
-        word_valid = torch.gather(word_key, 1, worder) < float("inf")
+                # float32 embeddings: exact retrieval margins
+                embs.append(self.encoder(crops).float())
+        # one retrieval over every crop slot of the chunk
+        with record_function("ocr/retrieval"):
+            nn_idx = self._classify(torch.cat(embs))
 
         if c.out_quant == "u16":
-            def q16(x):
+            def pack(x):   # 1/16-px fixed point
                 return torch.clamp(torch.round(x * 16.0), 0,
-                                   65535).to(torch.int32)
-
-            buf = torch.cat([
-                n_chars.to(torch.int32), nn_idx.to(torch.int32),
-                q16(flat_boxes).reshape(-1), q16(word_boxes).reshape(-1),
-                word_valid.reshape(-1).to(torch.int32),
-            ])
+                                   65535).to(torch.int32).reshape(-1)
+        else:
+            def pack(x):   # float32 bits, exact
+                return x.contiguous().view(torch.int32).reshape(-1)
+        parts = [n_chars.to(torch.int32), nn_idx.to(torch.int32),
+                 pack(flat_boxes)]
+        if c.lang == "en":
+            # per-line word boxes, reading-order sorted (jp has no word
+            # grouping: none are computed or shipped)
+            word_mask = valid & (classes == 1)
+            word_key = torch.where(word_mask, center,
+                                   torch.full_like(center, float("inf")))
+            worder = torch.argsort(word_key, dim=1,
+                                   stable=True)[:, :c.max_words_per_line]
+            nw = worder.shape[1]
+            word_boxes = torch.gather(boxes, 1,
+                                      worder[..., None].expand(b, nw, 4))
+            word_valid = torch.gather(word_key, 1, worder) < float("inf")
+            parts += [pack(word_boxes),
+                      word_valid.reshape(-1).to(torch.int32)]
+        buf = torch.cat(parts)
+        if c.out_quant == "u16":
             # narrow to 16 bits through the int16 bit pattern (torch's
             # uint16 lacks CUDA ops); the host views the bytes as uint16
             return torch.where(buf >= 32768, buf - 65536, buf).to(
                 torch.int16)
-        return torch.cat([
-            n_chars.to(torch.int32), nn_idx.to(torch.int32),
-            flat_boxes.contiguous().view(torch.int32).reshape(-1),
-            word_boxes.contiguous().view(torch.int32).reshape(-1),
-            word_valid.reshape(-1).to(torch.int32),
-        ])
+        return buf
 
     @torch.inference_mode()
     def _ocr_chunk(self, canvas_u8: torch.Tensor,
@@ -398,10 +422,12 @@ class EffOCRInference:
             else:
                 raws.append(np.asarray(img))
 
-        # width-sorted chunking: lines of similar width share chunks so
-        # adaptive_width canvas tiers bind per chunk (results are keyed)
+        # width-sorted chunking: lines of similar reading-axis length
+        # share chunks so adaptive_width canvas tiers bind per chunk
+        # (results are keyed)
         if c.chunk_sort == "width" and len(raws) > 1:
-            order = sorted(range(len(raws)), key=lambda i: raws[i].shape[1],
+            ax = 0 if c.vertical else 1
+            order = sorted(range(len(raws)), key=lambda i: raws[i].shape[ax],
                            reverse=True)
             raws = [raws[i] for i in order]
             keys = [keys[i] for i in order]
@@ -435,11 +461,12 @@ class EffOCRInference:
     def _chunk_canvas_height(self, chunk) -> int:
         """Smallest stride-32 canvas height holding every line's width-bound
         content height (PipelineConfig.adaptive_height), within the
-        [adaptive_height_floor, adaptive_height_cap] trained range."""
+        [adaptive_height_floor, adaptive_height_cap] trained range.
+        Vertical lines read down the canvas height: always the full one."""
         c = self.config
         size_w = c.localizer.input_size
         cap = c.localizer.input_height or size_w
-        if not c.adaptive_height:
+        if not c.adaptive_height or c.vertical:
             return cap
         if c.adaptive_height_cap:
             cap = min(cap, c.adaptive_height_cap)
@@ -456,23 +483,27 @@ class EffOCRInference:
 
     def _chunk_canvas_dims(self, chunk) -> Tuple[int, int]:
         """(canvas_h, canvas_w): the adaptive height tier plus, under
-        adaptive_width, the canvas width trimmed to the chunk's content
-        extent at the UNCHANGED letterbox scale (r is computed against the
-        full input_size, so the decode is exact)."""
+        adaptive_width, the reading axis (width, or height for vertical
+        lines) trimmed to the chunk's content extent at the UNCHANGED
+        letterbox scale (r is computed against the full canvas, so the
+        decode is exact)."""
         c = self.config
         full_w = c.localizer.input_size
         size_h = self._chunk_canvas_height(chunk)
         if not c.adaptive_width or not chunk:
             return size_h, full_w
         stride = max(32, c.adaptive_width_stride)
+        ax = 0 if c.vertical else 1
         need = 0
         for raw in chunk:
             h, w = raw.shape[:2]
             r = min(full_w / w, size_h / h)
-            need = max(need, int(np.ceil(w * r)))
+            need = max(need, int(np.ceil(raw.shape[ax] * r)))
         # +32 slack keeps content off the trimmed edge
-        trim_w = min(full_w, -(-(need + 32) // stride) * stride)
-        return size_h, trim_w
+        trim = -(-(need + 32) // stride) * stride
+        if c.vertical:
+            return min(size_h, trim), full_w
+        return size_h, min(full_w, trim)
 
     # ------------------------------------------------------------ host prep
     def _dispatch_chunk(self, chunk, chunk_keys):
@@ -626,13 +657,15 @@ class EffOCRInference:
         o += cap
         flat_boxes = _unpack_boxes(buf[o:o + 4 * cap], cap, 4)
         o += 4 * cap
-        # the device-side [:, :max_words_per_line] slice caps at the NMS
-        # max_det column count
-        w = min(c.max_words_per_line, c.localizer.max_det)
-        word_boxes = _unpack_boxes(buf[o:o + nb * w * 4], nb, w, 4)
-        o += nb * w * 4
-        word_valid = buf[o:o + nb * w].astype(bool).reshape(nb, w)
-        o += nb * w
+        en = c.lang == "en"
+        if en:
+            # the device-side [:, :max_words_per_line] slice caps at the
+            # NMS max_det column count
+            w = min(c.max_words_per_line, c.localizer.max_det)
+            word_boxes = _unpack_boxes(buf[o:o + nb * w * 4], nb, w, 4)
+            o += nb * w * 4
+            word_valid = buf[o:o + nb * w].astype(bool).reshape(nb, w)
+            o += nb * w
         if o != buf.shape[0]:
             raise ValueError(f"packed buffer holds {buf.shape[0]} entries, "
                              f"layout needs {o}")
@@ -668,7 +701,7 @@ class EffOCRInference:
             idx_seg < len(lookup),
             lookup[np.minimum(idx_seg, len(lookup) - 1)], "")
 
-        if n:
+        if en and n:
             wend = batch_word_ends(
                 flat_boxes[:, 2], n_chars[:n], word_boxes[:n, :, 0],
                 word_valid[:n],
@@ -682,7 +715,7 @@ class EffOCRInference:
             chars_i = seg_chars[pos:pos + k]
             pos += k
             text = "".join(chars_i.tolist()).strip() if k else ""
-            if k:
+            if en and k:
                 word_end_idx = wend[i, :int(n_words[i])]
                 if c.anchor_margin is None:
                     out = insert_spaces(text, word_end_idx)

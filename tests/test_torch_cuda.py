@@ -1,9 +1,12 @@
-"""The CUDA NMS kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); every test skips without one.
 Imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed: ``python -m pytest tests/test_torch_cuda.py``.
-Tolerance: none (keep masks must be bit-identical).
+Tolerances: NMS keep masks bit-identical.  Top-1 retrieval: scores within
+1e-5 (float32 sums in another order), indices identical wherever the
+plain top-2 margin exceeds 1e-5, and everywhere on inputs whose products
+are exact in float32 (ties, all rows masked).
 """
 
 import numpy as np
@@ -11,7 +14,9 @@ import pytest
 import torch
 
 from effocr_torch.kernels.cuda_nms import nms_kernel, nms_keep
+from effocr_torch.kernels.cuda_top1 import top1, top1_kernel
 from effocr_torch.kernels.nms import batched_nms, nms_mask
+from effocr_torch.kernels.retrieval import NEG_INF, top1_plain
 
 
 @pytest.fixture()
@@ -81,3 +86,66 @@ def test_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         big, bv = _batch(np.random.default_rng(3), 1, 2048)
         nms_kernel(big.to(cuda), bv.to(cuda), 0.25)
+
+
+def _unit(rng, n, d):
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    return x / x.norm(dim=1, keepdim=True)
+
+
+@pytest.mark.parametrize("n,c,d,masked", [(4096, 11051, 320, 0.01),
+                                          (1, 300, 320, 0.0),
+                                          (200, 1030, 96, 0.05),
+                                          (129, 128, 4, 0.0)])
+def test_top1_kernel_matches_plain(cuda, n, c, d, masked):
+    rng = np.random.default_rng(c)
+    q, p = _unit(rng, n, d).to(cuda), _unit(rng, c, d).to(cuda)
+    mask = torch.from_numpy(rng.uniform(size=c) >= masked).to(cuda)
+    before = top1_kernel.launches
+    s, i = top1(q, p, mask)
+    torch.cuda.synchronize()
+    assert top1_kernel.launches == before + 1
+    rs, ri = top1_plain(q, p, mask)
+    assert (s - rs).abs().max().item() <= 1e-5
+    sims = torch.where(mask[None], q @ p.t(), torch.full((), NEG_INF,
+                                                        device=cuda))
+    top2 = torch.topk(sims, 2, dim=1).values
+    sure = top2[:, 0] - top2[:, 1] > 1e-5
+    assert torch.equal(i[sure], ri[sure])
+
+
+@pytest.mark.parametrize("case", ["ties", "ties_masked", "all_masked"])
+def test_top1_kernel_exact_cases(cuda, case):
+    """Quarter-step values (exact products): ties must go to the first
+    index; all rows masked gives (-1e30, 0)."""
+    rng = np.random.default_rng(5)
+    c, d = 1500, 32
+    p = torch.from_numpy(rng.integers(-2, 3, (c, d)).astype(np.float32) / 4)
+    dup = torch.from_numpy(rng.integers(0, c, 300))
+    p[torch.from_numpy(rng.integers(0, c, 300))] = p[dup]
+    q = p[torch.from_numpy(rng.integers(0, c, 700))].clone()
+    mask = torch.ones(c, dtype=torch.bool)
+    if case == "ties_masked":
+        mask[dup[:100]] = False
+    elif case == "all_masked":
+        mask[:] = False
+    q, p, mask = q.to(cuda), p.to(cuda), mask.to(cuda)
+    s, i = top1(q, p, mask)
+    rs, ri = top1_plain(q, p, mask)
+    assert torch.equal(i, ri) and torch.equal(s, rs)
+    if case == "all_masked":
+        assert (i == 0).all() and (s == NEG_INF).all()
+
+
+def test_top1_kernel_rejects_bad_input(cuda):
+    rng = np.random.default_rng(6)
+    q, p = _unit(rng, 8, 64).to(cuda), _unit(rng, 50, 64).to(cuda)
+    mask = torch.ones(50, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        top1_kernel(q.double(), p, mask)
+    with pytest.raises(ValueError):
+        top1_kernel(q[:, :62].contiguous(), p[:, :62].contiguous(), mask)
+    with pytest.raises(ValueError):
+        top1_kernel(q[:, ::2], p[:, ::2], mask)
+    with pytest.raises(ValueError):
+        top1_kernel(q, p.cpu(), mask)

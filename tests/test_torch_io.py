@@ -2,9 +2,12 @@
 
 - interop/flax_msgpack.py reads what ``flax.serialization.to_bytes``
   writes and writes the same bytes back;
-- cli/infer.py ``load_engine`` on an artifact directory the JAX side wrote
-  (random-init yolov5s and mobilenetv3_small_050, ref.npz/ref.txt) loads
-  parameters equal to the Flax ones;
+- cli/infer.py ``load_engine`` on artifact directories the JAX side wrote
+  (random-init yolov5s and mobilenetv3_small_050 with BENCH_TRAINED.json's
+  flags; yolov5n and convnext_atto with the jp_v3 benchmark's flags and
+  the 11,051-row rec_knn6k3 ref.txt) loads parameters equal to the Flax
+  ones, and the jp engine's retrieval goes through ``top1_plain`` on the
+  CPU;
 - golden checks pin each copied module (config, batching, lang, tiling,
   textline, image_ops, native decode/letterbox/pack bytes) to the
   original's outputs.
@@ -45,7 +48,7 @@ from effocr_torch.interop.flax_bridge import (
     flax_to_state_dict,
     state_dict_to_flax,
 )
-from effocr_torch.kernels import image_ops
+from effocr_torch.kernels import cuda_top1, image_ops
 from effocr_torch.pipelines import lang, tiling
 from effocr_torch.utils.profiling import StageTimer
 
@@ -184,12 +187,135 @@ def test_infer_cli_main_on_cpu(artifact_dirs, tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--crop_source", "original"],
                                   ["--tile_min_h", "20"], ["--spell_check"],
-                                  ["--data_parallel"],
-                                  ["--retrieval_kernel", "pallas"]])
+                                  ["--data_parallel"]])
 def test_load_engine_refuses_unported_paths(artifact_dirs, flag):
     loc_dir, rec_dir, _, _ = artifact_dirs
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_engine(_args(loc_dir, rec_dir, *flag))
+
+
+# the jp_v3 benchmark's flag list (bench_results/r5/jp_v3.result.json)
+JP_V3_FLAGS = ["--lang", "jp", "--vertical", "--retrieval_kernel", "pallas",
+               "--transfer_bits", "4", "--line_batch", "120", "--crop_batch",
+               "4096"]
+
+
+@pytest.fixture(scope="module")
+def jp_artifact_dirs(tmp_path_factory):
+    """JAX-written jp vertical artifacts: random-init yolov5n (loc_vert
+    model.json), convnext_atto (rec_knn6k3 model.json), 11,051 random
+    prototypes of width 320 with rec_knn6k3's ref.txt."""
+    root = tmp_path_factory.mktemp("jp_artifacts")
+    loc_dir, rec_dir = root / "loc", root / "rec"
+    loc_dir.mkdir()
+    rec_dir.mkdir()
+    loc = j_localizer("yolov5n", num_classes=2)
+    loc_vars = jax.jit(lambda x: loc.init(jax.random.PRNGKey(4), x))(
+        jnp.zeros((1, 640, 96, 3)))
+    j_ckpt.save_variables(loc_vars, str(loc_dir / "best_bbox_mAP.msgpack"))
+    shutil.copy(os.path.join(R5, "loc_vert", "model.json"), loc_dir)
+    enc = j_encoder("convnext_atto")
+    enc_vars = jax.jit(lambda x: enc.init(jax.random.PRNGKey(5), x))(
+        jnp.zeros((1, 128, 128, 3)))
+    j_ckpt.save_variables(enc_vars, str(rec_dir / "enc_best.msgpack"))
+    shutil.copy(os.path.join(R5, "rec_knn6k3", "model.json"), rec_dir)
+    with open(os.path.join(R5, "rec_knn6k3", "ref.txt"), newline="") as f:
+        n_rows = f.read().count("\n") + 1      # no trailing newline
+    protos = np.random.default_rng(6).normal(size=(n_rows, 320))
+    np.savez(str(rec_dir / "ref.npz"), embeddings=protos.astype(np.float32))
+    shutil.copy(os.path.join(R5, "rec_knn6k3", "ref.txt"), rec_dir)
+    return (str(loc_dir), str(rec_dir), jax.tree.map(np.asarray, loc_vars),
+            jax.tree.map(np.asarray, enc_vars))
+
+
+def _jp_args(loc_dir, rec_dir, *extra):
+    p = argparse.ArgumentParser()
+    add_engine_args(p)
+    return p.parse_args(["--recognizer_dir", rec_dir, "--localizer_dir",
+                         loc_dir, *JP_V3_FLAGS, "--device", "cpu", *extra])
+
+
+def test_jp_index_reads_11051_rows(jp_artifact_dirs):
+    """rec_knn6k3/ref.txt: 11,050 newlines and no trailing one, so 11,051
+    rows in both packages (U+3000 and other whitespace rows kept)."""
+    _, rec_dir, _, _ = jp_artifact_dirs
+    from effocr_torch.retrieval.index import PrototypeIndex
+
+    got, ref = PrototypeIndex.load(rec_dir), JIndex.load(rec_dir)
+    assert len(got) == len(ref) == 11051
+    assert got.chars == ref.chars
+    np.testing.assert_allclose(got.embeddings, ref.embeddings, rtol=1e-6,
+                               atol=1e-7)
+
+
+def test_load_engine_builds_jp_vertical_engine(jp_artifact_dirs,
+                                               monkeypatch, tmp_path):
+    """jp_v3's flags on the CPU: Flax-equal parameters, the jp config, and
+    a run over two RGB line PNGs (line_batch cut to 2, crop_batch to 64)
+    whose retrieval is top1_plain, with a blacklisted char in its mask."""
+    loc_dir, rec_dir, loc_vars, enc_vars = jp_artifact_dirs
+    engine = load_engine(_jp_args(loc_dir, rec_dir))
+    for model, variables in ((engine.localizer, loc_vars),
+                             (engine.encoder, enc_vars)):
+        sd = model.state_dict()
+        ref = flax_to_state_dict(variables)
+        assert sd.keys() == ref.keys()
+        for k in ref:
+            assert torch.equal(sd[k], ref[k]), k
+    c = engine.config
+    assert (c.lang, c.vertical, c.retrieval_kernel, c.knn_k) == (
+        "jp", True, "pallas", 1)
+    assert engine._top1 and engine._nms_kernel == "plain"
+    assert (c.line_batch, c.crop_batch, c.transfer_bits, c.out_quant) == (
+        120, 4096, 4, "i32")
+    assert (c.localizer.input_size, c.localizer.input_height,
+            c.input_channels) == (96, 640, 3)
+    assert c.crop_geometry == "tight" and c.encoder.image_size == 128
+    assert (c.localizer.max_det, c.localizer.max_nms) == (1000, 1024)
+    assert len(engine.index) == 11051
+
+    calls = []
+    plain = cuda_top1.top1_plain
+
+    def recording(q, p, mask):
+        calls.append((q.shape, p.shape, mask.clone()))
+        return plain(q, p, mask)
+
+    monkeypatch.setattr(cuda_top1, "top1_plain", recording)
+    blocked = engine.index.chars[7]
+    engine = load_engine(_jp_args(loc_dir, rec_dir, "--line_batch", "2",
+                                  "--crop_batch", "64", "--blacklist_chars",
+                                  blocked))
+    rng = np.random.default_rng(9)
+    paths = []
+    for i, h in enumerate((700, 420)):
+        p = str(tmp_path / f"v{i}.png")
+        Image.fromarray(rng.integers(0, 256, (h, 56, 3), np.uint8),
+                        mode="RGB").save(p)
+        paths.append(p)
+    launches = cuda_top1.top1_kernel.launches
+    res = engine.run(paths)
+    assert set(res) == set(paths) and all(isinstance(v, str)
+                                           for v in res.values())
+    assert cuda_top1.top1_kernel.launches == launches
+    assert len(calls) == 1
+    (qs, ps, mask), = calls
+    assert qs == (64, 320) and ps == (11051, 320)
+    blocked_rows = [i for i, ch in enumerate(engine.index.chars)
+                    if ch == blocked]
+    assert not mask[blocked_rows].any() and int(mask.sum()) == (
+        11051 - len(blocked_rows))
+
+
+def test_load_engine_rejects_knn_k_with_top1_kernel(jp_artifact_dirs):
+    from effocr_torch.pipelines.infer import EffOCRInference
+
+    loc_dir, rec_dir, _, _ = jp_artifact_dirs
+    engine = load_engine(_jp_args(loc_dir, rec_dir))
+    cfg = dataclasses.replace(engine.config, knn_k=3)
+    with pytest.raises(ValueError, match="knn_k"):
+        EffOCRInference(cfg, engine.localizer, engine.encoder, engine.index,
+                        device="cpu")
 
 
 def test_config_and_batching_copies_match():
