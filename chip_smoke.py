@@ -9,15 +9,21 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    top-1 retrieval) in parallel.
 2. K1 (csrc/nms.cu, the greedy-NMS keep-mask kernel) against its plain
    PyTorch version on the card, bit for bit: [512, 1024] boxes at IoU 0.25,
-   a ragged N = 300, a tie-heavy batch and a 384-box cross-tile chain.
+   a ragged N = 300, a tie-heavy batch, a 384-box cross-tile chain, N =
+   2048 and 4096 with valid prefixes of mixed length at IoU 0.01 and 0.25,
+   and integer boxes whose IoUs equal the threshold.  Then the K1 sweep:
+   device time against B (120, 512) and valid prefix (64, 256, 1024).
 3. K2 (csrc/top1.cu, the fused masked top-1 retrieval kernel) against its
    plain version: the jp path's shape [4096, 320] x [11051, 320] with ~1%
-   of rows masked, a ragged C = 300 with N = 1, duplicate prototypes
+   of rows masked, a ragged C = 300 with N = 1, C in {127, 128, 129} with
+   D in {4, 324}, duplicate prototypes
    (exact products: the tie rule), every row masked.  Scores within 1e-5,
    indices identical wherever the plain top-2 margin exceeds 1e-5 (and
    everywhere on the exact cases), all-masked rows exactly (0, -1e30).
    The kernel, the plain version and the library call (torch.matmul +
-   mask + argmax) are timed with CUDA events.
+   mask + argmax) are timed by ``device_ms`` (CUDA events around calls
+   queued behind a device-side wait: device time, host work excluded), as
+   K1 is.
 4. English slice: a seeded random-init artifact directory (yolov5s with the
    loc2k model.json, mobilenetv3_small_050 with the rec2k_mn_hn
    model.json, 90 random unit prototypes with rec2k_mn_hn's ref.txt),
@@ -53,7 +59,6 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import statistics
 import struct
 import subprocess
 import sys
@@ -123,20 +128,65 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, runs=20, warmup=3):
-    """Median CUDA-event time of fn() over ``runs`` runs, after warm-up."""
+def device_ms(fn, reps=20, warmup=2, host_synced=False):
+    """Device time of one call of fn(): CUDA events around ``reps`` calls
+    queued behind a device-side wait (torch.cuda._sleep) that outlasts
+    their enqueue, divided by ``reps``, after warm-up.  The device runs
+    the calls back to back while the host is still ahead, so neither a
+    wrapper's host work (checks, allocation, the ctypes call) nor an idle
+    gap waiting for the host is counted.  The wait's length comes from the
+    host time of one call; the timer checks that the first event was still
+    pending when the last call had been queued, and otherwise doubles the
+    wait and tries again.  A function that synchronizes with the host
+    inside (``host_synced``: the plain NMS's fixpoint loop reads a flag
+    each iteration) cannot be queued ahead: its time includes those
+    syncs."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(runs):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wait_s = min(0.5, 2 * enqueue_s * reps + 0.002)
+    for _ in range(4):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(wait_s * 2e9))   # cycles at up to 2 GHz
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
+        ahead = not start.query()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        if ahead or host_synced:
+            return start.elapsed_time(end) / reps
+        wait_s *= 2
+    raise RuntimeError("device_ms: the device-side wait never outlasted "
+                       f"the enqueue of {reps} calls")
+
+
+def kernel_split(fn, reps=10):
+    """{kernel name: ms per call} of fn() from torch.profiler, or {} when
+    the trace lost launches (each kernel must appear once per call): the
+    split of a multi-kernel wrapper, beside device_ms's total."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        if events and all(e.count == reps for e in events):
+            return _short_names({e.key: e.self_device_time_total / 1e3 / reps
+                                 for e in events})
+    return {}
 
 
 # ---------------------------------------------------------------- K1
@@ -160,21 +210,70 @@ def k1_case(name, boxes, valid, thr, timed=False):
     ref = nms_mask(boxes, None, valid, thr, presorted=True)
     torch.cuda.synchronize()
     err = int((keep.int() - ref.int()).abs().max()) if keep.numel() else 0
+    per_img = valid.sum(dim=1)
     log(f"K1 {name}: shape {tuple(valid.shape)} thr {thr} kept "
-        f"{int(keep.sum())}/{int(valid.sum())} max|kernel-plain| {err}")
+        f"{int(keep.sum())}/{int(valid.sum())} (valid per image: mean "
+        f"{float(per_img.float().mean()):.1f}, max {int(per_img.max())}) "
+        f"max|kernel-plain| {err}")
     if not torch.equal(keep, ref):
         raise AssertionError(f"K1 {name}: kernel and plain keep masks "
                              "differ")
     row = {"max_abs_err": err}
     if timed:
-        row["ms"] = time_ms(lambda: kernel(boxes, valid, thr))
-        row["plain_ms"] = time_ms(
-            lambda: nms_mask(boxes, None, valid, thr, presorted=True))
+        row["ms"] = device_ms(lambda: kernel(boxes, valid, thr))
+        row["ms_by_kernel"] = kernel_split(lambda: kernel(boxes, valid, thr))
+        row["plain_ms"] = device_ms(
+            lambda: nms_mask(boxes, None, valid, thr, presorted=True), reps=3,
+            host_synced=True)
         row["bound_ms"], row["bound_by"] = nms_bound_ms(valid)
-        log(f"K1 {name}: kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']})")
+        log(f"K1 {name}: kernel {row['ms']:.4f} ms "
+            f"{row['ms_by_kernel']}, plain {row['plain_ms']:.3f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}; device time)")
     return row
+
+
+def _short_names(parts):
+    """{kernel name: ms} with C++ signatures cut to the function name."""
+    out = {}
+    for k, v in parts.items():
+        name = k.replace("(anonymous namespace)::", "").split("(")[0]
+        name = name.split("<")[0].split("::")[-1] or k[:40]
+        out[name] = round(out.get(name, 0.0) + v, 5)
+    return out
+
+
+def phase_k1_sweep(dev):
+    """K1's device time against batch and valid prefix (N = 1024, the
+    main paths' max_nms): B 120 at the jp threshold 0.01, B 512 at the
+    en threshold 0.25, valid prefix per image 64, 256 or 1024.  Every
+    cell is also held bit for bit against the plain version."""
+    rng = np.random.default_rng(SEED + 5)
+    rows = []
+    for b, thr in ((120, 0.01), (512, 0.25)):
+        boxes, valid = synthetic_presorted(rng, b, 1024, dev, all_valid=True)
+        for prefix in (64, 256, 1024):
+            v = valid.clone()
+            v[:, prefix:] = False
+            keep = cuda_nms.nms_kernel(boxes, v, thr)
+            if not torch.equal(keep, nms_mask(boxes, None, v, thr,
+                                              presorted=True)):
+                raise AssertionError(f"K1 sweep B {b} prefix {prefix}: "
+                                     "kernel and plain differ")
+            ms = device_ms(lambda: cuda_nms.nms_kernel(boxes, v, thr))
+            parts = kernel_split(lambda: cuda_nms.nms_kernel(boxes, v, thr))
+            bound, by = nms_bound_ms(v)
+            rows.append(dict(b=b, n=1024, prefix=prefix, thr=thr, ms=ms,
+                             ms_by_kernel=parts,
+                             bound_ms=bound, bound_by=by,
+                             kept=int(keep.sum())))
+    log("K1 sweep (device time: CUDA events behind a device-side wait; per "
+        "kernel: torch.profiler; N = 1024):\n"
+        "     B  prefix   thr    kept   kernel ms   bound ms  by   per kernel")
+    for r in rows:
+        log(f"  {r['b']:4d}  {r['prefix']:6d}  {r['thr']:4.2f}  "
+            f"{r['kept']:6d}  {r['ms']:10.4f}  {r['bound_ms']:9.5f}  "
+            f"{r['bound_by'][:3]}  {r['ms_by_kernel']}")
+    return rows
 
 
 def synthetic_presorted(rng, b, n, dev, tie_frac=0.0, all_valid=False):
@@ -212,6 +311,20 @@ def phase_k1(dev):
     rows["chain"] = k1_case("cross-tile chain N=384", chain,
                             torch.ones(1, n, dtype=torch.bool, device=dev),
                             0.3)
+    # past the earlier one-CTA-per-image design's N cap of 1,280, valid
+    # prefixes of mixed length
+    for b, n in ((16, 2048), (8, 4096)):
+        boxes, valid = synthetic_presorted(rng, b, n, dev)
+        for thr in (0.01, 0.25):
+            rows[f"n{n}_thr{thr}"] = k1_case(f"N={n} B={b}", boxes, valid,
+                                             thr)
+    # integer boxes: IoUs equal to the threshold go to the exact division
+    xy = rng.integers(0, 6, (8, 300, 2))
+    grid = torch.tensor(np.concatenate([xy, xy + rng.integers(1, 5, xy.shape)],
+                                       -1), dtype=torch.float32, device=dev)
+    rows["near_threshold"] = k1_case(
+        "integer grid (IoU == thr)", grid,
+        torch.ones(8, 300, dtype=torch.bool, device=dev), 0.25)
     return rows
 
 
@@ -266,14 +379,15 @@ def k2_case(name, q, p, mask, exact=False, timed=False):
     row = {"max_abs_err": err, "index_differs": n_diff,
            "low_margin": n_unsure}
     if timed:
-        row["ms"] = time_ms(lambda: kernel(q, p, mask))
-        row["plain_ms"] = time_ms(lambda: top1_plain(q, p, mask))
-        row["library_ms"] = time_ms(lambda: top1_library(q, p, mask))
+        row["ms"] = device_ms(lambda: kernel(q, p, mask))
+        row["ms_by_kernel"] = kernel_split(lambda: kernel(q, p, mask))
+        row["plain_ms"] = device_ms(lambda: top1_plain(q, p, mask))
+        row["library_ms"] = device_ms(lambda: top1_library(q, p, mask))
         row["bound_ms"], row["bound_by"] = top1_bound_ms(
             q.shape[0], q.shape[1], mask)
         row["splits"] = kernel.splits(q.shape[0], p.shape[0])
         log(f"K2 {name}: {row['splits']} prototype splits; kernel "
-            f"{row['ms']:.4f} ms, plain "
+            f"{row['ms']:.4f} ms {row['ms_by_kernel']}, plain "
             f"{row['plain_ms']:.4f} ms, library (matmul+mask+argmax) "
             f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']})")
@@ -306,6 +420,13 @@ def phase_k2(dev):
     rows["duplicates"] = k2_case(
         "duplicate prototypes (tie rule)", qd, pd,
         torch.ones(3000, dtype=torch.bool, device=dev), exact=True)
+    # C around one 128-prototype tile, D past the 32-deep ring stages
+    for c in (127, 128, 129):
+        for d in (4, 324):
+            rows[f"c{c}_d{d}"] = k2_case(
+                f"ragged C={c} D={d}", unit_rows(rng, 300, d, dev),
+                unit_rows(rng, c, d, dev),
+                torch.tensor(rng.uniform(size=c) >= 0.1, device=dev))
     none = torch.zeros(11051, dtype=torch.bool, device=dev)
     rows["all_masked"] = k2_case("every row masked", q[:300], p, none,
                                  exact=True)
@@ -821,8 +942,8 @@ def profile_run(engine, paths, card, out_dir, tag):
             f"x{e.count:<5d} {e.key[:90]}")
     # the hand-written kernels by name (their ctypes launches sit outside
     # the stage ranges)
-    for name in ("nms_mask_kernel", "top1_partial_kernel",
-                 "top1_combine_kernel"):
+    for name in ("nms_build_kernel", "nms_scan_kernel",
+                 "top1_partial_kernel", "top1_combine_kernel"):
         ms = sum(e.self_device_time_total for e in kernels
                  if name in e.key) / 1e3
         n = sum(e.count for e in kernels if name in e.key)
@@ -924,6 +1045,7 @@ def main(argv) -> int:
         log(f"build: ptxas {name}: " + " | ".join(ptxas))
 
     k1 = phase_k1(dev)
+    k1_sweep = phase_k1_sweep(dev)
     k2 = phase_k2(dev)
     sl = phase_slice(dev, card, args.out, profile=args.profile)
     jp = phase_jp(dev, card, args.out, profile=args.profile)
@@ -974,7 +1096,7 @@ def main(argv) -> int:
                    peak_device_gib=sl["peak_gib"], spilled=sl["spilled"],
                    jp={k: v for k, v in jp.items()
                        if k not in ("k1_main", "k2_main")},
-                   kernels=kernels,
+                   kernels=kernels, k1_sweep=k1_sweep,
                    total_s=time.perf_counter() - t_start)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)

@@ -18,191 +18,242 @@
 // tensor cores have no float32 mode (TF32 keeps 10 mantissa bits and
 // would move retrieval margins), so the product runs on the FMA units.
 //
-// Design.  A register-blocked float32 GEMM tile with the argmax fused
-// into its epilogue:
+// Design (an earlier one staged 16-deep slices through registers with
+// one barrier per slice, transposing stores with 4-way bank conflicts,
+// one 129-register block per SM).  A register-blocked float32
+// GEMM tile with the argmax fused into its epilogue:
 //   - a block owns 128 queries and walks a contiguous range of
 //     128-prototype tiles in index order (the loop that takes the place
 //     of the TPU kernel's sequential grid axis over prototype tiles);
-//   - for each prototype tile, 16-deep slices of the query tile and the
-//     prototype tile are staged in shared memory (double-buffered through
-//     registers, one barrier per slice) and each of the 256 threads
-//     accumulates an 8x8 block of dot products with FFMA: 16 shared-memory
-//     float4 loads per 64 FMAs per slice.  Holding the whole 128 x 320
-//     query tile in shared memory instead would take 160 KB and leave one
-//     block per SM; the slices are re-read from L2, which holds both
-//     operands (19.4 MB < 50 MB);
+//   - operands reach shared memory by cp.async (16 bytes a thread, no
+//     register staging) in a 3-stage ring of 32-deep slices, rows kept in
+//     global order ([row][k]) with 4 floats of padding: one barrier per
+//     32-deep slice (10 per tile at D = 320), and the loads of the next
+//     two slices in flight while one is consumed.  The ring runs across
+//     tile boundaries, so it never drains inside a block;
+//   - thread (tx, ty) of 16 x 16 accumulates queries ty + 16 i and
+//     prototypes tx + 16 j (i, j < 8) with FFMA; a warp holds 4 values of
+//     ty and 8 of tx, so for each 4-deep step a shared float4 load reads
+//     4 distinct query rows or 8 distinct prototype rows (36 floats apart:
+//     disjoint 4-bank groups, no conflict), 16 loads per 256 FMAs;
 //   - the epilogue masks each column, takes each row's best of the
-//     thread's 8 columns, reduces across the 16 threads that share the
-//     row with a butterfly of shuffles (higher score, else lower index:
-//     the lowest index wins a tie inside a tile), and moves the running
-//     (score, index) kept in registers only on a strict '>' (tiles come
-//     in increasing index order, so a tie keeps the earlier tile);
-//   - occupancy: N = 4096 gives only 32 query tiles for 132 SMs, so the
-//     prototype tiles are split over a second grid axis.  top1_splits
-//     picks the split count that minimises waves x tiles per split for
-//     this card's SM count and this kernel's occupancy, as the runtime
-//     reports it (at 129 registers a thread, one 256-thread block per SM:
-//     4 splits of 22 tiles, 128 blocks, one wave on the main path).  Each
-//     split writes a partial (score, index) per query; a second, small
-//     kernel folds the splits in index order with a strict '>', so the
-//     lower split keeps a tie.
+//     thread's 8 columns (increasing index), reduces across the 8 lanes
+//     that share the row in its warp with a butterfly of shuffles (higher
+//     score, else lower index: the lowest index wins a tie inside a tile),
+//     and lane lx = 0 moves that half-row's running (score, index), kept
+//     in shared memory, only on a strict '>' (tiles come in increasing
+//     index order, so a tie keeps the earlier tile); at the end the two
+//     halves of each row fold the same way;
+//   - __launch_bounds__(256, 2): 128 registers, 110 KB of shared memory a
+//     block, so two blocks (16 warps) per SM.  At that cap ptxas spills
+//     32 bytes of loop bookkeeping (a few local loads and stores per
+//     32-deep slice of 2,048 FMAs a thread); an 8 x 4 thread tile with a
+//     4-stage ring has no spills but ran slower on the main path's shape.
+//     N = 4096 gives only 32 query tiles, so the prototype tiles are split
+//     over a second grid axis: top1_splits picks the split count that
+//     minimises waves x tiles per split for this card's SM count and this
+//     kernel's occupancy, as the runtime reports it (8 splits of 11
+//     tiles, 256 blocks, one wave on the main path).  Each split writes a
+//     partial (score, index) per query; a second, small kernel folds the
+//     splits in index order with a strict '>', so the lower split keeps a
+//     tie.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBM = 128;  // queries per block
-constexpr int kBN = 128;  // prototypes per tile
-constexpr int kBK = 16;   // depth of one shared-memory slice
+constexpr int kBM = 128;    // queries per block
+constexpr int kBN = 128;    // prototypes per tile
+constexpr int kBK = 32;     // depth of one ring stage
+constexpr int kLd = kBK + 4;  // floats per shared row (padding: no conflicts)
+constexpr int kStages = 3;
 constexpr int kThreads = 256;
+constexpr int kStageFloats = (kBM + kBN) * kLd;
+constexpr size_t kSmemBytes =
+    (size_t)kStages * kStageFloats * sizeof(float) +
+    2 * kBM * (sizeof(float) + sizeof(int));
 constexpr float kNegInf = -1e30f;
 
-// Column (or row) j of a thread's 8: j < 4 -> g*4 + j, else 64 + g*4 + j-4.
-__device__ __forceinline__ int lane_offset(int g, int j) {
-  return (j < 4 ? 0 : 64 - 4) + g * 4 + j;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = full ? 16 : 0;  // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 top1_partial_kernel(const float* __restrict__ q, const float* __restrict__ p,
                     const uint8_t* __restrict__ mask, int n, int c, int d,
                     int tiles_per_split, float* __restrict__ part_score,
                     int* __restrict__ part_idx) {
-  __shared__ __align__(16) float as[2][kBK][kBM];
-  __shared__ __align__(16) float bs[2][kBK][kBN];
+  extern __shared__ __align__(16) float smem[];
+  // running best per row and per half of the columns: [2][kBM] each
+  float* best_s = smem + kStages * kStageFloats;
+  int* best_i = reinterpret_cast<int*>(best_s + 2 * kBM);
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;  // column group of the 8x8 block
-  const int ty = tid >> 4;  // row group
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int half = warp & 1;        // which 8 of the 16 column threads
+  const int lx = lane & 7;
+  const int tx = half * 8 + lx;     // prototype columns tx + 16 j
+  const int ty = (warp >> 1) * 4 + (lane >> 3);  // query rows ty + 16 i
   const int q0 = blockIdx.x * kBM;
   const int n_ctiles = (c + kBN - 1) / kBN;
   const int t_begin = blockIdx.y * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, n_ctiles);
   const int nk = (d + kBK - 1) / kBK;
-  // loader: thread -> rows lrow and lrow + 64, depth lk..lk+3 (one float4)
-  const int lrow = tid >> 2;
-  const int lk = (tid & 3) * 4;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int steps = (t_end - t_begin) * nk;
 
-  float best_s[8];
-  int best_i[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    best_s[i] = kNegInf;
-    best_i[i] = 0;
-  }
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int c0 = t * kBN;
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    float4 qa[2], pb[2];
-    auto load = [&](int k0) {
-      const int k = k0 + lk;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int gq = q0 + lrow + h * 64;
-        const int gp = c0 + lrow + h * 64;
-        qa[h] = (gq < n && k < d)
-                    ? *reinterpret_cast<const float4*>(q + (size_t)gq * d + k)
-                    : zero;
-        pb[h] = (gp < c && k < d)
-                    ? *reinterpret_cast<const float4*>(p + (size_t)gp * d + k)
-                    : zero;
-      }
-    };
-    auto store = [&](int buf) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = lrow + h * 64;
-        as[buf][lk + 0][r] = qa[h].x;
-        as[buf][lk + 1][r] = qa[h].y;
-        as[buf][lk + 2][r] = qa[h].z;
-        as[buf][lk + 3][r] = qa[h].w;
-        bs[buf][lk + 0][r] = pb[h].x;
-        bs[buf][lk + 1][r] = pb[h].y;
-        bs[buf][lk + 2][r] = pb[h].z;
-        bs[buf][lk + 3][r] = pb[h].w;
-      }
-    };
-
-    load(0);
-    store(0);
-    __syncthreads();
-    int cur = 0;
-    for (int kt = 0; kt < nk; ++kt) {
-      const bool more = kt + 1 < nk;
-      if (more) load((kt + 1) * kBK);
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&as[cur][kk][ty * 4]);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(&as[cur][kk][64 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&bs[cur][kk][tx * 4]);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(&bs[cur][kk][64 + tx * 4]);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      // the other buffer was last read before the previous barrier
-      if (more) store(cur ^ 1);
-      __syncthreads();
-      cur ^= 1;
-    }
-
-    // epilogue: mask, per-row best of this tile, running best
-    bool keep[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = c0 + lane_offset(tx, j);
-      keep[j] = col < c && mask[col] != 0;
-    }
+  if (lx == 0) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      float s = keep[0] ? acc[i][0] : kNegInf;
-      int idx = c0 + lane_offset(tx, 0);
-#pragma unroll
-      for (int j = 1; j < 8; ++j) {  // columns in increasing index order
-        const float v = keep[j] ? acc[i][j] : kNegInf;
-        if (v > s) {
-          s = v;
-          idx = c0 + lane_offset(tx, j);
-        }
-      }
-      // the 16 threads of a row group are 16 adjacent lanes of one warp
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
-        const int i2 = __shfl_xor_sync(0xffffffffu, idx, off);
-        if (s2 > s || (s2 == s && i2 < idx)) {
-          s = s2;
-          idx = i2;
-        }
-      }
-      if (s > best_s[i]) {
-        best_s[i] = s;
-        best_i[i] = idx;
-      }
+      best_s[half * kBM + ty + 16 * i] = kNegInf;
+      best_i[half * kBM + ty + 16 * i] = 0;
     }
   }
 
+  // loader: ring stage `stage` <- slice `step` (tile t_begin + step / nk,
+  // depth (step % nk) * kBK): rows lrow + 32 h of each operand,
+  // floats kc..kc+3 of the slice; 8 consecutive threads per 128-byte row
+  // segment
+  const int lrow = tid >> 3;
+  const int kc = (tid & 7) * 4;
+  const float* qrow = q + (size_t)(q0 + lrow) * d + kc;
+  auto load = [&](int step, int stage) {
+    const int c0 = (t_begin + step / nk) * kBN;
+    const int k0 = (step % nk) * kBK;
+    const bool kin = k0 + kc < d;
+    const float* prow = p + (size_t)(c0 + lrow) * d + kc + k0;
+    float* sa = smem + stage * kStageFloats + lrow * kLd + kc;
+    float* sb = sa + kBM * kLd;
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const bool qin = kin && q0 + lrow + 32 * h < n;
+      const bool pin = kin && c0 + lrow + 32 * h < c;
+      cp_async16(sa + 32 * h * kLd, qin ? qrow + k0 + (size_t)32 * h * d : q,
+                 qin);
+      cp_async16(sb + 32 * h * kLd, pin ? prow + (size_t)32 * h * d : p, pin);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kStages - 2>();  // slice `step` has landed
+    __syncthreads();               // ... for every thread; and the stage
+                                   // read at step - 1 is free again
+    if (step + kStages - 1 < steps)
+      load(step + kStages - 1, (step + kStages - 1) % kStages);
+    cp_async_commit();
+    const float* sa = smem + (step % kStages) * kStageFloats + ty * kLd;
+    const float* sb = smem + (step % kStages) * kStageFloats +
+                      (kBM + tx) * kLd;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 4) {
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(sa + 16 * i * kLd + kk);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 b =
+            *reinterpret_cast<const float4*>(sb + 16 * j * kLd + kk);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i][j] = dot4(a[i], b, acc[i][j]);
+      }
+    }
+
+    if ((step + 1) % nk == 0) {
+      // epilogue of tile t: mask, per-row best, running best
+      const int c0 = (t_begin + step / nk) * kBN;
+      unsigned keep = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = c0 + tx + 16 * j;
+        if (col < c && mask[col] != 0) keep |= 1u << j;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float s = (keep & 1u) ? acc[i][0] : kNegInf;
+        int idx = c0 + tx;
+#pragma unroll
+        for (int j = 1; j < 8; ++j) {  // columns in increasing index order
+          const float v = (keep >> j) & 1u ? acc[i][j] : kNegInf;
+          if (v > s) {
+            s = v;
+            idx = c0 + tx + 16 * j;
+          }
+        }
+        // the 8 threads of a row in this half are 8 adjacent lanes
+#pragma unroll
+        for (int off = 4; off > 0; off >>= 1) {
+          const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
+          const int i2 = __shfl_xor_sync(0xffffffffu, idx, off);
+          if (s2 > s || (s2 == s && i2 < idx)) {
+            s = s2;
+            idx = i2;
+          }
+        }
+        const int r = half * kBM + ty + 16 * i;
+        if (lx == 0 && s > best_s[r]) {
+          best_s[r] = s;
+          best_i[r] = idx;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // fold the two column halves of each row: higher score, else lower index
   if (tx == 0) {
     float* out_s = part_score + (size_t)blockIdx.y * n;
     int* out_i = part_idx + (size_t)blockIdx.y * n;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int row = q0 + lane_offset(ty, i);
-      if (row < n) {
-        out_s[row] = best_s[i];
-        out_i[row] = best_i[i];
+      const int r = ty + 16 * i;
+      float s = best_s[r];
+      int idx = best_i[r];
+      const float s2 = best_s[kBM + r];
+      const int i2 = best_i[kBM + r];
+      if (s2 > s || (s2 == s && i2 < idx)) {
+        s = s2;
+        idx = i2;
+      }
+      if (q0 + r < n) {
+        out_s[q0 + r] = s;
+        out_i[q0 + r] = idx;
       }
     }
   }
@@ -229,29 +280,45 @@ __global__ void top1_combine_kernel(const float* __restrict__ part_score,
   idx[r] = i;
 }
 
+// Lets the partial kernel take its dynamic shared memory (over the
+// 48 KB default) on the current device, with the carveout at its most.
+cudaError_t prepare() {
+  cudaError_t err = cudaFuncSetAttribute(
+      top1_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemBytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(top1_partial_kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              100);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Number of prototype splits (grid.y) for n queries and c prototypes on
-// the current device: the count that minimises waves x tiles per split,
-// the fewest splits among equals.  Returns a negative cudaError_t on
-// failure.
+// the current device: the count, up to one wave's worth, that minimises
+// waves x tiles per split, the fewest splits among equals.  Returns a
+// negative cudaError_t on failure.
 int top1_splits(int n, int c) {
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = prepare();
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, top1_partial_kernel, kThreads, 0);
+        &per_sm, top1_partial_kernel, kThreads, kSmemBytes);
   if (err != cudaSuccess) return -(int)err;
   const long slots = (long)sms * (per_sm > 0 ? per_sm : 1);
   const long q_tiles = (n + kBM - 1) / kBM;
   const int c_tiles = (c + kBN - 1) / kBN;
+  // no more splits than one wave of blocks holds: past that, each split
+  // adds a partial per query to write and fold and takes no waves off
+  const long max_splits = (slots + q_tiles - 1) / q_tiles;
   int best = 1;
   long best_cost = -1;
-  for (int s = 1; s <= c_tiles; ++s) {
+  for (int s = 1; s <= c_tiles && s <= max_splits; ++s) {
     const int per = (c_tiles + s - 1) / s;
     const int used = (c_tiles + per - 1) / per;  // splits that get tiles
     if (used != s) continue;
@@ -280,11 +347,13 @@ int top1_launch(const void* queries, const void* prototypes,
   float* ps = splits == 1 ? static_cast<float*>(score)
                           : static_cast<float*>(part_score);
   int* pi = splits == 1 ? static_cast<int*>(idx) : static_cast<int*>(part_idx);
+  cudaError_t err = prepare();
+  if (err != cudaSuccess) return (int)err;
   dim3 grid((n + kBM - 1) / kBM, splits);
-  top1_partial_kernel<<<grid, kThreads, 0, st>>>(
+  top1_partial_kernel<<<grid, kThreads, kSmemBytes, st>>>(
       static_cast<const float*>(queries), static_cast<const float*>(prototypes),
       static_cast<const uint8_t*>(mask), n, c, d, per, ps, pi);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   top1_combine_kernel<<<(n + 255) / 256, 256, 0, st>>>(
       ps, pi, n, splits, static_cast<float*>(score), static_cast<int*>(idx));

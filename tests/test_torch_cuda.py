@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from effocr_torch.kernels.cuda_nms import nms_kernel, nms_keep
+from effocr_torch.kernels.cuda_nms import MAX_N, nms_kernel, nms_keep
 from effocr_torch.kernels.cuda_top1 import top1, top1_kernel
 from effocr_torch.kernels.nms import batched_nms, nms_mask
 from effocr_torch.kernels.retrieval import NEG_INF, top1_plain
@@ -78,14 +78,56 @@ def test_batched_nms_cuda_matches_plain(cuda):
 
 
 def test_kernel_rejects_bad_input(cuda):
+    """Wrong dtype and strides raise; N = 2048, refused by an earlier
+    design (its mask lived in one CTA's shared memory), now runs and
+    matches; N past MAX_N raises with the limit named."""
     boxes, valid = _batch(np.random.default_rng(2), 2, 64)
     with pytest.raises(TypeError):
         nms_kernel(boxes.to(cuda).double(), valid.to(cuda), 0.25)
     with pytest.raises(ValueError):
         nms_kernel(boxes.to(cuda)[:, ::2], valid.to(cuda)[:, ::2], 0.25)
-    with pytest.raises(ValueError):
-        big, bv = _batch(np.random.default_rng(3), 1, 2048)
-        nms_kernel(big.to(cuda), bv.to(cuda), 0.25)
+    big, bv = _batch(np.random.default_rng(3), 1, 2048)
+    got = nms_kernel(big.to(cuda), bv.to(cuda), 0.25)
+    assert torch.equal(got.cpu(), nms_mask(big, None, bv, 0.25,
+                                           presorted=True))
+    n = MAX_N + 1
+    with pytest.raises(ValueError, match=str(MAX_N)):
+        nms_kernel(torch.zeros(1, n, 4, device=cuda),
+                   torch.zeros(1, n, dtype=torch.bool, device=cuda), 0.25)
+
+
+@pytest.mark.parametrize("b,n,prefix,iou_thresh", [
+    (8, 2048, None, 0.25), (8, 2048, None, 0.01), (4, 4096, None, 0.25),
+    (4, 4096, None, 0.01), (512, 1024, 1024, 0.25), (120, 1024, 40, 0.01),
+    (16, 1024, None, 0.0)])
+def test_kernel_large_and_prefix_cases(cuda, b, n, prefix, iou_thresh):
+    """N above the earlier design's cap, the English path's all-valid
+    [512, 1024] shape, a small valid prefix (the Japanese path's shape),
+    and thr = 0.0 (the exact division on every pair)."""
+    boxes, valid = _batch(np.random.default_rng(n + b), b, n, size=4096.0)
+    if prefix is not None:
+        valid = torch.arange(n)[None].expand(b, n) < prefix
+    boxes, valid = boxes.to(cuda), valid.to(cuda)
+    ref = nms_mask(boxes, None, valid, iou_thresh, presorted=True)
+    assert torch.equal(nms_keep(boxes, valid, iou_thresh), ref)
+
+
+@pytest.mark.parametrize("iou_thresh", [0.25, 1 / 3, 0.5])
+def test_kernel_near_threshold(cuda, iou_thresh):
+    """Integer boxes on a small grid: many IoUs equal the threshold, so
+    the kernel's division-free test must defer them to the division (as
+    it must every pair of a 64-box block holding a box of infinite
+    area)."""
+    rng = np.random.default_rng(int(iou_thresh * 1000))
+    xy = rng.integers(0, 6, (6, 300, 2))
+    wh = rng.integers(1, 5, (6, 300, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(
+        np.float32))
+    boxes[0, 7] = torch.tensor([0.0, 0.0, 1e20, 1e20])  # area overflows
+    valid = torch.ones(6, 300, dtype=torch.bool)
+    ref = nms_mask(boxes, None, valid, iou_thresh, presorted=True)
+    got = nms_keep(boxes.to(cuda), valid.to(cuda), iou_thresh)
+    assert torch.equal(got.cpu(), ref)
 
 
 def _unit(rng, n, d):
@@ -112,6 +154,52 @@ def test_top1_kernel_matches_plain(cuda, n, c, d, masked):
     top2 = torch.topk(sims, 2, dim=1).values
     sure = top2[:, 0] - top2[:, 1] > 1e-5
     assert torch.equal(i[sure], ri[sure])
+
+
+@pytest.mark.parametrize("c", [127, 128, 129])
+@pytest.mark.parametrize("d", [4, 324])
+def test_top1_kernel_ragged_tiles(cuda, c, d):
+    """C around one 128-prototype tile and D past
+    the 32-deep ring stages (4: one partial stage; 324: ten full and one
+    partial)."""
+    rng = np.random.default_rng(c * d)
+    q, p = _unit(rng, 300, d).to(cuda), _unit(rng, c, d).to(cuda)
+    mask = torch.from_numpy(rng.uniform(size=c) >= 0.1).to(cuda)
+    s, i = top1(q, p, mask)
+    rs, ri = top1_plain(q, p, mask)
+    assert (s - rs).abs().max().item() <= 1e-5
+    sims = torch.where(mask[None], q @ p.t(), torch.full((), NEG_INF,
+                                                        device=cuda))
+    top2 = torch.topk(sims, 2, dim=1).values
+    sure = top2[:, 0] - top2[:, 1] > 1e-5
+    assert torch.equal(i[sure], ri[sure])
+
+
+def _expected_splits(n, c, slots):
+    """csrc/top1.cu top1_splits: 128-query by 128-prototype tiles; up to
+    one wave's worth of splits, the fewest with the least waves x tiles
+    per split."""
+    q_tiles, c_tiles = -(-n // 128), -(-c // 128)
+    best, cost = 1, None
+    for s in range(1, min(c_tiles, -(-slots // q_tiles)) + 1):
+        per = -(-c_tiles // s)
+        if -(-c_tiles // per) != s:
+            continue
+        k = -(-q_tiles * s // slots) * per
+        if cost is None or k < cost:
+            best, cost = s, k
+    return best
+
+
+def test_top1_splits_at_two_blocks_per_sm(cuda):
+    """The redesigned kernel fits two blocks per SM, and the split count
+    follows from that occupancy: on an H100 (132 SMs), 8 splits for the
+    Japanese path's 4096 queries and 11,051 prototypes."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = top1_kernel.splits(4096, 11051)
+    assert splits == _expected_splits(4096, 11051, 2 * sms)
+    if sms == 132:
+        assert splits == 8
 
 
 @pytest.mark.parametrize("case", ["ties", "ties_masked", "all_masked"])
