@@ -44,10 +44,33 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    them, the engine's text against the same engine with top1_plain
    (identical apart from crop slots whose plain top-2 margin is <= 1e-5),
    and both models in float32 on the card against the CPU.
-6. a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+6. The other single-card paths, each run twice (the second run timed,
+   with K1's and K2's launch counts read around it); in the first run
+   every K1 keep mask is held bit for bit against nms_mask and every K2
+   result against top1_plain (margin rule); afterwards the engine's text
+   against the same engine with plain NMS and top1_plain:
+   - square: the en models on the square 640 x 640 canvas (a localizer
+     model.json with no input_height) and crop_window 256, so crops take
+     the general 2-D ROI window; 512 lines, both kernels;
+   - original: ``--crop_source original`` on the jp artifacts with the
+     jp_v3 flags; 240 RGB vertical lines;
+   - tiling: BENCH_TRAINED.json's flags + ``--tile_min_h 24`` on 64 gray
+     lines 6,000-8,000 px wide;
+   - bucket: the en engine with transfer "bucket", bucket_hw (64, 1024),
+     on 512 lines, most of them larger than the bucket;
+   - classifier: mobilenetv3_small_050 + a 90-class head and a
+     class_map.json from the en ref.txt; 256 lines;
+   - serve: ``python -m effocr_torch serve --stdin --device cuda
+     --spell_check`` in a subprocess, fed 200 paths; its answers must
+     equal ``engine.run`` with the same flags over the batches the server
+     logged, run in-process once with every K1 keep mask held bit for bit
+     against nms_mask and once on plain NMS.
+7. a ``kernels`` JSON line (launches per path under
+   ``launches_by_path``), then ``{"ok": true, "device": ...}`` last.
 
-``--profile`` adds a torch.profiler run over one chunk of each slice:
-device time per engine stage and per kernel, and the device busy share.
+``--profile`` adds a torch.profiler run over one chunk of the en, jp and
+square paths: device time per engine stage and per kernel, and the device
+busy share.
 
 Needs a CUDA device, nvcc (sm_90a) and g++.  Writes its artifacts,
 line images and results under build/chip_smoke/ in the checkout (the
@@ -56,6 +79,7 @@ results to ``--out DIR`` when given).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -79,6 +103,7 @@ from effocr_torch.kernels.cuda_build import BUILD_DIR
 from effocr_torch.kernels.nms import MAX_WH, nms_mask
 from effocr_torch.kernels.retrieval import NEG_INF, top1_plain
 from effocr_torch.models.factory import (
+    create_classifier,
     create_encoder,
     create_localizer,
     init_params,
@@ -106,6 +131,13 @@ DETECT_BIAS = {0: {4: -1.2, 5: 4.0, 6: -4.0},
 JP_DETECT_BIAS = {0: {4: -2.6, 5: 4.0, 6: -4.0},
                   1: {4: -6.0},
                   2: {4: -6.0}}
+# the en detector on the square 640 x 640 canvas: 20 x 20 stride-32 cells
+# (not 3 x 32) would fill max_nms with word candidates at DETECT_BIAS, so
+# their objectness drops; set for ~32 chars and ~16 words per line after
+# NMS on 16 synthetic lines
+SQUARE_DETECT_BIAS = {0: {4: -1.75, 5: 4.0, 6: -4.0},
+                      1: {4: -6.0},
+                      2: {4: -2.3, 5: -4.0, 6: 4.0}}
 # K2: plain top-2 margins at or below this may flip the index under
 # another summation order; scores must agree within it
 K2_TOL = 1e-5
@@ -348,11 +380,12 @@ def top1_library(q, p, mask):
     return torch.argmax(sims, dim=1)
 
 
-def k2_case(name, q, p, mask, exact=False, timed=False):
+def k2_case(name, q, p, mask, exact=False, timed=False, wrapper=False):
     """Kernel vs plain on the card.  Scores within K2_TOL; indices equal
     wherever the plain top-2 margin exceeds K2_TOL (everywhere if
-    ``exact``: products exact in float32)."""
-    kernel = cuda_top1.top1_kernel
+    ``exact``: products exact in float32).  ``wrapper``: through
+    ``cuda_top1.top1``, which pads D to a multiple of 4."""
+    kernel = cuda_top1.top1 if wrapper else cuda_top1.top1_kernel
     s, i = kernel(q, p, mask)
     rs, ri = top1_plain(q, p, mask)
     torch.cuda.synchronize()
@@ -427,6 +460,12 @@ def phase_k2(dev):
                 f"ragged C={c} D={d}", unit_rows(rng, 300, d, dev),
                 unit_rows(rng, c, d, dev),
                 torch.tensor(rng.uniform(size=c) >= 0.1, device=dev))
+    # D = 6: the wrapper pads it to 8 (the JAX kernel takes any D)
+    rows["d6"] = k2_case("D=6 through the padding wrapper",
+                         unit_rows(rng, 700, 6, dev),
+                         unit_rows(rng, 1500, 6, dev),
+                         torch.tensor(rng.uniform(size=1500) >= 0.05,
+                                      device=dev), wrapper=True)
     none = torch.zeros(11051, dtype=torch.bool, device=dev)
     rows["all_masked"] = k2_case("every row masked", q[:300], p, none,
                                  exact=True)
@@ -458,11 +497,12 @@ def write_png(path: str, img: np.ndarray) -> None:
                 + chunk(b"IEND", b""))
 
 
-def synth_line(rng) -> np.ndarray:
+def synth_line(rng, n=None) -> np.ndarray:
     """A printed-line-like gray image: dark strokes in glyph boxes, word
-    gaps, line heights 36-72 px and 4-70 glyphs (widths ~90-3000 px)."""
+    gaps, line heights 36-72 px and ``n`` glyphs (default 4-70: widths
+    ~90-3000 px)."""
     h = int(rng.integers(36, 73))
-    n = int(rng.integers(4, 71))
+    n = int(rng.integers(4, 71)) if n is None else n
     gw = (h * rng.uniform(0.3, 0.7, n)).astype(int) + 2
     gap = np.where(rng.uniform(size=n) < 0.2, h // 2, max(2, h // 10))
     w = int(gw.sum() + gap.sum()) + 2 * (h // 4)
@@ -583,10 +623,14 @@ def timed_run(engine, paths, res0, tag):
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                chunks=-(-len(paths) // engine.config.line_batch),
                dispatches=engine.timer.counts["prep/h2d+dispatch"])
-    missing = [p for p in paths if not isinstance(results.get(p), str)]
+    # a line with chars but no word box reads None (en_postprocess's
+    # contract, the JAX package's too); every line gets an entry
+    missing = [p for p in paths if p not in results
+               or not isinstance(results[p], (str, type(None)))]
     if missing:
         raise AssertionError(f"{tag}: {len(missing)} lines without a "
-                             f"string result, e.g. {missing[:3]}")
+                             f"result, e.g. {missing[:3]}")
+    run["no_words"] = sum(results[p] is None for p in paths)
     if results != res0:
         raise AssertionError(f"{tag}: warm and timed runs decoded "
                              "differently")
@@ -666,7 +710,8 @@ def phase_slice(dev, card, out_dir, profile=False):
                 launches=run["k1_launches"], k2_launches=run["k2_launches"],
                 peak_gib=run["peak_gib"], mean_chars=mean_chars,
                 n_lines=len(paths),
-                spilled=run["dispatches"] - run["chunks"], k1_main=k1_main)
+                spilled=run["dispatches"] - run["chunks"], k1_main=k1_main,
+                paths=paths, loc_dir=loc_dir, rec_dir=rec_dir)
 
 
 # ------------------------------------------------------ jp vertical slice
@@ -769,8 +814,8 @@ class Top1Check:
     kernel, keeps the first input of the path, and holds each result
     against top1_plain on the same queries."""
 
-    def __init__(self, kernel):
-        self.kernel = kernel
+    def __init__(self, kernel, tag="jp"):
+        self.kernel, self.tag = kernel, tag
         self.first = None
         self.calls = self.slots = self.differs = self.low_margin = 0
         self.max_err = 0.0
@@ -785,8 +830,9 @@ class Top1Check:
         unsure = top2[:, 0] - top2[:, 1] <= K2_TOL
         diff = i != ri
         if bool((diff & ~unsure).any()):
-            raise AssertionError("K2 on the jp path: index differs from "
-                                 f"top1_plain at a margin above {K2_TOL}")
+            raise AssertionError(f"K2 on the {self.tag} path: index differs "
+                                 f"from top1_plain at a margin above "
+                                 f"{K2_TOL}")
         self.calls += 1
         self.slots += q.shape[0]
         self.differs += int(diff.sum())
@@ -892,7 +938,425 @@ def phase_jp(dev, card, out_dir, profile=False):
                 k1_launches=k1_launches, k2_launches=k2_launches,
                 peak_gib=run["peak_gib"], mean_chars=mean_chars,
                 n_lines=len(paths), spilled=spilled, k1_main=k1_main,
-                k2_main=k2_main, plain_lines_differ=n_diff)
+                k2_main=k2_main, plain_lines_differ=n_diff, paths=paths,
+                loc_dir=loc_dir, rec_dir=rec_dir)
+
+
+# ------------------------------------------ the other single-card paths
+class NmsCheck:
+    """Stands in for cuda_nms.nms_kernel during one run: launches the
+    kernel and holds every keep mask bit for bit against nms_mask on the
+    same inputs."""
+
+    def __init__(self, kernel, tag):
+        self.kernel, self.tag = kernel, tag
+        self.calls = self.boxes = 0
+
+    def __call__(self, boxes, valid, thr):
+        keep = self.kernel(boxes, valid, thr)
+        if not torch.equal(keep, nms_mask(boxes, None, valid, thr,
+                                          presorted=True)):
+            raise AssertionError(f"K1 on the {self.tag} path: keep mask "
+                                 "differs from nms_mask")
+        self.calls += 1
+        self.boxes += int(valid.sum())
+        return keep
+
+
+@contextlib.contextmanager
+def kernels_checked(tag, k2=False):
+    """K1 (and K2, when ``k2``) held against the plain versions on every
+    call made inside the block; yields the two checks."""
+    nms, top1 = cuda_nms.nms_kernel, cuda_top1.top1_kernel
+    k1c, k2c = NmsCheck(nms, tag), Top1Check(top1, tag)
+    cuda_nms.nms_kernel = k1c
+    if k2:
+        cuda_top1.top1_kernel = k2c
+    try:
+        yield k1c, k2c
+    finally:
+        cuda_nms.nms_kernel, cuda_top1.top1_kernel = nms, top1
+
+
+@contextlib.contextmanager
+def plain_kernels(engine):
+    """``engine`` on plain NMS and top1_plain inside the block."""
+    saved, top1 = engine._nms_kernel, cuda_top1.top1_kernel
+    engine._nms_kernel, cuda_top1.top1_kernel = "plain", top1_plain
+    try:
+        yield
+    finally:
+        engine._nms_kernel, cuda_top1.top1_kernel = saved, top1
+
+
+def checked_runs(engine, paths, tag, k2=False):
+    """A warm-up run with K1 (and K2, when the path reaches it) held
+    against the plain versions on every call, then the timed run
+    (``timed_run``).  Then the same engine with plain NMS and top1_plain:
+    its text must be identical apart from lines holding a slot where
+    K2's index differed at a low margin."""
+    t0 = time.perf_counter()
+    with kernels_checked(tag, k2) as (k1c, k2c):
+        res0, coco = engine.run(paths, return_coco=True)
+    torch.cuda.synchronize()
+    if k1c.calls == 0 or (k2 and k2c.calls == 0):
+        raise AssertionError(f"{tag}: the warm-up run reached K1 "
+                             f"{k1c.calls} and K2 {k2c.calls} times")
+    log(f"{tag}: warm-up run {time.perf_counter() - t0:.2f} s; K1 held bit "
+        f"for bit against nms_mask on {k1c.calls} calls ({k1c.boxes} valid "
+        "boxes)" + (f"; K2 against top1_plain on {k2c.calls} calls, "
+                    f"{k2c.slots} slots: index differs at {k2c.differs}, "
+                    f"all within the {k2c.low_margin} slots whose plain "
+                    f"top-2 margin is <= {K2_TOL}; max|score diff| "
+                    f"{k2c.max_err:.3g}" if k2 else ""))
+    run = timed_run(engine, paths, res0, tag)
+    if run["k1_launches"] == 0 or (k2 and run["k2_launches"] == 0):
+        raise AssertionError(f"{tag}: the timed run launched K1 "
+                             f"{run['k1_launches']} and K2 "
+                             f"{run['k2_launches']} times")
+    with plain_kernels(engine):
+        plain = engine.run(paths)
+    n_diff = sum(plain[p] != run["results"][p] for p in plain)
+    if set(plain) != set(run["results"]) or n_diff > k2c.differs:
+        raise AssertionError(f"{tag}: {n_diff} lines differ with plain NMS "
+                             f"and top1_plain ({k2c.differs} low-margin "
+                             "index differences allow that many)")
+    chars = [len(c) for c in _chars_per_line(coco)]
+    run.update(mean_chars=float(np.mean(chars)), max_chars=max(chars),
+               spilled=run["dispatches"] - run["chunks"],
+               k1_checked=k1c.calls, plain_lines_differ=n_diff,
+               k2_differs=k2c.differs, k2_low_margin=k2c.low_margin,
+               k2_max_err=k2c.max_err, n_lines=len(paths))
+    return run
+
+
+def report(tag, run, card, extra=""):
+    log(f"{tag}: {run['n_lines']} lines in {run['wall']:.3f} s = "
+        f"{run['lines_s']:.1f} lines/s ({card}); mean chars/line "
+        f"{run['mean_chars']:.1f} (max {run['max_chars']}); "
+        f"{run['dispatches']} dispatches for {run['chunks']} chunks "
+        f"({run['spilled']} spilled); {run['no_words']} lines read None "
+        f"(chars, no word box); K1 launches {run['k1_launches']}, K2 "
+        f"launches {run['k2_launches']}; {run['plain_lines_differ']} lines "
+        f"differ with plain NMS + top1_plain; peak device memory "
+        f"{run['peak_gib']:.2f} GiB{extra}")
+    return {k: v for k, v in run.items() if k != "results"}
+
+
+# the square canvas: the JAX default localizer (640 x 640, no
+# input_height) with crop_window 256, so crops take the 2-D window;
+# line_batch x max_det crop slots, so no chunk spills
+SQUARE_FLAGS = ["--lang", "en", "--localizer_conf_thresh", "0.3",
+                "--localizer_iou_thresh", "0.25", "--line_batch", "128",
+                "--crop_batch", "12288", "--encoder_sub_batch", "2048",
+                "--max_det", "96", "--max_words", "16", "--out_quant", "u16",
+                "--transfer_bits", "4", "--nms_kernel", "pallas",
+                "--retrieval_kernel", "pallas"]
+N_SQUARE = 512
+
+
+def phase_square(dev, card, paths, rec_dir, out_dir, profile=False):
+    """The en models on the square 640 canvas: a localizer dir whose
+    model.json has input_size 640 and no input_height (yolov5s, its heads
+    scaled on the square canvas), the en recognizer."""
+    import argparse
+
+    loc_dir = os.path.join(WORK, "sq_loc")
+    os.makedirs(loc_dir, exist_ok=True)
+    with open(os.path.join(R5, "loc2k", "model.json")) as f:
+        meta = json.load(f)
+    meta = {k: meta[k] for k in ("arch", "num_classes", "input_channels",
+                                 "anchors")}
+    meta["input_size"] = 640
+    with open(os.path.join(loc_dir, "model.json"), "w") as f:
+        json.dump(meta, f)
+    loc = init_params(create_localizer(
+        "yolov5s", 2, in_channels=1,
+        anchors=tuple(tuple(a) for a in meta["anchors"])), SEED + 30)
+    loc = scaled_detector(dev, loc, letterboxed(paths[:16], 1, 640, 640),
+                          SQUARE_DETECT_BIAS)
+    write_variables(state_dict_to_flax(loc.state_dict()),
+                    os.path.join(loc_dir, "best_bbox_mAP.msgpack"))
+    p = argparse.ArgumentParser()
+    add_engine_args(p)
+    engine = load_engine(p.parse_args(
+        ["--localizer_dir", loc_dir, "--recognizer_dir", rec_dir]
+        + SQUARE_FLAGS))
+    c = engine.config
+    if c.localizer.input_height is not None or not (
+            c.localizer.input_size > c.crop_window):
+        raise AssertionError("square: the canvas does not take the 2-D "
+                             "window")
+    log(f"square: canvas {c.localizer.input_size} x {c.localizer.input_size}"
+        f", crop_window {c.crop_window}, line_batch {c.line_batch}, "
+        f"crop_batch {c.crop_batch}, encoder_sub_batch "
+        f"{c.encoder_sub_batch}, nms {engine._nms_kernel}, top-1 kernel "
+        f"{engine._top1}")
+    run = checked_runs(engine, paths[:N_SQUARE], "square", k2=True)
+    if profile:
+        profile_run(engine, paths[:c.line_batch], card, out_dir, "square")
+    return report("square", run, card)
+
+
+N_ORIGINAL = 240
+
+
+def phase_original(dev, card, vpaths, loc_dir, rec_dir):
+    """crop_source original on the jp artifacts (3 channels) with the jp_v3
+    flags + the NMS kernel: detect program, host crops from the original
+    images, the recognize program through K2."""
+    engine = load_engine(jp_engine_args(loc_dir, rec_dir, "--nms_kernel",
+                                        "pallas", "--crop_source",
+                                        "original"))
+    c = engine.config
+    log(f"original: crop_source {c.crop_source}, crop_geometry "
+        f"{c.crop_geometry}, line_batch {c.line_batch}, crop_batch "
+        f"{c.crop_batch}, canvas {c.localizer.input_size} wide x "
+        f"{c.localizer.input_height} tall (8-bit: transfer_bits does not "
+        "apply)")
+    t0 = time.perf_counter()
+    run = checked_runs(engine, vpaths[:N_ORIGINAL], "original", k2=True)
+    return report("original", run, card,
+                  f"; stage split of the timed run in the log above; phase "
+                  f"{time.perf_counter() - t0:.1f} s")
+
+
+N_WIDE = 64
+
+
+def make_wide_lines():
+    """Synthetic gray lines 6,000-8,000 px wide (cut to a drawn width)."""
+    d = os.path.join(WORK, "wide")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(SEED + 33)
+    paths = []
+    for i in range(N_WIDE):
+        target = int(rng.integers(6000, 8001))
+        img = synth_line(rng, n=400)      # >= ~10,000 px at any height
+        p = os.path.join(d, f"{i:05d}.png")
+        write_png(p, img[:, :target])
+        paths.append(p)
+    return paths
+
+
+def phase_tiling(dev, card, loc_dir, rec_dir):
+    """BENCH_TRAINED.json's flags + --tile_min_h 24 on lines 6,000-8,000
+    px wide: each letterboxes below 24 px of content height on the
+    1024-wide canvas, so it rides the pipeline as overlapping tiles."""
+    from effocr_torch.pipelines.infer import _png_header
+    from effocr_torch.pipelines.tiling import plan_tiles
+
+    paths = make_wide_lines()
+    engine = load_engine(engine_args(loc_dir, rec_dir, "--tile_min_h", "24"))
+    c = engine.config
+    cap_h = c.localizer.input_height or c.localizer.input_size
+    tiles = []
+    for p in paths:
+        h, w = _png_header(p)[:2]
+        plan = plan_tiles(w, h, c.localizer.input_size, cap_h,
+                          c.tile_min_content_h, c.tile_overlap_factor)
+        tiles.append(len(plan) if plan else 1)
+    if min(tiles) < 2:
+        raise AssertionError("tiling: a wide line was not tiled")
+    log(f"tiling: {len(paths)} lines, {sum(tiles)} tiles (per line "
+        f"{min(tiles)}-{max(tiles)}), tile_min_content_h "
+        f"{c.tile_min_content_h}")
+    run = checked_runs(engine, paths, "tiling")
+    out = report("tiling", run, card, f"; {sum(tiles)} tiles")
+    out["tiles"] = sum(tiles)
+    return out
+
+
+N_BUCKET = 512
+
+
+def phase_bucket(dev, card, paths, loc_dir, rec_dir):
+    """The en engine with transfer "bucket", bucket_hw (64, 1024): lines
+    ship at raw size in the bucket (those larger first letterboxed into
+    it on the host) and the device letterboxes them onto the canvas.  The
+    JAX CLI has no flag for it; the engine takes it from the config."""
+    import dataclasses
+
+    from effocr_torch.pipelines.infer import EffOCRInference, _png_header
+
+    base = load_engine(engine_args(loc_dir, rec_dir))
+    cfg = dataclasses.replace(base.config, transfer="bucket",
+                              bucket_hw=(64, 1024))
+    engine = EffOCRInference(cfg, base.localizer, base.encoder, base.index,
+                             device=dev)
+    paths = paths[:N_BUCKET]
+    big = sum(1 for p in paths
+              if _png_header(p)[0] > 64 or _png_header(p)[1] > 1024)
+    if not 0 < big < len(paths):
+        raise AssertionError(f"bucket: {big} of {len(paths)} lines exceed "
+                             "the bucket")
+    log(f"bucket: bucket_hw {cfg.bucket_hw}, {big} of {len(paths)} lines "
+        "larger than the bucket (host pre-resize)")
+    run = checked_runs(engine, paths, "bucket")
+    out = report("bucket", run, card, f"; {big} lines past the bucket")
+    out["past_bucket"] = big
+    return out
+
+
+N_CLASSIFIER = 256
+
+
+def phase_classifier(dev, card, paths, loc_dir):
+    """Classifier mode: mobilenetv3_small_050 + a 90-class float32 head
+    (seeded), a class_map.json made from the en ref.txt, and the en
+    localizer with BENCH_TRAINED.json's flags."""
+    cls_dir = os.path.join(WORK, "cls_rec")
+    os.makedirs(cls_dir, exist_ok=True)
+    with open(os.path.join(R5, "rec2k_mn_hn", "model.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(R5, "rec2k_mn_hn", "ref.txt"), newline="") as f:
+        chars = f.read().rstrip("\n").split("\n")
+    meta["num_classes"] = len(chars)
+    with open(os.path.join(cls_dir, "model.json"), "w") as f:
+        json.dump(meta, f)
+    with open(os.path.join(cls_dir, "class_map.json"), "w") as f:
+        json.dump({str(i): ch for i, ch in enumerate(chars)}, f)
+    cls = init_params(create_classifier("mobilenetv3_small_050", len(chars),
+                                        in_channels=1), SEED + 40)
+    write_variables(state_dict_to_flax(cls.state_dict()),
+                    os.path.join(cls_dir, "enc_best.msgpack"))
+    engine = load_engine(engine_args(loc_dir, cls_dir))
+    if not engine.classifier_mode:
+        raise AssertionError("classifier: the engine is not in classifier "
+                             "mode")
+    run = checked_runs(engine, paths[:N_CLASSIFIER], "classifier")
+    known = set("".join(chars)) | {" "}
+    bad = [t for t in run["results"].values() if t and set(t) - known]
+    if bad:
+        raise AssertionError(f"classifier: text outside the class map, "
+                             f"e.g. {bad[:2]}")
+    return report("classifier", run, card, f"; {len(chars)} classes")
+
+
+N_SERVE = 200
+SERVE_BATCH = 64
+
+
+def phase_serve(dev, card, paths, loc_dir, rec_dir):
+    """``python -m effocr_torch serve --stdin --device cuda --spell_check``
+    with BENCH_TRAINED.json's flags, --line_batch 64 --max_latency_ms 50,
+    in a subprocess fed N_SERVE paths in two waves: one batch, whose
+    answers are awaited (the process's first batch pays its CUDA library
+    start-up), then the rest at once, timed from the write to the last
+    answer.  The server logs each batch it cut.  Over those same batches
+    an in-process engine with the same flags runs once with K1 held bit
+    for bit against nms_mask on every call (the inputs the served batches
+    gave K1) and once on plain NMS; the served answers must equal both.
+    These flags do not reach K2."""
+    import argparse
+    import threading
+
+    with open(os.path.join(ROOT, "BENCH_TRAINED.json")) as f:
+        flags = json.load(f)["flags"]
+    swap = {"--localizer_dir": loc_dir, "--recognizer_dir": rec_dir}
+    flags = [swap.get(flags[i - 1], f) if i else f
+             for i, f in enumerate(flags)]
+    flags += ["--spell_check", "--line_batch", str(SERVE_BATCH)]
+    paths = paths[:N_SERVE]
+    err_path = os.path.join(WORK, "serve_stderr.txt")
+    answers = []
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "effocr_torch", "serve", "--stdin",
+             "--device", "cuda", "--max_latency_ms", "50", *flags],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+            cwd=ROOT, text=True)
+        watchdog = threading.Timer(300, proc.kill)
+        watchdog.start()
+        try:
+            def send(batch):
+                proc.stdin.write("\n".join(batch) + "\n")
+                proc.stdin.flush()
+
+            def receive(n):
+                while n:
+                    line = proc.stdout.readline()
+                    if not line:
+                        raise AssertionError("serve: stdout closed after "
+                                             f"{len(answers)} answers")
+                    if line.startswith("{"):
+                        answers.append(json.loads(line))
+                        n -= 1
+
+            send(paths[:SERVE_BATCH])
+            receive(SERVE_BATCH)
+            first_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            send(paths[SERVE_BATCH:])
+            proc.stdin.close()
+            receive(len(paths) - SERVE_BATCH)
+            warm_s = time.perf_counter() - t1
+            proc.stdout.read()
+            rc = proc.wait()
+        finally:
+            watchdog.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    with open(err_path) as f:
+        stderr = f.read()
+    if rc != 0:
+        raise AssertionError(f"serve exited {rc}: {stderr[-2000:]}")
+    stats = [ln for ln in stderr.splitlines() if ln.startswith(
+        ("served ", "serve: kernel launches"))]
+    k1 = int(stats[-1].split("nms ")[1].split(",")[0])
+    k2 = int(stats[-1].split("top1 ")[1])
+    batches = [int(ln.rsplit(" ", 1)[1]) for ln in stderr.splitlines()
+               if ln.startswith("serve: batch of ")]
+    if sum(batches) != len(paths):
+        raise AssertionError(f"serve: logged batches {batches} do not cover "
+                             f"the {len(paths)} paths")
+    if [a["path"] for a in answers] != paths:
+        raise AssertionError(f"serve: {len(answers)} answers, not one per "
+                             "path in order")
+    p = argparse.ArgumentParser()
+    add_engine_args(p)
+    engine = load_engine(p.parse_args(flags))
+
+    def over_batches():
+        out, s = {}, 0
+        for n in batches:
+            out.update(engine.run(paths[s:s + n]))
+            s += n
+        return out
+
+    with kernels_checked("serve") as (k1c, _):
+        ref = over_batches()
+    if k1c.calls == 0:
+        raise AssertionError("serve: the in-process reference never "
+                             "reached K1")
+    with plain_kernels(engine):
+        plain = over_batches()
+    n_diff = sum(a["text"] != ref[a["path"]] for a in answers)
+    n_plain = sum(a["text"] != plain[a["path"]] for a in answers)
+    if n_diff or n_plain:
+        raise AssertionError(f"serve: {n_diff} answers differ from "
+                             f"engine.run, {n_plain} from engine.run on "
+                             "plain NMS")
+    if k1 == 0:
+        raise AssertionError("serve: the server launched K1 0 times")
+    lines_s = (len(paths) - SERVE_BATCH) / warm_s
+    log(f"serve: {len(answers)} answers identical to engine.run (K1 held "
+        f"bit for bit against nms_mask on {k1c.calls} calls, "
+        f"{k1c.boxes} valid boxes) and to engine.run on plain NMS, over "
+        f"the server's batches {batches}; second wave "
+        f"{len(paths) - SERVE_BATCH} lines in {warm_s:.3f} s = "
+        f"{lines_s:.1f} lines/s (write to last answer); first wave "
+        f"{SERVE_BATCH} lines answered {first_s:.1f} s after start-up "
+        f"began; {stats[0]} (serve_loop's clock, both waves); process "
+        f"wall {wall:.1f} s; K1 launches {k1}, K2 launches {k2} ({card})")
+    return dict(n_lines=len(answers), lines_s=lines_s, warm_wave_s=warm_s,
+                first_wave_s=first_s, process_wall=wall, k1_launches=k1,
+                k2_launches=k2, answers_differ=n_diff,
+                plain_answers_differ=n_plain, batches=batches,
+                k1_checked=k1c.calls)
 
 
 def profile_run(engine, paths, card, out_dir, tag):
@@ -1047,21 +1511,53 @@ def main(argv) -> int:
     k1 = phase_k1(dev)
     k1_sweep = phase_k1_sweep(dev)
     k2 = phase_k2(dev)
+    t0 = time.perf_counter()
     sl = phase_slice(dev, card, args.out, profile=args.profile)
+    log(f"phase en: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     jp = phase_jp(dev, card, args.out, profile=args.profile)
+    log(f"phase jp: {time.perf_counter() - t0:.1f} s")
+    # the other single-card paths, each with its own launch counts
+    t_more = time.perf_counter()
+    en_loc, en_rec = sl["loc_dir"], sl["rec_dir"]
+    more = {}
+    for name, run_phase in (
+        ("square", lambda: phase_square(dev, card, sl["paths"], en_rec,
+                                        args.out, profile=args.profile)),
+        ("original", lambda: phase_original(dev, card, jp["paths"],
+                                            jp["loc_dir"], jp["rec_dir"])),
+        ("tiling", lambda: phase_tiling(dev, card, en_loc, en_rec)),
+        ("bucket", lambda: phase_bucket(dev, card, sl["paths"], en_loc,
+                                        en_rec)),
+        ("classifier", lambda: phase_classifier(dev, card, sl["paths"],
+                                                en_loc)),
+        ("serve", lambda: phase_serve(dev, card, sl["paths"], en_loc,
+                                      en_rec)),
+    ):
+        t0 = time.perf_counter()
+        more[name] = run_phase()
+        more[name]["phase_s"] = time.perf_counter() - t0
+        log(f"phase {name}: {more[name]['phase_s']:.1f} s")
+    log(f"the six other paths: {time.perf_counter() - t_more:.1f} s")
+    k1_by_path = {"en": sl["launches"], "jp": jp["k1_launches"],
+                  **{k: v["k1_launches"] for k, v in more.items()}}
+    k2_by_path = {"en": sl["k2_launches"], "jp": jp["k2_launches"],
+                  **{k: v["k2_launches"] for k, v in more.items()}}
 
     main_row = sl["k1_main"]
     err = max(r["max_abs_err"] for r in list(k1.values())
               + [main_row, jp["k1_main"]])
     k2_main = jp["k2_main"]
-    k2_err = max(r["max_abs_err"] for r in list(k2.values()) + [k2_main])
+    k2_err = max([r["max_abs_err"] for r in list(k2.values()) + [k2_main]]
+                 + [v["k2_max_err"] for v in more.values()
+                    if "k2_max_err" in v])
     kernels = [{
         "name": "nms_keep_mask",
         "route": "cuda",
         "source": "effocr_torch/csrc/nms.cu",
         "replaces": "effocr_tpu/kernels/pallas_nms.py:51",
-        "launches": sl["launches"] + jp["k1_launches"],
-        "launches_by_path": {"en": sl["launches"], "jp": jp["k1_launches"]},
+        "launches": sum(k1_by_path.values()),
+        "launches_by_path": k1_by_path,
         "max_abs_err": err,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -1077,9 +1573,8 @@ def main(argv) -> int:
         "route": "cuda",
         "source": "effocr_torch/csrc/top1.cu",
         "replaces": "effocr_tpu/kernels/pallas_retrieval.py:28",
-        "launches": jp["k2_launches"],
-        "launches_by_path": {"en": sl["k2_launches"],
-                             "jp": jp["k2_launches"]},
+        "launches": sum(k2_by_path.values()),
+        "launches_by_path": k2_by_path,
         "max_abs_err": k2_err,
         "ms": k2_main["ms"],
         "plain_ms": k2_main["plain_ms"],
@@ -1095,7 +1590,8 @@ def main(argv) -> int:
                    mean_chars_per_line=sl["mean_chars"],
                    peak_device_gib=sl["peak_gib"], spilled=sl["spilled"],
                    jp={k: v for k, v in jp.items()
-                       if k not in ("k1_main", "k2_main")},
+                       if k not in ("k1_main", "k2_main", "paths")},
+                   other_paths=more,
                    kernels=kernels, k1_sweep=k1_sweep,
                    total_s=time.perf_counter() - t_start)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

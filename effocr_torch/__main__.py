@@ -1,10 +1,12 @@
-"""``python -m effocr_torch <command>``; the ported command is ``infer``."""
+"""``python -m effocr_torch <command>``; the ported commands are ``infer``
+and ``serve``."""
 
 import sys
 
 
 def main():
-    cmds = {"infer": "effocr_torch.cli.infer"}
+    cmds = {"infer": "effocr_torch.cli.infer",
+            "serve": "effocr_torch.cli.serve"}
     if len(sys.argv) < 2 or sys.argv[1].replace("-", "_") not in cmds:
         print(f"usage: python -m effocr_torch {{{','.join(cmds)}}} ...; "
               "ROADMAP.md lists the commands still to port")

@@ -3,8 +3,9 @@
 Flag-compatible with the JAX package's ``python -m effocr_tpu infer`` and
 reading the same artifact directories: the localizer_dir holds
 ``model.json`` + ``best_bbox_mAP.msgpack``, the recognizer_dir
-``model.json`` + ``enc_best.msgpack`` + ``ref.npz``/``ref.txt``.  Adds
-``--device`` (default cuda).
+``model.json`` + ``enc_best.msgpack`` + ``ref.npz``/``ref.txt`` (or, for a
+recognizer trained with a class head, ``num_classes`` in its model.json
+and a ``class_map.json``).  Adds ``--device`` (default cuda).
 """
 
 from __future__ import annotations
@@ -24,7 +25,11 @@ from effocr_torch.core.device import resolve_device
 from effocr_torch.eval.textline import textline_evaluation
 from effocr_torch.interop.flax_bridge import flax_to_state_dict
 from effocr_torch.interop.flax_msgpack import read_variables
-from effocr_torch.models.factory import create_encoder, create_localizer
+from effocr_torch.models.factory import (
+    create_classifier,
+    create_encoder,
+    create_localizer,
+)
 from effocr_torch.pipelines.infer import EffOCRInference, _not_ported
 from effocr_torch.retrieval.index import PrototypeIndex
 
@@ -65,8 +70,6 @@ def load_engine(args) -> EffOCRInference:
     # recognizer
     with open(os.path.join(args.recognizer_dir, "model.json")) as f:
         rec_meta = json.load(f)
-    if rec_meta.get("num_classes"):
-        raise _not_ported("classifier mode (num_classes in model.json)")
     imsize = rec_meta.get("image_size", 224)
     rec_ch = rec_meta.get("input_channels", 3)
     if rec_ch != loc_ch:
@@ -75,14 +78,32 @@ def load_engine(args) -> EffOCRInference:
             f"input_channels ({loc_ch}): the fused pipeline crops encoder "
             "inputs from the detector canvas, so both models must be "
             "trained with the same --input_channels")
-    encoder = _load_model(
-        create_encoder(rec_meta.get("arch", "convnext_tiny"),
-                       in_channels=rec_ch),
-        os.path.join(args.recognizer_dir, "enc_best.msgpack"))
-    index = PrototypeIndex.load(args.recognizer_dir)
-    print(f"{len(index)} candidate chars!")
-    if args.blacklist_chars:
-        index.blacklist(args.blacklist_chars)
+    arch = rec_meta.get("arch", "convnext_tiny")
+    if rec_meta.get("num_classes"):
+        encoder = create_classifier(arch, rec_meta["num_classes"],
+                                    in_channels=rec_ch)
+    else:
+        encoder = create_encoder(arch, in_channels=rec_ch)
+    encoder = _load_model(encoder, os.path.join(args.recognizer_dir,
+                                                "enc_best.msgpack"))
+
+    # classifier mode when the model has a class head and the dir holds
+    # class_map.json (class index -> char); else the prototype index
+    class_map = index = None
+    cm_path = os.path.join(args.recognizer_dir, "class_map.json")
+    if rec_meta.get("num_classes") and os.path.exists(cm_path):
+        with open(cm_path) as f:
+            class_map = {int(k): v for k, v in json.load(f).items()}
+        print(f"{len(class_map)} classifier classes!")
+    elif os.path.exists(os.path.join(args.recognizer_dir, "ref.npz")):
+        index = PrototypeIndex.load(args.recognizer_dir)
+        print(f"{len(index)} candidate chars!")
+        if args.blacklist_chars:
+            index.blacklist(args.blacklist_chars)
+    else:
+        raise FileNotFoundError(
+            f"no ref.npz in {args.recognizer_dir} (an ad-hoc index build, "
+            "--build_index_from, is not ported yet: ROADMAP.md)")
 
     # adaptive-height guard: clamp tiers to the heights the detector
     # trained on (model.json trained_heights)
@@ -144,13 +165,14 @@ def load_engine(args) -> EffOCRInference:
         max_words_per_line=args.max_words,
     )
     return EffOCRInference(cfg, localizer, encoder, index,
-                           device=args.device)
+                           device=args.device, class_map=class_map)
 
 
 def add_engine_args(p: argparse.ArgumentParser) -> None:
-    """Flags consumed by load_engine: the JAX package's flag surface plus
-    --device.  Flags of paths not ported yet are accepted and raise
-    NotImplementedError when set."""
+    """Flags consumed by load_engine, shared by ``infer`` and ``serve``:
+    the JAX package's flag surface plus --device.  --data_parallel and
+    --build_index_from are accepted and raise NotImplementedError when
+    set (ROADMAP.md)."""
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cuda unless cpu is asked for")
     p.add_argument("--recognizer_dir", type=str, required=True)

@@ -128,17 +128,30 @@ class Top1Kernel:
 top1_kernel = Top1Kernel()
 
 
+def pad_depth(queries: torch.Tensor, prototypes: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero-pad the embedding width D of queries [N, D] and prototypes
+    [C, D] up to a multiple of 4, the kernel's float4 row step.  The
+    added products are +0.0, so every inner product is unchanged (the
+    JAX kernel takes any D)."""
+    pad = -queries.shape[1] % 4
+    if pad:
+        queries = torch.nn.functional.pad(queries, (0, pad))
+        prototypes = torch.nn.functional.pad(prototypes, (0, pad))
+    return queries, prototypes
+
+
 def top1(queries: torch.Tensor, prototypes: torch.Tensor,
          row_mask: Optional[torch.Tensor] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(scores [N], indices [N] int32) of the best inner-product prototype
-    for L2-normalized queries: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    for L2-normalized queries: the CUDA kernel for CUDA tensors (any D:
+    see ``pad_depth``), the plain version for CPU tensors."""
     if queries.is_cuda:
         if row_mask is None:
             row_mask = torch.ones(prototypes.shape[0], dtype=torch.bool,
                                   device=prototypes.device)
-        return top1_kernel(queries.float().contiguous(),
-                           prototypes.float().contiguous(),
+        q, p = pad_depth(queries.float(), prototypes.float())
+        return top1_kernel(q.contiguous(), p.contiguous(),
                            row_mask.contiguous())
     return top1_plain(queries, prototypes, row_mask)

@@ -1,10 +1,22 @@
-"""Image preprocessing helpers of the inference path (the JAX package's
-kernels/image_ops.py: letterbox geometry, ImageNet normalisation and the
-2-bit transfer quantiser)."""
+"""Image preprocessing of the inference path (the JAX package's
+kernels/image_ops.py): letterbox geometry, the on-device letterbox of
+bucket transfer, ImageNet normalisation, the 2-bit transfer quantiser, and
+the paired transform (MedianPad square -> /255 -> bilinear resize without
+antialias -> normalise) of crops cut from the original image.
+
+Resizes are bilinear interpolation matrices (each row a 2-tap hat
+function, samples past the edge clamped to it), applied as batched
+float32 matmuls.  The sample positions are rounded as the JAX package's
+compiled programs round them: XLA folds ``(i + 0.5) * ratio - 0.5`` into
+one fused multiply-add (emulated here in float64, then rounded once) and
+turns a division by the constant output size into a multiplication by
+its float32 reciprocal.  A position off by one float32 ulp moves a weight
+by up to ~3e-5 at 256-pixel windows, past the parity tolerance.
+"""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +39,80 @@ def letterbox_params(
     top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
     left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
     return r, new_unpad, (top, bottom, left, right)
+
+
+def _fma_positions(first: torch.Tensor, ratio: torch.Tensor) -> torch.Tensor:
+    """float32 ``first * ratio - 0.5`` rounded once, as a fused
+    multiply-add rounds it (the product of two float32 values is exact in
+    float64).  first [K] or [N, K], ratio [N] -> [N, K]."""
+    return (first.double() * ratio.double()[:, None] - 0.5).float()
+
+
+def _clamped_hat(pos: torch.Tensor, side: torch.Tensor,
+                 offset: torch.Tensor | float, window: int) -> torch.Tensor:
+    """[N, K, window] hat weights at the sample positions ``pos`` [N, K],
+    clamped to [0, side - 1] (per row of ``side`` [N]) and then shifted by
+    ``offset`` ([N] or a scalar)."""
+    hi = torch.clamp(side[:, None] - 1.0, min=0.0)
+    src = torch.minimum(torch.clamp(pos, min=0.0), hi)
+    if isinstance(offset, torch.Tensor):
+        offset = offset[:, None]
+    src = offset + src
+    s = torch.arange(window, dtype=torch.float32, device=pos.device)
+    return torch.clamp(1.0 - torch.abs(src[:, :, None] - s[None, None, :]),
+                       min=0.0)
+
+
+def interp_matrix(side: torch.Tensor, out_size: int, window: int,
+                  offset: torch.Tensor | float = 0.0) -> torch.Tensor:
+    """[N, out_size, window] bilinear weights resampling [0, side) ->
+    out_size, sample positions shifted by ``offset`` (per row of
+    ``side``).  Columns at or past ``side`` get no weight."""
+    dev = side.device
+    i = torch.arange(out_size, dtype=torch.float32, device=dev) + 0.5
+    side = side.float()
+    # side / out_size as XLA computes it: times the float32 reciprocal
+    recip = torch.tensor(1.0 / out_size, dtype=torch.float32)
+    return _clamped_hat(_fma_positions(i, side * recip.to(dev)), side,
+                        offset, window)
+
+
+def letterbox_device(images: torch.Tensor, src_rect: torch.Tensor,
+                     dst_params: torch.Tensor, out_h: int, out_w: int,
+                     pad_val: float = 114.0 / 255.0) -> torch.Tensor:
+    """Per-image letterbox on the device by separable interpolation
+    matmuls (bucket transfer: the host ships raw-size lines in a small
+    padded bucket).
+
+    images:     [B, Hb, Wb, C] float in [0, 1] (bucketed raw images).
+    src_rect:   [B, 4] int (y0, x0, h, w) content rect inside the bucket.
+    dst_params: [B, 4] int (top, left, new_h, new_w) placement on the
+                canvas (host-computed with letterbox_params' rounding).
+    Returns [B, out_h, out_w, C]; canvas pixels outside the placement get
+    ``pad_val``.
+    """
+    b, hb, wb, _ = images.shape
+    dev = images.device
+    images = images.float()
+
+    def axis_matrix(dst_size, src_size_total, d0, dn, s0, sn):
+        # [B, dst_size, src_size_total]: canvas position -> source weight;
+        # the ratio is a per-line division, as the compiled program does it
+        d = torch.arange(dst_size, dtype=torch.float32, device=dev)[None, :]
+        rel = _fma_positions(d - d0[:, None] + 0.5,
+                             sn / torch.clamp(dn, min=1.0))
+        w = _clamped_hat(rel, sn, s0, src_size_total)
+        in_dst = (d >= d0[:, None]) & (d < d0[:, None] + dn[:, None])
+        return torch.where(in_dst[:, :, None], w, torch.zeros((), device=dev))
+
+    sr = src_rect.float()
+    dp = dst_params.float()
+    a_y = axis_matrix(out_h, hb, dp[:, 0], dp[:, 2], sr[:, 0], sr[:, 2])
+    a_x = axis_matrix(out_w, wb, dp[:, 1], dp[:, 3], sr[:, 1], sr[:, 3])
+    t = torch.einsum("bih,bhwc->biwc", a_y, images)
+    out = torch.einsum("bjw,biwc->bijc", a_x, t)
+    mass = torch.einsum("bi,bj->bij", a_y.sum(2), a_x.sum(2))
+    return out + (1.0 - mass)[..., None] * pad_val
 
 
 def normalize_imagenet(x: torch.Tensor) -> torch.Tensor:
@@ -65,3 +151,73 @@ def quantize_2bit(img_u8: np.ndarray, d: np.ndarray) -> np.ndarray:
     nearest device reconstruction value v*85."""
     q = np.clip(img_u8.astype(np.int16) + d, 0, 255).astype(np.int32)
     return ((q * 3 + 128) >> 8).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# MedianPad square + resize + normalize (the "paired transform")
+# ---------------------------------------------------------------------------
+
+def _median_border_color(img: np.ndarray) -> Tuple[int, ...]:
+    """Median of the 4 border rows/cols."""
+    h, w = img.shape[:2]
+    rightb, leftb = img[:, w - 1, :], img[:, 0, :]
+    topb, bottomb = img[0, :, :], img[h - 1, :, :]
+    border = np.concatenate([rightb, leftb, topb, bottomb], axis=0)
+    return tuple(int(v) for v in np.median(border, axis=0))
+
+
+def median_pad_square(
+    img: np.ndarray, override: Optional[Tuple[int, int, int]] = (255, 255, 255)
+) -> np.ndarray:
+    """Pad right/bottom to a square with override (or median-border)
+    color; content stays at the top-left."""
+    h, w = img.shape[:2]
+    side = max(h, w)
+    fill = override if override is not None else _median_border_color(img)
+    out = np.empty((side, side, img.shape[2]), dtype=img.dtype)
+    out[...] = np.asarray(fill, dtype=img.dtype)
+    out[:h, :w] = img
+    return out
+
+
+def resize_matrix(sides: torch.Tensor, size: int,
+                  window: int) -> torch.Tensor:
+    """[N, size, window] weights of ``jax.image.resize(..., "linear",
+    antialias=False)`` from [0, side) to ``size``, as it builds them: hat
+    weights of the unclamped sample positions, each row divided by its
+    sum (which folds the edge samples onto the edge pixel).  Columns at
+    or past ``side`` get no weight; side == size gives the identity."""
+    dev = sides.device
+    i = torch.arange(size, dtype=torch.float32, device=dev) + 0.5
+    side = sides.double()
+    pos = _fma_positions(i, (side / size).float())        # [N, size]
+    s = torch.arange(window, dtype=torch.float32, device=dev)
+    w = torch.clamp(1.0 - torch.abs(pos[:, :, None] - s), min=0.0)
+    w = torch.where(s < side.float()[:, None, None], w, 0.0)
+    total = w.sum(dim=2, keepdim=True)
+    eps = float(torch.finfo(torch.float32).eps)
+    w = torch.where(total.abs() > 1000.0 * eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (pos >= -0.5) & (pos <= side.float()[:, None] - 0.5)
+    return torch.where(inside[:, :, None], w, 0.0)
+
+
+def paired_transform_squares(squares: torch.Tensor, sides: torch.Tensor,
+                             size: int) -> torch.Tensor:
+    """The paired transform of a batch of padded squares: [N, S, S, C]
+    float in [0, 1], square n holding its crop's side x side pad-to-square
+    at the top-left (whatever lies past ``sides[n]`` gets no weight) ->
+    [N, size, size, C] ImageNet-normalized."""
+    a = resize_matrix(sides, size, squares.shape[1])
+    t = torch.einsum("nis,nswc->niwc", a, squares.float())
+    return normalize_imagenet(torch.einsum("njw,niwc->nijc", a, t))
+
+
+def paired_transform_host(img: np.ndarray, size: int = 224) -> np.ndarray:
+    """One HWC uint8 crop -> [size, size, 3] float32 ImageNet-normalized:
+    pad to square (white), scale to [0, 1], bilinear resize without
+    antialias, normalize."""
+    sq = median_pad_square(img).astype(np.float32) / 255.0
+    out = paired_transform_squares(torch.from_numpy(sq)[None],
+                                   torch.tensor([sq.shape[0]]), size)
+    return out[0].numpy()

@@ -8,37 +8,21 @@ per-crop interpolation matrices (each row a 2-tap hat function):
 
 When the canvas fits the static window along one axis, only the other
 axis needs dynamic indexing and one flat gather fetches all windows; the
-static axis's start offset folds into its interpolation matrix.  Both
-such branches are ported: ``h <= window`` (horizontal rectangular
-canvases: a gather of columns) and ``w <= window`` (vertical canvases: a
-gather of rows).  The general 2-D window (both axes larger than the
-window) is not.  The matmuls run in full float32 (TF32 off,
-core/device.py).
+static axis's start offset folds into its interpolation matrix:
+``h <= window`` (horizontal rectangular canvases: a gather of columns)
+and ``w <= window`` (vertical canvases: a gather of rows).  Otherwise
+(square canvases larger than the window on both axes) each crop takes an
+S x S window of the white-padded canvas, gathered as S rows of S pixels
+through a strided view (no per-crop loop).  The matmuls run in full
+float32 (TF32 off, core/device.py).
 """
 
 from __future__ import annotations
 
 import torch
 
+from effocr_torch.kernels.image_ops import interp_matrix as _interp_matrix
 from effocr_torch.kernels.image_ops import normalize_imagenet
-
-
-def _interp_matrix(side: torch.Tensor, out_size: int, window: int,
-                   offset: torch.Tensor | float = 0.0) -> torch.Tensor:
-    """[N, out_size, window] bilinear weights resampling [0, side) ->
-    out_size, sample positions shifted by ``offset`` (per crop)."""
-    dev = side.device
-    i = torch.arange(out_size, dtype=torch.float32, device=dev)
-    side = side[:, None]
-    src = (i[None, :] + 0.5) * (side / out_size) - 0.5
-    hi = torch.clamp(side - 1.0, min=0.0)
-    src = torch.minimum(torch.clamp(src, min=0.0), hi)
-    if isinstance(offset, torch.Tensor):
-        offset = offset[:, None]
-    src = offset + src
-    s = torch.arange(window, dtype=torch.float32, device=dev)
-    return torch.clamp(1.0 - torch.abs(src[:, :, None] - s[None, None, :]),
-                       min=0.0)
 
 
 def crop_lines_to_squares(
@@ -52,8 +36,7 @@ def crop_lines_to_squares(
 ) -> torch.Tensor:
     """Extract normalized square crops from a batch of line images.
 
-    images:  [B, H, W, C] float in [0,1] (letterboxed lines), H <= window
-             or W <= window.
+    images:  [B, H, W, C] float in [0,1] (letterboxed lines).
     rects:   [N, 4] int (x0, y0, x1, y1) pixel rects.
     img_idx: [N] int source line index for each crop.
     valid:   [N] bool; invalid slots produce all-white crops.
@@ -61,11 +44,6 @@ def crop_lines_to_squares(
     Returns [N, out_size, out_size, C] ImageNet-normalized crops.
     """
     b, h, w, n_channels = images.shape
-    if h > window and w > window:
-        raise NotImplementedError(
-            f"canvas {h}x{w} larger than the crop window {window} on both "
-            "axes: the general 2-D window branch of crop_lines_to_squares "
-            "is not ported (ROADMAP.md)")
     dev = images.device
     rects = rects.to(torch.int64)
     x0 = torch.clamp(rects[:, 0], 0, w - 1)
@@ -107,7 +85,7 @@ def crop_lines_to_squares(
                                        value=white)
         a_y = _interp_matrix(side, out_size, h + window, y0.float())
         a_x = _interp_matrix(side, out_size, window)
-    else:
+    elif w <= window:
         # dynamic in y only (vertical canvases): wins[n, i, j] =
         # padded[b_n, y0_n + i, j]
         pad_y = torch.nn.functional.pad(
@@ -129,6 +107,28 @@ def crop_lines_to_squares(
         wins = torch.nn.functional.pad(wins, (0, 0, 0, window), value=white)
         a_y = _interp_matrix(side, out_size, window)
         a_x = _interp_matrix(side, out_size, w + window, x0.float())
+    else:
+        # general 2-D window: wins[n, i, j] = padded[b_n, y0_n + i,
+        # x0_n + j] of the canvas padded white by S right and below.  Row
+        # k of a strided view of the flat canvas is the S-pixel run that
+        # starts at pixel k (x0 + S <= W + S - 1: a run never crosses
+        # into the next canvas row), so one gather of n * S runs fetches
+        # every window.
+        padded = torch.nn.functional.pad(
+            images.float(), (0, 0, 0, window, 0, window),
+            value=white).contiguous()                     # [B,H+S,W+S,C]
+        hp, wp = h + window, w + window
+        runs = padded.reshape(-1).as_strided(
+            (b * hp * wp - window + 1, window * n_channels),
+            (n_channels, 1))
+        row_idx = ((img_idx * hp + y0)[:, None] + ramp) * wp + x0[:, None]
+        wins = runs.index_select(0, row_idx.reshape(-1)).reshape(
+            n, window, window, n_channels)                 # [N, S, S, C]
+        in_content = ((iy[None, :, None] < ch[:, None, None])
+                      & (iy[None, None, :] < cw[:, None, None]))  # [N,S,S]
+        wins = torch.where(in_content[..., None], wins, white_t)
+        a_y = _interp_matrix(side, out_size, window)
+        a_x = a_y    # square target: the same mapping on both axes
 
     t = torch.einsum("nis,nswc->niwc", a_y, wins)        # rows
     crops = torch.einsum("njw,niwc->nijc", a_x, t)       # cols

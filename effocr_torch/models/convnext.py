@@ -86,6 +86,7 @@ class ConvNeXt(nn.Module):
                         ConvNeXtBlock(dim, dtype=dtype))
             f = dim
         self.head_norm = LayerNorm(f)
+        self.out_features = f
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [B, H, W, C] float images (NHWC, as in the JAX package)."""

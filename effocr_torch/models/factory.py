@@ -1,9 +1,11 @@
-"""Model registry: the entries the ported inference path loads.
+"""Model registry: the entries the ported inference paths load.
 
 Names follow the JAX package's models/factory.py registry; only the
 architectures of the ported inference paths (the pinned English and the
-Japanese vertical configs) are here so far (ROADMAP.md lists the rest).  ``create_*`` default to bfloat16 compute,
-as the JAX factory does.
+Japanese vertical configs) are here so far (ROADMAP.md lists the rest).
+``create_*`` default to bfloat16 compute, as the JAX factory does.
+``Classifier`` is an encoder with a float32 linear head (classifier
+mode: logits out).
 """
 
 from __future__ import annotations
@@ -31,6 +33,21 @@ LOCALIZER_REGISTRY: Dict[str, Callable] = {
 }
 
 
+class Classifier(nn.Module):
+    """Encoder + float32 Dense head -> logits [B, num_classes].  The
+    submodule names ``encoder`` and ``head`` are the Flax scopes of the
+    JAX package's ``Classifier``, so its checkpoints map by name."""
+
+    def __init__(self, encoder: nn.Module, num_classes: int):
+        super().__init__()
+        self.encoder = encoder
+        self.head = layers.Dense(encoder.out_features, num_classes,
+                                 dtype=torch.float32)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(self.encoder(x))
+
+
 def _lookup(registry: Dict[str, Callable], kind: str, name: str) -> Callable:
     if name not in registry:
         raise KeyError(
@@ -44,6 +61,11 @@ def create_encoder(name: str, in_channels: int = 3,
                    dtype: torch.dtype = torch.bfloat16) -> nn.Module:
     return _lookup(ENCODER_REGISTRY, "encoder", name)(
         in_channels=in_channels, dtype=dtype)
+
+
+def create_classifier(name: str, num_classes: int, in_channels: int = 3,
+                      dtype: torch.dtype = torch.bfloat16) -> nn.Module:
+    return Classifier(create_encoder(name, in_channels, dtype), num_classes)
 
 
 def create_localizer(name: str, num_classes: int = 2, in_channels: int = 3,

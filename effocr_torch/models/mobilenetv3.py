@@ -108,6 +108,7 @@ class MobileNetV3Small(nn.Module):
         self.last_conv = Conv(f, last_f, 1, bias=False, dtype=dtype)
         self.last_bn = BatchNorm(last_f, eps=1e-5)
         self.head = Dense(last_f, head_features, dtype=torch.float32)
+        self.out_features = head_features
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [B, H, W, C] float images (NHWC, as in the JAX package)."""

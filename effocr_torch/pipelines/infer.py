@@ -1,28 +1,35 @@
 """End-to-end OCR inference on text lines: lines -> boxes -> crops ->
 embeddings -> text.  The PyTorch twin of the JAX package's
-pipelines/infer.py ``EffOCRInference`` on its fused letterbox path.
+pipelines/infer.py ``EffOCRInference``.
 
-Per chunk of ``line_batch`` lines:
+Fused letterbox path (``crop_source letterbox``), per chunk of
+``line_batch`` lines:
 
   host (prefetch worker):  native PNG decode + gray letterbox + sub-byte
                            pack straight into the canvas buffer
-                           (native/preproc.cpp), one upload
+                           (native/preproc.cpp), one upload; or, under
+                           ``transfer bucket``, raw-size lines in a small
+                           padded bucket that the device letterboxes
   device (one stream):     unpack -> detector -> decode + greedy NMS (CUDA
                            kernel) -> per-line reading-order sort ->
                            crop-slot compaction -> ROI crops -> encoder
                            (run per ``encoder_sub_batch``) -> retrieval
                            (matmul + argmax, or the fused top-1 CUDA
-                           kernel) -> ONE packed result buffer, copied
+                           kernel; argmax of the logits in classifier
+                           mode) -> ONE packed result buffer, copied
                            back async
   host (consumer):         word boundaries + postprocess per line (jp:
-                           the joined chars)
+                           the joined chars), optional spell check
 
 Horizontal lines read left to right, vertical ones (``vertical``) top to
-bottom.  Device work is issued eagerly by the prefetch worker; the copy
-of chunk k's buffer overlaps the issue of chunk k+1.  Out of this slice
-(each raises NotImplementedError; ROADMAP.md tracks them): crop_source
-'original', bucket transfer, data-parallel meshes, wide-line tiling,
-classifier mode and spell check.
+bottom.  Wide-line tiling splits extreme-aspect lines into tiles that
+ride the fused path as ordinary lines and merges their decodes.
+
+``crop_source original`` runs two programs per chunk instead: detect
+(detector + decode + NMS) on the letterboxed canvas, then host glue cuts
+each glyph's crop from the original image (the reference's crop
+semantics) and ships the crops, padded to squares, for the paired
+transform, the encoder and the retrieval on the device.
 """
 
 from __future__ import annotations
@@ -41,17 +48,27 @@ from effocr_torch import native
 from effocr_torch.core.config import PipelineConfig
 from effocr_torch.core.device import resolve_device, use_full_f32
 from effocr_torch.kernels import cuda_top1
-from effocr_torch.kernels.image_ops import dither_offsets, quantize_2bit
+from effocr_torch.kernels.image_ops import (
+    dither_offsets,
+    letterbox_device,
+    letterbox_params,
+    paired_transform_squares,
+    quantize_2bit,
+)
 from effocr_torch.kernels.retrieval import knn_topk, l2_normalize
 from effocr_torch.kernels.roi import crop_lines_to_squares
 from effocr_torch.kernels.yolo_decode import decode_and_nms
 from effocr_torch.pipelines.lang import (
     batch_word_ends,
     en_postprocess,
+    en_preprocess,
     insert_spaces,
+    jp_preprocess,
 )
+from effocr_torch.pipelines.tiling import TileKey, merge_tile_parts, plan_tiles
 from effocr_torch.retrieval.index import PrototypeIndex
 from effocr_torch.utils.profiling import StageTimer
+from effocr_torch.utils.spell_check import default_dicts, visual_spell_checker
 
 logger = logging.getLogger(__name__)
 
@@ -157,27 +174,58 @@ def _not_ported(what: str) -> NotImplementedError:
         "among the open items)")
 
 
+def _to_host_async(tensors: Sequence[torch.Tensor]):
+    """Start copying device tensors back to pinned host memory.  Returns
+    (host tensors, event to wait on); CPU tensors come back as they are,
+    with no event."""
+    if not tensors[0].is_cuda:
+        return list(tensors), None
+    host = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+# crop_source original: float32 elements of one batch of padded crop
+# squares on the device (1 GiB); a batch of large crops is split to fit
+_SQUARES_BUDGET = 1 << 28
+
+
 class EffOCRInference:
-    """OCR engine: localizer + encoder + prototype index.
+    """OCR engine: localizer + encoder + prototype index (or, in classifier
+    mode, an encoder with a class head and its ``class_map``).
 
     ``localizer``: a callable NHWC float images -> (decoded [B, A, 5+nc],
     raw), e.g. models/yolo.py YOLOv5 with its weights.  ``encoder``: NHWC
-    crops -> embeddings [N, D].  ``device`` defaults to "cuda"; without a
-    GPU pass device="cpu" (core/device.py).
+    crops -> embeddings [N, D], or logits [N, classes] in classifier mode
+    (models/factory.py ``Classifier``; pass ``class_map``, class index ->
+    char, and no index).  ``device`` defaults to "cuda"; without a GPU
+    pass device="cpu" (core/device.py).
     """
 
     def __init__(self, config: PipelineConfig, localizer, encoder,
-                 index: PrototypeIndex, device="cuda"):
+                 index: Optional[PrototypeIndex] = None, device="cuda",
+                 class_map: Optional[Dict[int, str]] = None):
         c = config
-        for cond, what in (
-            (c.crop_source != "letterbox", f"crop_source {c.crop_source!r}"),
-            (c.transfer != "canvas", f"transfer {c.transfer!r}"),
-            (c.tile_min_content_h > 0, "wide-line tiling (tile_min_h)"),
-            (c.spell_check, "spell check"),
-            (index is None, "classifier mode"),
-        ):
-            if cond:
-                raise _not_ported(what)
+        if c.crop_source not in ("letterbox", "original"):
+            raise ValueError(f"crop_source {c.crop_source!r}")
+        if c.transfer not in ("canvas", "bucket"):
+            raise ValueError(f"transfer {c.transfer!r}")
+        if c.crop_source == "original" and c.input_channels != 3:
+            # the JAX package fails here inside run(): median_pad_square's
+            # 3-channel white fill and its 3-channel recognize program
+            raise ValueError(
+                "crop_source 'original' needs 3-channel models, got "
+                f"input_channels {c.input_channels} (the JAX package's "
+                "paired transform and recognize program take 3-channel "
+                "crops only; ROADMAP.md, queue 3)")
+        if index is None and class_map is None:
+            raise ValueError("pass a PrototypeIndex, or a class_map for "
+                             "classifier mode")
         if c.nms_kernel not in ("xla", "pallas", "cuda"):
             raise ValueError(f"nms_kernel {c.nms_kernel!r}")
         if c.retrieval_kernel not in ("xla", "pallas"):
@@ -212,8 +260,14 @@ class EffOCRInference:
         self.localizer = _prepare(localizer)
         self.encoder = _prepare(encoder)
         self.index = index
-        self._protos, self._row_mask = index.device_arrays(self.device)
-        raw = list(index.chars) or [""]
+        self.class_map = class_map
+        self.classifier_mode = class_map is not None
+        if self.classifier_mode:
+            hi = max(class_map, default=0) + 1
+            raw = [class_map.get(i, "") for i in range(hi)]
+        else:
+            self._protos, self._row_mask = index.device_arrays(self.device)
+            raw = list(index.chars) or [""]
         # entries pre-reduced to their first character for the vectorised
         # decode in the consumer
         self._char_lookup = np.array([ch[0] if ch else "" for ch in raw],
@@ -237,7 +291,11 @@ class EffOCRInference:
     def _classify(self, emb: torch.Tensor) -> torch.Tensor:
         """Embeddings [N, D] float32 -> top-1 prototype index [N]: the
         fused top-1 kernel on the L2-normalized embeddings (CUDA tensors;
-        its plain version on CPU tensors), else matmul + top-k."""
+        its plain version on CPU tensors), else matmul + top-k.  In
+        classifier mode ``emb`` holds logits and the index is their
+        argmax (the first maximal class)."""
+        if self.classifier_mode:
+            return torch.argmax(emb, dim=1)
         if self._top1:
             _, idx = cuda_top1.top1(l2_normalize(emb), self._protos,
                                     self._row_mask)
@@ -245,6 +303,25 @@ class EffOCRInference:
         _, idx = knn_topk(emb, self._protos, k=self.config.knn_k,
                           row_mask=self._row_mask)
         return idx[:, 0]
+
+    def _detections(self, imgs: torch.Tensor):
+        """Detector + decode + greedy NMS on float canvases [B, H, W, C]
+        -> (boxes, scores, classes, valid), [B, max_det]."""
+        c = self.config
+        # record_function ranges name the stages in a torch.profiler trace
+        # (chip_smoke.py --profile); they cost ~1 us when no profiler runs
+        with record_function("ocr/detector"):
+            decoded, _ = self.localizer(self._cast_in(imgs))
+        with record_function("ocr/decode_nms"):
+            return decode_and_nms(
+                decoded.float(),
+                conf_thresh=c.localizer.conf_thresh,
+                iou_thresh=c.localizer.iou_thresh,
+                max_nms=c.localizer.max_nms,
+                max_det=c.localizer.max_det,
+                class_agnostic=c.localizer.class_agnostic,
+                nms_kernel=self._nms_kernel,
+            )
 
     # ------------------------------------------------------ device program
     @torch.inference_mode()
@@ -257,21 +334,8 @@ class EffOCRInference:
         """
         c = self.config
         dev = imgs.device
+        boxes, scores, classes, valid = self._detections(imgs)
         imgs = self._cast_in(imgs)
-        # record_function ranges name the stages in a torch.profiler trace
-        # (chip_smoke.py --profile); they cost ~1 us when no profiler runs
-        with record_function("ocr/detector"):
-            decoded, _ = self.localizer(imgs)
-        with record_function("ocr/decode_nms"):
-            boxes, scores, classes, valid = decode_and_nms(
-                decoded.float(),
-                conf_thresh=c.localizer.conf_thresh,
-                iou_thresh=c.localizer.iou_thresh,
-                max_nms=c.localizer.max_nms,
-                max_det=c.localizer.max_det,
-                class_agnostic=c.localizer.class_agnostic,
-                nms_kernel=self._nms_kernel,
-            )
         b, m = valid.shape
         # reading-order key = left edge, or top edge for vertical lines
         center = boxes[..., 1] if c.vertical else boxes[..., 0]
@@ -395,6 +459,44 @@ class EffOCRInference:
             canvas_u8 = pix.reshape(b, h, wp * 4, ch)
         return self._ocr_from_canvas(canvas_u8.float() / 255.0, content_meta)
 
+    @torch.inference_mode()
+    def _ocr_chunk_bucket(self, buckets_u8: torch.Tensor,
+                          src_rect: torch.Tensor, dst_params: torch.Tensor,
+                          content_meta: torch.Tensor,
+                          size_h: int) -> torch.Tensor:
+        """Bucket transfer: raw-size lines [B, Hb, Wb, C] uint8 in a small
+        padded bucket, letterboxed on the device onto the size_h x
+        input_size canvas (kernels/image_ops.py letterbox_device), then
+        the fused body."""
+        with record_function("ocr/letterbox"):
+            canvas = letterbox_device(
+                buckets_u8.float() / 255.0, src_rect, dst_params, size_h,
+                self.config.localizer.input_size)
+        return self._ocr_from_canvas(canvas, content_meta)
+
+    @torch.inference_mode()
+    def _detect(self, canvas_u8: torch.Tensor):
+        """crop_source original, program 1: 8-bit canvases -> (boxes,
+        classes, valid) [B, max_det]."""
+        boxes, _, classes, valid = self._detections(canvas_u8.float() / 255.0)
+        return boxes, classes, valid
+
+    @torch.inference_mode()
+    def _recognize_squares(self, squares_u8: torch.Tensor,
+                           sides: torch.Tensor) -> torch.Tensor:
+        """crop_source original, program 2: crops padded white to squares
+        [N, S, S, 3] uint8 (crop n's side x side square at the top-left)
+        -> the paired transform (the JAX package's paired_transform_host,
+        here on the device) -> encoder -> index [N]."""
+        with record_function("ocr/crop"):
+            crops = paired_transform_squares(
+                squares_u8.float() / 255.0, sides,
+                self.config.encoder.image_size)
+        with record_function("ocr/encoder"):
+            emb = self.encoder(self._cast_in(crops)).float()
+        with record_function("ocr/retrieval"):
+            return self._classify(emb)
+
     # ------------------------------------------------------------------ run
     def run(
         self,
@@ -422,6 +524,19 @@ class EffOCRInference:
             else:
                 raws.append(np.asarray(img))
 
+        # wide-line tiling: extreme-aspect lines become overlapping tiles
+        # that ride the pipeline as ordinary lines; their decodes merge in
+        # _finalize_tiled
+        tile_ctx = None
+        if c.tile_min_content_h > 0 and c.crop_source != "letterbox":
+            logger.warning(
+                "tile_min_content_h=%d ignored: wide-line tiling needs "
+                "crop_source='letterbox' (got %r)",
+                c.tile_min_content_h, c.crop_source,
+            )
+        elif c.tile_min_content_h > 0:
+            raws, keys, tile_ctx = self._expand_tiles(raws, keys)
+
         # width-sorted chunking: lines of similar reading-axis length
         # share chunks so adaptive_width canvas tiers bind per chunk
         # (results are keyed)
@@ -440,7 +555,7 @@ class EffOCRInference:
         def _pop_finish():
             with self.timer.stage("main/wait_prep"):
                 handle = pending.popleft().result()
-            self._finish_fused(handle, results, coco_boxes,
+            self._finish_chunk(handle, results, coco_boxes, tile_ctx,
                                want_coco=return_coco)
 
         with self.timer.stage("main/run_wall"), \
@@ -454,9 +569,49 @@ class EffOCRInference:
             while pending:
                 _pop_finish()
 
+        if tile_ctx:
+            for parent, ctx in tile_ctx.items():
+                if parent not in results:
+                    logger.warning(
+                        "tiled line %r: merged with %d/%d tiles decoded",
+                        parent, len(ctx["parts"]), ctx["n"],
+                    )
+                    self._finalize_tiled(parent, ctx, results, coco_boxes)
+
         if return_coco:
             return results, build_inference_coco(coco_boxes)
         return results
+
+    def _expand_tiles(self, raws, keys):
+        """Replace each line whose letterboxed content would fall below
+        tile_min_content_h px across (along, if vertical) by its tiles,
+        keyed TileKey(parent key, tile index).  Returns (raws, keys,
+        {parent key: merge context} or None)."""
+        c = self.config
+        size_w = c.localizer.input_size
+        cap_h = c.localizer.input_height or size_w
+        exp_raws, exp_keys, tile_ctx = [], [], {}
+        for key, raw in zip(keys, raws):
+            h, w = raw.shape[:2]
+            if c.vertical:
+                plan = plan_tiles(h, w, cap_h, size_w, c.tile_min_content_h,
+                                  c.tile_overlap_factor)
+            else:
+                plan = plan_tiles(w, h, size_w, cap_h, c.tile_min_content_h,
+                                  c.tile_overlap_factor)
+            if not plan:
+                exp_raws.append(raw)
+                exp_keys.append(key)
+                continue
+            tile_ctx[key] = {"n": len(plan), "plan": plan, "h": h, "w": w,
+                             "parts": {}}
+            pix = raw.load() if isinstance(raw, _LazyImage) else raw
+            for t, tile in enumerate(plan):
+                sub = (pix[tile.start:tile.stop] if c.vertical
+                       else pix[:, tile.start:tile.stop])
+                exp_raws.append(np.ascontiguousarray(sub))
+                exp_keys.append(TileKey(key, t))
+        return exp_raws, exp_keys, tile_ctx or None
 
     def _chunk_canvas_height(self, chunk) -> int:
         """Smallest stride-32 canvas height holding every line's width-bound
@@ -486,11 +641,13 @@ class EffOCRInference:
         adaptive_width, the reading axis (width, or height for vertical
         lines) trimmed to the chunk's content extent at the UNCHANGED
         letterbox scale (r is computed against the full canvas, so the
-        decode is exact)."""
+        decode is exact).  Bucket transfer and crop_source original keep
+        the full canvas, as in the JAX package."""
         c = self.config
         full_w = c.localizer.input_size
         size_h = self._chunk_canvas_height(chunk)
-        if not c.adaptive_width or not chunk:
+        if (not c.adaptive_width or c.transfer == "bucket"
+                or c.crop_source != "letterbox" or not chunk):
             return size_h, full_w
         stride = max(32, c.adaptive_width_stride)
         ax = 0 if c.vertical else 1
@@ -510,9 +667,11 @@ class EffOCRInference:
         """Host decode + letterbox + pack, upload, and device issue of one
         chunk (runs on the prep worker)."""
         c = self.config
-        if (c.input_channels == 1 and chunk and all(
+        gray_canvas = (c.input_channels == 1 and c.crop_source == "letterbox"
+                       and c.transfer == "canvas")
+        if gray_canvas and chunk and all(
                 isinstance(im, _LazyImage) and im._arr is None
-                for im in chunk)):
+                for im in chunk):
             # fused native fast path: PNG decode -> gray letterbox -> pack
             # straight from file paths into the canvas buffer, one pass
             handle = self._dispatch_gray_decode_fused(chunk, chunk_keys)
@@ -522,15 +681,20 @@ class EffOCRInference:
         with self.timer.stage("prep/decode"):
             chunk = _materialize_batch(chunk)
         size_h, size_w = self._chunk_canvas_dims(chunk)
+        if c.crop_source == "original":
+            return self._dispatch_original(chunk, chunk_keys, size_h, size_w)
         if c.input_channels == 1:
             chans = {im.shape[-1] for im in chunk}
-            if len(chans) > 1 or not chans <= {1, 3}:
-                # mixed or other channel counts: truncating channel mean,
-                # as numpy does (the native pass takes 1 or 3 channels)
+            if not gray_canvas or len(chans) > 1 or not chans <= {1, 3}:
+                # truncating channel mean, as numpy does (the native gray
+                # pass takes 1 or 3 channels, one kind per chunk)
                 chunk = [im.mean(axis=-1, keepdims=True).astype(np.uint8)
                          if im.shape[-1] != 1 else im for im in chunk]
-            return self._dispatch_gray_native(chunk, chunk_keys, size_h,
-                                              size_w)
+            if gray_canvas:
+                return self._dispatch_gray_native(chunk, chunk_keys, size_h,
+                                                  size_w)
+        if c.transfer == "bucket":
+            return self._dispatch_bucket(chunk, chunk_keys, size_h, size_w)
         return self._dispatch_rgb(chunk, chunk_keys, size_h, size_w)
 
     def _dispatch_gray_decode_fused(self, chunk, chunk_keys):
@@ -566,15 +730,21 @@ class EffOCRInference:
             buf[:len(chunk), :, :, 0] = out
         return self._launch(buf, chunk, chunk_keys, ratios, tops, lefts)
 
+    def _rgb_canvas(self, chunk, size_h, size_w):
+        """[line_batch, size_h, size_w, 3] uint8 letterboxed canvas (114
+        gray padding) and the letterbox geometry (ratios, tops, lefts)."""
+        lb = np.full((self.config.line_batch, size_h, size_w, 3), 114,
+                     np.uint8)
+        out, ratios, tops, lefts = native.letterbox_batch(
+            [np.ascontiguousarray(im) for im in chunk], size_w, out_h=size_h)
+        lb[:len(chunk)] = out
+        return lb, ratios, tops, lefts
+
     def _dispatch_rgb(self, chunk, chunk_keys, size_h, size_w):
         """3-channel canvas: native letterbox, then numpy sub-byte pack."""
         c = self.config
-        lb = np.full((c.line_batch, size_h, size_w, 3), 114, np.uint8)
         with self.timer.stage("prep/letterbox+pack"):
-            out, ratios, tops, lefts = native.letterbox_batch(
-                [np.ascontiguousarray(im) for im in chunk], size_w,
-                out_h=size_h)
-            lb[:len(chunk)] = out
+            lb, ratios, tops, lefts = self._rgb_canvas(chunk, size_h, size_w)
             if c.transfer_bits == 4:
                 lb = (lb[:, :, 0::2] & 0xF0) | (lb[:, :, 1::2] >> 4)
             elif c.transfer_bits == 2:
@@ -586,13 +756,12 @@ class EffOCRInference:
         return self._launch(np.ascontiguousarray(lb), chunk, chunk_keys,
                             ratios, tops, lefts)
 
-    def _launch(self, canvas: np.ndarray, chunk, chunk_keys, ratios, tops,
-                lefts) -> Dict:
-        """Upload one packed canvas, issue the chunk program, and start
-        the result's copy back to pinned host memory."""
-        c = self.config
+    def _letterbox_metas(self, chunk, ratios, tops, lefts):
+        """Per-line letterbox geometry (the host finisher's inverse map)
+        and the device's content_meta [line_batch, 4] int32: (top, left,
+        new_h, new_w)."""
         metas = []
-        meta_arr = np.zeros((c.line_batch, 4), np.int32)
+        meta_arr = np.zeros((self.config.line_batch, 4), np.int32)
         for i, im in enumerate(chunk):
             h, w = im.shape[:2]
             r = float(ratios[i])
@@ -600,26 +769,85 @@ class EffOCRInference:
             metas.append(dict(h=h, w=w, r=r, top=int(tops[i]),
                               left=int(lefts[i]), new_h=new_h, new_w=new_w))
             meta_arr[i] = (int(tops[i]), int(lefts[i]), new_h, new_w)
+        return metas, meta_arr
+
+    def _launch(self, canvas: np.ndarray, chunk, chunk_keys, ratios, tops,
+                lefts) -> Dict:
+        """Upload one packed canvas, issue the chunk program, and start
+        the result's copy back to pinned host memory."""
+        metas, meta_arr = self._letterbox_metas(chunk, ratios, tops, lefts)
         with self.timer.stage("prep/h2d+dispatch"):
             out = self._ocr_chunk(
                 torch.from_numpy(canvas).to(self.device),
                 torch.from_numpy(meta_arr).to(self.device))
-            event = None
-            if out.is_cuda:
-                host = torch.empty(out.shape, dtype=out.dtype,
-                                   pin_memory=True)
-                host.copy_(out, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-                out = host
+            (out,), event = _to_host_async([out])
         return dict(chunk=chunk, chunk_keys=chunk_keys, metas=metas,
                     fused_out=out, event=event)
 
+    def _dispatch_bucket(self, chunk, chunk_keys, size_h, size_w):
+        """Bucket transfer: each line goes into a bucket_hw bucket at its
+        raw size (a line larger than the bucket is first letterboxed into
+        it on the host, with 0 padding); the device letterboxes the
+        buckets onto the canvas."""
+        c = self.config
+        bh, bw = c.bucket_hw
+        buckets = np.zeros((c.line_batch, bh, bw, c.input_channels), np.uint8)
+        src_rect = np.zeros((c.line_batch, 4), np.int32)
+        dst_params = np.zeros((c.line_batch, 4), np.int32)
+        metas = []
+        with self.timer.stage("prep/letterbox+pack"):
+            for i, raw in enumerate(chunk):
+                h, w = raw.shape[:2]
+                if h <= bh and w <= bw:
+                    buckets[i, :h, :w] = raw
+                    r0, sy, sx, sh, sw = 1.0, 0, 0, h, w
+                else:
+                    out, rr, tt, ll = native.letterbox_batch(
+                        [np.ascontiguousarray(raw)], bw, pad_val=0, out_h=bh)
+                    buckets[i] = out[0]
+                    r0, sy, sx = float(rr[0]), int(tt[0]), int(ll[0])
+                    sh, sw = int(round(h * r0)), int(round(w * r0))
+                r1, (nw, nh), (top, _, left, _) = letterbox_params(
+                    sh, sw, (size_h, size_w))
+                src_rect[i] = (sy, sx, sh, sw)
+                dst_params[i] = (top, left, nh, nw)
+                metas.append(dict(h=h, w=w, r=r0 * r1, top=top, left=left,
+                                  new_h=nh, new_w=nw))
+        with self.timer.stage("prep/h2d+dispatch"):
+            dev = [torch.from_numpy(a).to(self.device)
+                   for a in (buckets, src_rect, dst_params)]
+            # the content lands where dst_params places it
+            out = self._ocr_chunk_bucket(*dev, dev[2], size_h)
+            (out,), event = _to_host_async([out])
+        return dict(chunk=chunk, chunk_keys=chunk_keys, metas=metas,
+                    fused_out=out, event=event)
+
+    def _dispatch_original(self, chunk, chunk_keys, size_h, size_w):
+        """crop_source original: the 8-bit RGB canvas (transfer_bits does
+        not apply here, as in the JAX package) and the detect program; the
+        consumer cuts the crops."""
+        with self.timer.stage("prep/letterbox+pack"):
+            lb, ratios, tops, lefts = self._rgb_canvas(chunk, size_h, size_w)
+        metas, _ = self._letterbox_metas(chunk, ratios, tops, lefts)
+        with self.timer.stage("prep/h2d+dispatch"):
+            det = self._detect(torch.from_numpy(lb).to(self.device))
+            det, event = _to_host_async(det)
+        return dict(chunk=chunk, chunk_keys=chunk_keys, metas=metas,
+                    detect_out=det, event=event)
+
     # -------------------------------------------------------- host finish
-    def _finish_fused(self, handle, results, coco_boxes,
+    def _finish_chunk(self, handle, results, coco_boxes, tile_ctx=None,
                       want_coco=True) -> None:
-        """Wait for one chunk's packed buffer, decode it, and re-dispatch
-        the lines that overflowed crop_batch."""
+        if "fused_out" in handle:
+            return self._finish_fused(handle, results, coco_boxes, tile_ctx,
+                                      want_coco=want_coco)
+        return self._finish_original(handle, results, coco_boxes,
+                                     want_coco=want_coco)
+
+    def _finish_fused(self, handle, results, coco_boxes, tile_ctx=None,
+                      want_coco=True) -> None:
+        """Decode one chunk's packed buffer and re-dispatch the lines that
+        overflowed crop_batch."""
         with self.timer.stage("main/device_get"):
             if handle["event"] is not None:
                 handle["event"].synchronize()
@@ -629,14 +857,15 @@ class EffOCRInference:
         with self.timer.stage("main/postprocess"):
             leftover = self._finish_fused_segment(
                 buf, handle["chunk"], handle["chunk_keys"], handle["metas"],
-                self.config.line_batch, results, coco_boxes,
+                self.config.line_batch, results, coco_boxes, tile_ctx,
                 want_coco=want_coco)
         if leftover is not None:
-            self._finish_fused(self._dispatch_chunk(*leftover), results,
-                               coco_boxes, want_coco=want_coco)
+            self._finish_chunk(self._dispatch_chunk(*leftover), results,
+                               coco_boxes, tile_ctx, want_coco=want_coco)
 
     def _finish_fused_segment(self, buf, chunk, chunk_keys, metas, nb,
-                              results, coco_boxes, want_coco=True):
+                              results, coco_boxes, tile_ctx=None,
+                              want_coco=True):
         """Decode one packed buffer (nb line slots, len(chunk) real
         lines).  Returns (lines, keys) to re-dispatch on crop-slot
         overflow, else None."""
@@ -694,6 +923,9 @@ class EffOCRInference:
                 leftover = (chunk[first_bad:], chunk_keys[first_bad:])
                 n = first_bad
 
+        # one vectorised char decode for the whole segment; ids past the
+        # lookup (a classifier's argmax over more logits than a sparse
+        # class map names) decode to ""
         lookup = self._char_lookup
         total = int(csum[n - 1]) if n else 0
         idx_seg = nn_idx[:total]
@@ -714,6 +946,16 @@ class EffOCRInference:
             boxes_i = flat_boxes[pos:pos + k]
             chars_i = seg_chars[pos:pos + k]
             pos += k
+
+            if tile_ctx is not None and isinstance(chunk_keys[i], TileKey):
+                # a tile of a wide line: keep its decode in parent
+                # coordinates; the text is assembled at merge time
+                self._stash_tile(chunk_keys[i], metas[i], boxes_i, chars_i,
+                                 word_boxes[i][word_valid[i]]
+                                 if en and k else None,
+                                 tile_ctx, results, coco_boxes)
+                continue
+
             text = "".join(chars_i.tolist()).strip() if k else ""
             if en and k:
                 word_end_idx = wend[i, :int(n_words[i])]
@@ -728,21 +970,206 @@ class EffOCRInference:
                     )
             else:
                 out = text
+            if c.spell_check and out:
+                out = self._spell_check(out)
             results[chunk_keys[i]] = out
 
-            if not want_coco:
-                continue
-            meta = metas[i]
-            orig_boxes = []
-            for bx, ch in zip(boxes_i.tolist(), chars_i):
-                x0 = max((bx[0] - meta["left"]) / meta["r"], 0.0)
-                y0 = max((bx[1] - meta["top"]) / meta["r"], 0.0)
-                x1 = min((bx[2] - meta["left"]) / meta["r"], meta["w"])
-                y1 = min((bx[3] - meta["top"]) / meta["r"], meta["h"])
-                orig_boxes.append({"bbox": [x0, y0, x1 - x0, y1 - y0],
-                                   "char": ch[0] if ch else ""})
-            coco_boxes[chunk_keys[i]] = {
-                "width": meta["w"], "height": meta["h"],
-                "text": out, "chars": orig_boxes,
-            }
+            if want_coco:
+                coco_boxes[chunk_keys[i]] = self._coco_entry(
+                    metas[i], boxes_i.tolist(), chars_i, out)
         return leftover
+
+    @staticmethod
+    def _coco_entry(meta, boxes, chars, text) -> Dict:
+        """A line's COCO record: char boxes mapped back to original-image
+        pixels through the letterbox geometry."""
+        orig_boxes = []
+        for bx, ch in zip(boxes, chars):
+            x0 = max((bx[0] - meta["left"]) / meta["r"], 0.0)
+            y0 = max((bx[1] - meta["top"]) / meta["r"], 0.0)
+            x1 = min((bx[2] - meta["left"]) / meta["r"], meta["w"])
+            y1 = min((bx[3] - meta["top"]) / meta["r"], meta["h"])
+            orig_boxes.append({"bbox": [x0, y0, x1 - x0, y1 - y0],
+                               "char": ch[0] if ch else ""})
+        return {"width": meta["w"], "height": meta["h"], "text": text,
+                "chars": orig_boxes}
+
+    def _stash_tile(self, key, meta, boxes, chars, words, tile_ctx, results,
+                    coco_boxes) -> None:
+        """Keep one tile's chars, char boxes and word boxes (None: no
+        words) in parent-line pixels; merge the line once its last tile
+        is in."""
+        ctx = tile_ctx[key.parent]
+        ax = 1 if self.config.vertical else 0
+        off = np.zeros(4, np.float32)
+        off[[ax, ax + 2]] = ctx["plan"][key.index].start
+
+        def to_parent(cb):
+            ob = np.empty_like(cb, dtype=np.float32)
+            ob[:, [0, 2]] = np.clip((cb[:, [0, 2]] - meta["left"]) / meta["r"],
+                                    0, meta["w"])
+            ob[:, [1, 3]] = np.clip((cb[:, [1, 3]] - meta["top"]) / meta["r"],
+                                    0, meta["h"])
+            return ob + off
+
+        empty = np.zeros((0, 4), np.float32)
+        ctx["parts"][key.index] = {
+            "chars": chars,
+            "boxes": to_parent(boxes) if len(boxes) else empty,
+            "words": to_parent(words) if words is not None and len(words)
+            else empty,
+        }
+        if len(ctx["parts"]) == ctx["n"]:
+            self._finalize_tiled(key.parent, ctx, results, coco_boxes)
+
+    def _finalize_tiled(self, parent, ctx, results, coco_boxes) -> None:
+        """Merge a wide line's per-tile decodes (ownership spans + jitter
+        dedup, pipelines/tiling.py) and run the line postprocess on the
+        merged char and word stream in parent-pixel coordinates."""
+        c = self.config
+        empty = {"chars": [], "boxes": np.zeros((0, 4), np.float32),
+                 "words": np.zeros((0, 4), np.float32)}
+        parts = [ctx["parts"].get(t, empty) for t in range(ctx["n"])]
+        cross = ctx["w"] if c.vertical else ctx["h"]
+        margin = max(2.0, 0.05 * cross)
+        chars, boxes, words = merge_tile_parts(parts, ctx["plan"],
+                                               c.vertical, margin)
+        text = "".join(x[0] for x in chars if x).strip()
+        if c.lang == "en" and len(chars):
+            _, word_end_idx = en_preprocess(boxes.tolist(), words.tolist(),
+                                            vertical=c.vertical)
+            out = en_postprocess(
+                text, word_end_idx, (boxes[:, 3] - boxes[:, 1]).tolist(),
+                boxes[:, 3].tolist(), anchor_margin=c.anchor_margin,
+                anchor_multiplier=c.anchor_multiplier,
+            )
+        else:
+            out = text
+        if c.spell_check and out:
+            out = self._spell_check(out)
+        results[parent] = out
+        coco_boxes[parent] = {
+            "width": ctx["w"], "height": ctx["h"], "text": out,
+            "chars": [{"bbox": [b[0], b[1], b[2] - b[0], b[3] - b[1]],
+                       "char": ch[0] if ch else ""}
+                      for b, ch in zip(boxes.tolist(), chars)],
+        }
+
+    def _spell_check(self, out: str) -> str:
+        """Homoglyph spell check with the configured frequency dictionary
+        (config.spell_check_dict; None = the small builtin list)."""
+        worddict, vsim, abbrevs = default_dicts(
+            self.config.spell_check_dict, self.config.homoglyphs_path)
+        return visual_spell_checker(out, worddict, vsim, abbrevs)
+
+    # ------------------------------------------------ crop_source original
+    def _finish_original(self, handle, results, coco_boxes,
+                         want_coco=True) -> None:
+        """Host side of crop_source original: per line, reading order and
+        word ends (lang.en_preprocess / jp_preprocess) of the detections,
+        crops cut from the original image, then recognition of every crop
+        of the chunk and the line postprocess."""
+        c = self.config
+        with self.timer.stage("main/device_get"):
+            if handle["event"] is not None:
+                handle["event"].synchronize()
+            boxes, classes, valid = (t.numpy() for t in handle["detect_out"])
+        lines, crops = [], []
+        with self.timer.stage("main/crops"):
+            for i, raw in enumerate(handle["chunk"]):
+                v = valid[i]
+                char_boxes = boxes[i][(classes[i] == 0) & v].tolist()
+                word_boxes = boxes[i][(classes[i] == 1) & v].tolist()
+                if c.lang == "en":
+                    char_sorted, word_end_idx = en_preprocess(
+                        char_boxes, word_boxes, vertical=c.vertical
+                    ) if char_boxes else ([], [])
+                else:
+                    char_sorted = jp_preprocess(
+                        char_boxes, vertical=c.vertical) if char_boxes else []
+                    word_end_idx = []
+                meta = handle["metas"][i]
+                lines.append((handle["chunk_keys"][i], meta, char_sorted,
+                              word_end_idx))
+                crops += [self._original_crop(raw, b, meta)
+                          for b in char_sorted]
+        with self.timer.stage("main/recognize"):
+            idx = self._recognize_crops(crops)
+        lookup = self._char_lookup
+        chars = np.where(idx < len(lookup),
+                         lookup[np.minimum(idx, len(lookup) - 1)], "")
+        pos = 0
+        for key, meta, line_boxes, word_end_idx in lines:
+            lc = chars[pos:pos + len(line_boxes)].tolist()
+            pos += len(line_boxes)
+            text = "".join(lc).strip() if lc else ""
+            if c.lang == "en":
+                out = en_postprocess(
+                    text, word_end_idx, [b[3] - b[1] for b in line_boxes],
+                    [b[3] for b in line_boxes],
+                    anchor_margin=c.anchor_margin,
+                    anchor_multiplier=c.anchor_multiplier,
+                )
+            else:
+                out = text
+            if c.spell_check and out:
+                out = self._spell_check(out)
+            results[key] = out
+            if want_coco:
+                coco_boxes[key] = self._coco_entry(meta, line_boxes, lc, out)
+
+    def _original_crop(self, raw: np.ndarray, b, meta) -> np.ndarray:
+        """One glyph's crop from the original image: the box (padded by
+        box_pad along the reading axis) mapped back through the letterbox,
+        x_orig = (x_canvas - left) / r, on the reading axis only ("line"
+        geometry: the full line across it) or on both ("tight")."""
+        c = self.config
+        pad = c.box_pad
+
+        def back(v, lo):
+            return max(int(round((round(v) - lo) / meta["r"])), 0)
+
+        if c.crop_geometry == "tight":
+            crop = raw[back(b[1] - pad, meta["top"]):
+                       back(b[3] + pad, meta["top"]),
+                       back(b[0] - pad, meta["left"]):
+                       back(b[2] + pad, meta["left"]), :]
+        elif c.vertical:
+            crop = raw[back(b[1] - pad, meta["top"]):
+                       back(b[3] + pad, meta["top"]), :, :]
+        else:
+            crop = raw[:, back(b[0] - pad, meta["left"]):
+                       back(b[2] + pad, meta["left"]), :]
+        if crop.size == 0:
+            crop = np.zeros((4, 4, 3), np.uint8)
+        return crop
+
+    def _recognize_crops(self, crops: List[np.ndarray]) -> np.ndarray:
+        """Index [len(crops)] of each original-image crop: batches of at
+        most crop_batch crops (fewer where their padded squares would pass
+        the device budget), each padded white to the square of its
+        largest side and recognized in one program."""
+        c = self.config
+        out = [np.zeros((0,), np.int64)]
+        start = 0
+        while start < len(crops):
+            stop, side = start, 0
+            while stop < len(crops) and stop - start < c.crop_batch:
+                s = max(side, *crops[stop].shape[:2])
+                if stop > start and (stop - start + 1) * s * s * 3 \
+                        > _SQUARES_BUDGET:
+                    break
+                side, stop = s, stop + 1
+            part = crops[start:stop]
+            squares = np.full((len(part), side, side, 3), 255, np.uint8)
+            sides = np.empty((len(part),), np.int64)
+            for j, crop in enumerate(part):
+                h, w = crop.shape[:2]
+                squares[j, :h, :w] = crop
+                sides[j] = max(h, w)
+            idx = self._recognize_squares(
+                torch.from_numpy(squares).to(self.device),
+                torch.from_numpy(sides).to(self.device))
+            out.append(idx.cpu().numpy().astype(np.int64))
+            start = stop
+        return np.concatenate(out)

@@ -3,7 +3,8 @@
 Needs an NVIDIA GPU with nvcc (sm_90a); every test skips without one.
 Imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed: ``python -m pytest tests/test_torch_cuda.py``.
-Tolerances: NMS keep masks bit-identical.  Top-1 retrieval: scores within
+Tolerances: NMS keep masks bit-identical.  Top-1 retrieval (any D: the
+wrapper pads D to a multiple of 4): scores within
 1e-5 (float32 sums in another order), indices identical wherever the
 plain top-2 margin exceeds 1e-5, and everywhere on inputs whose products
 are exact in float32 (ties, all rows masked).
@@ -166,6 +167,26 @@ def test_top1_kernel_ragged_tiles(cuda, c, d):
     q, p = _unit(rng, 300, d).to(cuda), _unit(rng, c, d).to(cuda)
     mask = torch.from_numpy(rng.uniform(size=c) >= 0.1).to(cuda)
     s, i = top1(q, p, mask)
+    rs, ri = top1_plain(q, p, mask)
+    assert (s - rs).abs().max().item() <= 1e-5
+    sims = torch.where(mask[None], q @ p.t(), torch.full((), NEG_INF,
+                                                        device=cuda))
+    top2 = torch.topk(sims, 2, dim=1).values
+    sure = top2[:, 0] - top2[:, 1] > 1e-5
+    assert torch.equal(i[sure], ri[sure])
+
+
+@pytest.mark.parametrize("d", [6, 322])
+def test_top1_any_depth(cuda, d):
+    """D not a multiple of 4: ``top1`` pads it with zeros before the
+    launch (the kernel itself refuses such a D)."""
+    rng = np.random.default_rng(d + 1)
+    q, p = _unit(rng, 500, d).to(cuda), _unit(rng, 2000, d).to(cuda)
+    mask = torch.from_numpy(rng.uniform(size=2000) >= 0.05).to(cuda)
+    before = top1_kernel.launches
+    s, i = top1(q, p, mask)
+    torch.cuda.synchronize()
+    assert top1_kernel.launches == before + 1
     rs, ri = top1_plain(q, p, mask)
     assert (s - rs).abs().max().item() <= 1e-5
     sims = torch.where(mask[None], q @ p.t(), torch.full((), NEG_INF,

@@ -3,8 +3,8 @@
 In a fresh interpreter where importing ``jax`` or ``flax`` fails, every
 module of effocr_torch and chip_smoke.py (imported, not run) must import,
 and no ``effocr_tpu`` module may get loaded.  Entry points with the
-default device must raise when CUDA is absent instead of running on the
-CPU.
+default device (the engine, ``serve``'s engine loading) must raise when
+CUDA is absent instead of running on the CPU.
 """
 
 import os
@@ -57,4 +57,11 @@ def test_default_device_raises_without_cuda():
     index = PrototypeIndex(np.eye(3, dtype=np.float32), list("abc"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         EffOCRInference(PipelineConfig(), lambda x: x, lambda x: x, index)
+    # the serve CLI loads its engine on the default device: it raises
+    # before reading any artifact
+    from effocr_torch.cli.serve import main as serve_main
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_main(["--stdin", "--recognizer_dir", "missing",
+                    "--localizer_dir", "missing", "--lang", "en"])
     assert resolve_device("cpu").type == "cpu"

@@ -8,9 +8,13 @@
   the 11,051-row rec_knn6k3 ref.txt) loads parameters equal to the Flax
   ones, and the jp engine's retrieval goes through ``top1_plain`` on the
   CPU;
+- the modes that once raised build and run on the CPU: wide-line tiling,
+  spell check, ``crop_source original`` (jp artifacts), classifier mode
+  from a JAX-written classifier directory; ``--data_parallel`` and
+  ``--build_index_from`` still raise;
 - golden checks pin each copied module (config, batching, lang, tiling,
-  textline, image_ops, native decode/letterbox/pack bytes) to the
-  original's outputs.
+  textline, image_ops, spell_check, native decode/letterbox/pack bytes)
+  to the original's outputs.
 Tolerance: none (exact equality) throughout.
 """
 
@@ -185,13 +189,129 @@ def test_infer_cli_main_on_cpu(artifact_dirs, tmp_path, capsys):
         assert set(json.load(f)) == {"l0.png", "l1.png"}
 
 
-@pytest.mark.parametrize("flag", [["--crop_source", "original"],
-                                  ["--tile_min_h", "20"], ["--spell_check"],
-                                  ["--data_parallel"]])
+@pytest.mark.parametrize("flag", [["--data_parallel"],
+                                  ["--build_index_from", "chars"]])
 def test_load_engine_refuses_unported_paths(artifact_dirs, flag):
     loc_dir, rec_dir, _, _ = artifact_dirs
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_engine(_args(loc_dir, rec_dir, *flag))
+
+
+def _gray_pngs(tmp_path, sizes, seed):
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i, (h, w) in enumerate(sizes):
+        p = str(tmp_path / f"g{i}.png")
+        Image.fromarray(rng.integers(0, 256, (h, w), np.uint8)).save(p)
+        paths.append(p)
+    return paths
+
+
+def test_load_engine_runs_wide_line_tiling(artifact_dirs, tmp_path):
+    """--tile_min_h with BENCH_TRAINED.json's flags on the CPU: a
+    3,000 px line letterboxes below 20 px of content height and rides
+    the pipeline as tiles, merged back under its own path."""
+    loc_dir, rec_dir, _, _ = artifact_dirs
+    engine = load_engine(_args(loc_dir, rec_dir, "--tile_min_h", "20",
+                               "--line_batch", "4"))
+    assert engine.config.tile_min_content_h == 20
+    paths = _gray_pngs(tmp_path, [(48, 3000), (40, 300)], 10)
+    lines = []
+    orig = engine._dispatch_chunk
+    engine._dispatch_chunk = lambda c, k: lines.extend(k) or orig(c, k)
+    res = engine.run(paths)
+    assert set(res) == set(paths) and all(isinstance(v, str)
+                                           for v in res.values())
+    tiles = [k for k in lines if isinstance(k, tiling.TileKey)]
+    assert len(tiles) >= 2 and {t.parent for t in tiles} == {paths[0]}
+
+
+def test_load_engine_runs_spell_check(artifact_dirs, tmp_path, monkeypatch):
+    """--spell_check: every non-empty line goes through the port's copy
+    of the spell checker with the builtin dictionary."""
+    from effocr_torch.pipelines import infer as t_infer
+
+    loc_dir, rec_dir, _, _ = artifact_dirs
+    engine = load_engine(_args(loc_dir, rec_dir, "--spell_check",
+                               "--line_batch", "2"))
+    assert engine.config.spell_check
+    seen = []
+    check = t_infer.visual_spell_checker
+    monkeypatch.setattr(t_infer, "visual_spell_checker",
+                        lambda t, *a: seen.append(t) or check(t, *a))
+    res = engine.run(_gray_pngs(tmp_path, [(48, 600), (44, 900)], 11))
+    assert len(seen) == sum(1 for v in res.values() if v)
+    assert engine._spell_check("tne") == "the"
+
+
+def test_load_engine_runs_crop_source_original(jp_artifact_dirs, tmp_path):
+    """--crop_source original with the jp_v3 flags (3-channel models) on
+    the CPU: the detect program, crops cut from the original images, and
+    the recognize program through top1_plain."""
+    loc_dir, rec_dir, _, _ = jp_artifact_dirs
+    engine = load_engine(_jp_args(loc_dir, rec_dir, "--crop_source",
+                                  "original", "--line_batch", "2",
+                                  "--crop_batch", "64"))
+    assert engine.config.crop_source == "original"
+    rng = np.random.default_rng(12)
+    paths = []
+    for i, h in enumerate((500, 380)):
+        p = str(tmp_path / f"o{i}.png")
+        Image.fromarray(rng.integers(0, 256, (h, 60, 3), np.uint8),
+                        mode="RGB").save(p)
+        paths.append(p)
+    res, coco = engine.run(paths, return_coco=True)
+    assert set(res) == set(paths) and all(isinstance(v, str)
+                                           for v in res.values())
+    assert [im["height"] for im in coco["images"]] == [500, 380]
+
+
+def test_load_engine_reads_classifier_artifacts(tmp_path):
+    """A recognizer dir in the JAX package's classifier format
+    (``num_classes`` in model.json, the {encoder, head} checkpoint written
+    by its checkpoint module, a sparse class_map.json) loads in classifier
+    mode with Flax-equal parameters and runs on the CPU."""
+    from effocr_torch.models.factory import (
+        create_classifier,
+        create_localizer,
+        init_params,
+    )
+
+    loc_dir, rec_dir = tmp_path / "loc", tmp_path / "rec"
+    loc_dir.mkdir()
+    rec_dir.mkdir()
+    loc = init_params(create_localizer("yolov5n", 2, in_channels=1), 13)
+    j_ckpt.save_variables(state_dict_to_flax(loc.state_dict()),
+                          str(loc_dir / "best_bbox_mAP.msgpack"))
+    with open(loc_dir / "model.json", "w") as f:
+        json.dump({"arch": "yolov5n", "num_classes": 2, "input_size": 256,
+                   "input_height": 64, "input_channels": 1}, f)
+    cls = init_params(create_classifier("mobilenetv3_small_050", 12,
+                                        in_channels=1), 14)
+    variables = state_dict_to_flax(cls.state_dict())
+    assert set(variables["params"]) == {"encoder", "head"}
+    j_ckpt.save_variables(variables, str(rec_dir / "enc_best.msgpack"))
+    with open(rec_dir / "model.json", "w") as f:
+        json.dump({"arch": "mobilenetv3_small_050", "image_size": 64,
+                   "num_classes": 12, "input_channels": 1,
+                   "crop_geometry": "tight"}, f)
+    with open(rec_dir / "class_map.json", "w") as f:
+        json.dump({"0": "a", "3": "b", "7": "c"}, f)
+    p = argparse.ArgumentParser()
+    add_engine_args(p)
+    engine = load_engine(p.parse_args([
+        "--recognizer_dir", str(rec_dir), "--localizer_dir", str(loc_dir),
+        "--lang", "en", "--device", "cpu", "--line_batch", "2",
+        "--crop_batch", "32"]))
+    assert engine.classifier_mode and engine.index is None
+    assert engine.class_map == {0: "a", 3: "b", 7: "c"}
+    assert list(engine._char_lookup) == ["a", "", "", "b", "", "", "", "c"]
+    sd = engine.encoder.state_dict()
+    ref = flax_to_state_dict(variables)
+    assert sd.keys() == ref.keys() and all(torch.equal(sd[k], ref[k])
+                                           for k in ref)
+    res = engine.run(_gray_pngs(tmp_path, [(48, 600), (40, 300)], 15))
+    assert all(set(v) <= set("abc ") for v in res.values())
 
 
 # the jp_v3 benchmark's flag list (bench_results/r5/jp_v3.result.json)
@@ -384,6 +504,25 @@ def test_tiling_copy_matches():
     assert got[0] == ref[0]
     np.testing.assert_array_equal(got[1], ref[1])
     np.testing.assert_array_equal(got[2], ref[2])
+
+
+def test_spell_check_copy_matches():
+    from effocr_tpu.utils import spell_check as j_spell
+    from effocr_torch.utils import spell_check
+
+    with pytest.warns(UserWarning):
+        got = spell_check.default_dicts.__wrapped__()
+    ref = j_spell.default_dicts.__wrapped__()
+    assert got == ref and len(got[0]) > 400
+    lines = ["Tne quick brovvn fox", "I0 dogs ran 1O miles", "Dr. Smith",
+             "ca11 the offlce at 9am", "HELLO W0RLD", "J. Doe-Smith's b00k",
+             "", "in tne rnain", "c0mpany/pr0ducts", "O0O 1l1"]
+    for line in lines:
+        assert spell_check.visual_spell_checker(line, *got) == \
+            j_spell.visual_spell_checker(line, *ref), line
+    for s in ("1l", "l0l", "a1b", "5s"):
+        assert spell_check.majority_normalize(s, got[1]) == \
+            j_spell.majority_normalize(s, ref[1])
 
 
 def test_textline_copy_matches():

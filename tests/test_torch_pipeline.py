@@ -25,8 +25,8 @@ the same way with a vertical oracle (one box per ink row run) and the
 JAX engine's Pallas top-1 kernel in interpret mode: identical text and
 packed fields with the tiny encoder, in tight and line crop geometry;
 identical n_chars and boxes, and nn_idx wherever the JAX margin exceeds
-1e-4, with a narrow float32 ConvNeXt.  The ROI crop's two ported
-branches are held to JAX at 1e-5 absolute.
+1e-4, with a narrow float32 ConvNeXt.  The ROI crop's three branches
+are held to JAX at 1e-5 absolute.
 """
 
 import jax
@@ -329,11 +329,16 @@ VTEXTS = ["AbXoT", "kXobAkXo", "bAX", "TokXbA", "XkXkob", "oTk"]
 INK, PAPER = (30, 20, 70), (250, 244, 228)    # dark blue ink, cream paper
 
 
-@pytest.mark.parametrize("branch", ["w_le_window", "h_le_window"])
+@pytest.mark.parametrize("branch", ["w_le_window", "h_le_window",
+                                    "general_2d"])
 def test_roi_branches_match_jax(branch):
+    """general_2d: a canvas larger than the window on both axes (the
+    square-canvas branch), with rects on the right and bottom edges and
+    rects wider than the window (their far edge is clamped)."""
     rng = np.random.default_rng(11)
     window = 64
-    shape = (3, 256, 64, 3) if branch == "w_le_window" else (3, 48, 300, 3)
+    shape = {"w_le_window": (3, 256, 64, 3), "h_le_window": (3, 48, 300, 3),
+             "general_2d": (3, 100, 90, 3)}[branch]
     imgs = rng.uniform(0, 1, shape).astype(np.float32)
     b, h, w, _ = shape
     n = 40
@@ -342,6 +347,10 @@ def test_roi_branches_match_jax(branch):
     # sides up to past the window and the canvas edge (clamped)
     rects = np.stack([x0, y0, x0 + rng.integers(1, 80, n),
                       y0 + rng.integers(1, 80, n)], 1).astype(np.int32)
+    if branch == "general_2d":
+        rects[:4, 2] = w                      # on the right edge
+        rects[4:8, 3] = h + 5                 # past the bottom edge
+        rects[8:12, 2] = rects[8:12, 0] + 90  # wider than the window
     img_idx = rng.integers(0, b, n).astype(np.int32)
     valid = rng.uniform(size=n) > 0.1
     ref = np.asarray(crop_lines_to_squares(

@@ -116,3 +116,23 @@ def test_cuda_route_on_cpu_tensors_is_the_plain_version():
                         torch.from_numpy(mask))
     assert cuda_top1.top1_kernel.launches == before
     assert torch.equal(i, ri) and torch.equal(s, rs)
+
+
+@pytest.mark.parametrize("d", [6, 322])
+def test_pad_depth_keeps_top1(d):
+    """K2's wrapper zero-pads D to a multiple of 4 (the JAX kernel takes
+    any D): top1_plain on the padded rows gives the same scores and
+    indices, bit for bit, and pallas_top1 agrees on the indices."""
+    rng = np.random.default_rng(d)
+    q, p = _unit(rng, 150, d), _unit(rng, 700, d)
+    mask = torch.from_numpy(rng.uniform(size=700) > 0.1)
+    qt, pt = torch.from_numpy(q), torch.from_numpy(p)
+    qp, pp = cuda_top1.pad_depth(qt, pt)
+    assert qp.shape[1] == pp.shape[1] == d + (-d % 4)
+    assert torch.equal(qp[:, :d], qt) and not qp[:, d:].any()
+    s, i = top1_plain(qt, pt, mask)
+    sp, ip = top1_plain(qp, pp, mask)
+    assert torch.equal(s, sp) and torch.equal(i, ip)
+    _, ref = pallas_top1(jnp.asarray(q), jnp.asarray(p),
+                         row_mask=jnp.asarray(mask.numpy()), interpret=True)
+    np.testing.assert_array_equal(ip.numpy(), np.asarray(ref))
