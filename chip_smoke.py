@@ -79,9 +79,29 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    - build_index_from: ``infer --build_index_from`` on a copy of the
      trained dir without ref.npz, its rows held to build-index's render
      rows within 1e-5, then the en engine over 256 lines
-     (``checked_runs``).
+     (``checked_runs``);
+   - train_localizer: ``python -m effocr_torch train-localizer --device
+     cuda`` with the en localizer recipe of scripts/northstar_en.sh at
+     full width (yolov5s, 1024 wide, heights 64 and 96, 1 channel,
+     fitted anchors, batch 16, resident bank; depth cut to 12 epochs,
+     ``--eval_period 6``, ``--test_coco``) on 2,000 synthetic lines of
+     phase train's glyphs; prints steps/s and images/s of the epochs
+     after each height's first, the logged losses, AP / AP50 / AP75 of
+     each evaluation and the test split, peak device memory and the
+     fitted anchors.  In process, the best checkpoint on the val split
+     twice: every K1 keep mask held bit for bit against nms_mask, then on
+     plain NMS (equal AP dictionaries); K1 timed at that [16, 1024]
+     input.  Then the en engine with the new localizer and phase train's
+     recognizer over 256 held-out lines (``checked_runs``): CER and
+     textline accuracy as ``infer --coco_json`` computes them;
+   - loc_step_vs_cpu: one float32 localizer step at full width (augment
+     on fixed draws) on the card and on the CPU (loss 1e-5 relative,
+     gradients and batch_stats 1e-3 of the largest), then the device
+     time of each stage of the recipe's bf16 step.
 8. a ``kernels`` JSON line (launches per path under
-   ``launches_by_path``), then ``{"ok": true, "device": ...}`` last.
+   ``launches_by_path``; K1's ``train_localizer`` counts the evaluation's
+   launches and the engine's), then ``{"ok": true, "device": ...}``
+   last.
 
 ``--profile`` adds a torch.profiler run over one chunk of the en, jp and
 square paths: device time per engine stage and per kernel, and the device
@@ -135,22 +155,24 @@ SEED = 0
 # class 0 "char", 6 = class 1 "word"), added after the heads are scaled to
 # unit output spread: char candidates come from the stride-8 scale (the
 # objectness offset sets how many pass conf_thresh), word candidates from
-# the stride-32 one, none from stride 16
-DETECT_BIAS = {0: {4: -1.2, 5: 4.0, 6: -4.0},
+# the stride-32 one, none from stride 16.  The objectness offsets here
+# and below are set for factory.init_params' draw (Flax's lecun_normal,
+# truncated): ~26 chars per line on the en engine over 128 lines
+DETECT_BIAS = {0: {4: -1.5, 5: 4.0, 6: -4.0},
                1: {4: -6.0},
                2: {4: 0.0, 5: -4.0, 6: 4.0}}
 # the same for the jp vertical detector: char candidates from the stride-8
 # scale only (jp decodes no word boxes); the objectness offset is set for
-# ~30 chars per synthetic line after NMS at IoU 0.01, under the 34 crop
+# ~29 chars per synthetic line after NMS at IoU 0.01, under the 34 crop
 # slots per line of crop_batch 4096 / line_batch 120
-JP_DETECT_BIAS = {0: {4: -2.6, 5: 4.0, 6: -4.0},
+JP_DETECT_BIAS = {0: {4: -2.8, 5: 4.0, 6: -4.0},
                   1: {4: -6.0},
                   2: {4: -6.0}}
 # the en detector on the square 640 x 640 canvas: 20 x 20 stride-32 cells
 # (not 3 x 32) would fill max_nms with word candidates at DETECT_BIAS, so
-# their objectness drops; set for ~32 chars and ~16 words per line after
+# their objectness drops; set for ~34 chars and ~16 words per line after
 # NMS on 16 synthetic lines
-SQUARE_DETECT_BIAS = {0: {4: -1.75, 5: 4.0, 6: -4.0},
+SQUARE_DETECT_BIAS = {0: {4: -1.95, 5: 4.0, 6: -4.0},
                       1: {4: -6.0},
                       2: {4: -2.3, 5: -4.0, 6: 4.0}}
 # K2: plain top-2 margins at or below this may flip the index under
@@ -1640,6 +1662,28 @@ class GradRecorder:
                       for k, p in self.named.items()}
 
 
+def normal_init(model, seed):
+    """Conv and Dense weights ~ N(0, 1/fan_in), untruncated, biases 0:
+    the weights this check was set up on.  From factory.init_params'
+    truncated lecun_normal (the distribution training starts from) this
+    network's float32 backward lands ~1e-3 of the largest |g| from a
+    float64 evaluation on either device (the card 1.0e-3 to 2.4e-3, the
+    CPU 7e-4: input differences of 2e-6 from the augmentation move the
+    gradients that much), at the floor of the check's tolerance; from
+    these weights, 2e-4 to 6e-4."""
+    from effocr_torch.models import layers
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (layers.Conv, layers.Dense)):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                               / m.weight[0].numel() ** 0.5)
+                if m.bias is not None:
+                    m.bias.zero_()
+    return model
+
+
 def phase_train_step(dev, card, tree):
     """One make_train_step at full width (the en recipe: 128 px, batch
     128, bank mode, aux head, paired jitter) in float32 on the card and
@@ -1675,8 +1719,9 @@ def phase_train_step(dev, card, tree):
     idx = torch.tensor(batches[0])
     draws = draw_augment(torch.Generator().manual_seed(SEED + 71), 128, 128,
                          lang="en", paired_jitter=0.1)
-    base = init_params(create_encoder("mobilenetv3_small_050", in_channels=1,
-                                      dtype=torch.float32), SEED + 70)
+    base = normal_init(create_encoder("mobilenetv3_small_050",
+                                      in_channels=1, dtype=torch.float32),
+                       SEED + 70)
     aux0 = torch.randn((len(ds.classes), base.out_features),
                        generator=torch.Generator().manual_seed(SEED + 72)
                        ) * 0.02
@@ -1831,6 +1876,377 @@ def phase_build_index_from(dev, card, paths, loc_dir, run_dir, tree):
                  f"; ad-hoc index of {len(got)} renders")
     out["row_max_err"] = err
     return out
+
+
+# ------------------------------------------------- localizer training
+# the en localizer recipe of scripts/northstar_en.sh:52-56 at full width
+# (yolov5s, gray, 1024 wide, heights 64 and 96, fitted anchors, batch 16,
+# resident bank); depth cut to 12 epochs of 60, an evaluation every 6
+LOC_TRAIN_FLAGS = ["--arch", "yolov5s", "--input_size", "1024",
+                   "--multi_height", "64,96", "--input_channels", "1",
+                   "--fit_anchors", "--batch_size", "16",
+                   "--data_device", "resident", "--num_epochs", "12",
+                   "--eval_period", "6"]
+LOC_SPLITS = {"train": 2000, "val": 128, "test": 128, "read": 256}
+
+
+_GLYPH_CACHE = {}
+
+
+def loc_line(rng, glyphs, chars):
+    """A line of the en glyph renders: 36-72 px high, 2-8 words of 1-7
+    glyphs scaled to the line, shifted and noised.  Returns (gray image,
+    char boxes, word boxes, text), boxes [x, y, w, h] in pixels."""
+    from effocr_torch.kernels.image_ops import cv2_resize_linear
+
+    h = int(rng.integers(36, 73))
+    gh = h - 2 * (h // 8)
+    x, pieces, cboxes, wboxes, words = h // 4, [], [], [], []
+    for _ in range(int(rng.integers(2, 9))):
+        x0, word = x, []
+        for ci in rng.integers(0, len(chars), int(rng.integers(1, 8))):
+            g = glyphs[ci]
+            gw = max(4, int(round(g.shape[1] * gh / g.shape[0])))
+            top = h // 8 + int(rng.integers(-1, 2))
+            if (ci, gh) not in _GLYPH_CACHE:
+                _GLYPH_CACHE[ci, gh] = cv2_resize_linear(g[..., None], gw, gh)
+            pieces.append((x, top, _GLYPH_CACHE[ci, gh]))
+            cboxes.append([x, top, gw, gh])
+            word.append(chars[ci])
+            x += gw + int(rng.integers(1, 4))
+        wboxes.append([x0, min(b[1] for b in cboxes[-len(word):]),
+                       cboxes[-1][0] + cboxes[-1][2] - x0, gh + 1])
+        words.append("".join(word))
+        x = cboxes[-1][0] + cboxes[-1][2] + h // 2
+    img = np.full((h, x + h // 4), 245, np.int32)
+    for px, py, g in pieces:
+        img[py:py + g.shape[0], px:px + g.shape[1]] = g[..., 0]
+    img = np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(np.uint8)
+    return img, cboxes, wboxes, " ".join(words)
+
+
+def make_loc_corpus(tree, chars):
+    """Line PNGs of the NotoSerif glyph renders of ``tree`` (phase
+    train's) and one COCO file per split: char boxes (category 0), word
+    boxes (category 1), ``text``, ``width``, ``height``."""
+    from effocr_torch.data import png
+
+    root = os.path.join(WORK, "train_loc")
+    shutil.rmtree(root, ignore_errors=True)
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    glyphs = [png.read_png(os.path.join(
+        tree, str(ord(c)), f"{hex(ord(c))}_0_NotoSerif-Regular.png"), 1)[
+            ..., 0] for c in chars]
+    rng = np.random.default_rng(SEED + 80)
+    splits = {}
+    for split, n in LOC_SPLITS.items():
+        images, annos = [], []
+        for i in range(n):
+            img, cboxes, wboxes, text = loc_line(rng, glyphs, chars)
+            name = f"{split}{i:05d}.png"
+            write_png(os.path.join(img_dir, name), img)
+            images.append({"id": i, "file_name": name, "width": img.shape[1],
+                           "height": img.shape[0], "text": text})
+            for cat, boxes in ((0, cboxes), (1, wboxes)):
+                for b in boxes:
+                    annos.append({"id": len(annos), "image_id": i,
+                                  "bbox": [float(v) for v in b],
+                                  "category_id": cat})
+        splits[split] = os.path.join(root, f"{split}.json")
+        with open(splits[split], "w") as f:
+            json.dump({"images": images, "annotations": annos,
+                       "categories": [{"id": 0, "name": "char"},
+                                      {"id": 1, "name": "word"}]}, f)
+    return img_dir, splits
+
+
+def _loc_trainer(dev, run_dir, model_json, augment=False):
+    from effocr_torch.core.config import LocalizerConfig, LocalizerTrainConfig
+    from effocr_torch.train.localizer import LocalizerTrainer
+
+    with open(model_json) as f:
+        meta = json.load(f)
+    cfg = LocalizerTrainConfig(localizer=LocalizerConfig(
+        arch=meta["arch"], input_size=meta["input_size"],
+        input_height=meta["input_height"],
+        input_channels=meta["input_channels"]), augment=augment)
+    model = create_localizer(meta["arch"], 2, in_channels=1, anchors=tuple(
+        tuple(a) for a in meta["anchors"]))
+    return LocalizerTrainer(cfg, model, run_dir, 1, device=dev)
+
+
+def phase_train_localizer(dev, card, tree, rec_dir, out_dir):
+    """``python -m effocr_torch train-localizer --device cuda`` with the
+    en recipe at full width on a synthetic line corpus of phase train's
+    glyphs (depth cut to 12 epochs), ``--test_coco`` included.  Then, in
+    process, the best checkpoint on the val split twice: every K1 keep
+    mask held bit for bit against nms_mask, and on plain NMS; the AP
+    dictionaries must be equal.  Then the en engine with the new
+    localizer and phase train's recognizer over the held-out lines
+    (``checked_runs``): CER and textline accuracy as ``infer
+    --coco_json`` computes them."""
+    from effocr_torch.data.detection import DetectionDataset
+    from effocr_torch.eval.coco_map import coco_map
+    from effocr_torch.eval.textline import textline_evaluation
+    from effocr_torch.train import checkpoint as ckpt
+
+    with open(os.path.join(R5, "rec2k_mn_hn", "ref.txt"), newline="") as f:
+        chars = f.read().rstrip("\n").split("\n")
+    t0 = time.perf_counter()
+    img_dir, splits = make_loc_corpus(tree, chars)
+    log(f"train_localizer: {sum(LOC_SPLITS.values())} line PNGs of "
+        f"{len(chars)} glyphs ({LOC_SPLITS}) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    run_dir = os.path.join(WORK, "train_loc", "loc")
+    stdout, wall = run_cli(
+        ["train-localizer", "--device", "cuda", "--image_dir", img_dir,
+         "--train_coco", splits["train"], "--val_coco", splits["val"],
+         "--test_coco", splits["test"], "--run_name", run_dir,
+         *LOC_TRAIN_FLAGS], "train_localizer")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f]
+    losses = [(r["step"], r["train/loss"], r["loss/box"], r["loss/obj"],
+               r["loss/cls"]) for r in recs if "train/loss" in r]
+    epochs = [r for r in recs if "epoch/steps" in r]
+    timed = epochs[2:]                # after each height's first epoch
+    steps_s = sum(r["epoch/steps"] for r in timed) / sum(
+        r["epoch/seconds"] for r in timed)
+    images_s = sum(r["epoch/images"] for r in timed) / sum(
+        r["epoch/seconds"] for r in timed)
+    evals = [{k: r[k] for k in ("bbox/AP", "bbox/AP50", "bbox/AP75")}
+             for r in recs if "bbox/AP" in r]
+    test = [{k: r[f"test/{k}"] for k in ("bbox/AP", "bbox/AP50",
+                                          "bbox/AP75")}
+            for r in recs if "test/bbox/AP" in r][-1]
+    peak = [r["device/peak_gib"] for r in recs if "device/peak_gib" in r][-1]
+    anchors = [ln for ln in stdout.splitlines()
+               if ln.startswith("fitted anchors")][-1]
+    numbers = ([v for row in losses for v in row[1:]] + [steps_s, images_s,
+               peak] + [v for e in evals + [test] for v in e.values()])
+    if len(losses) < 2 or not all(np.isfinite(v) for v in numbers):
+        raise AssertionError(f"train_localizer: losses {losses}, evals "
+                             f"{evals}, test {test}")
+    if not losses[-1][1] < losses[0][1]:
+        raise AssertionError(f"train_localizer: the last logged loss "
+                             f"{losses[-1]} is not below the first "
+                             f"{losses[0]}")
+    log(f"train_localizer: train-localizer exited 0 in {wall:.1f} s "
+        f"(process wall, corpus letterbox and evaluation included); epochs "
+        f"{[round(r['epoch/seconds'], 3) for r in epochs]} s at heights "
+        f"{[int(r['epoch/height']) for r in epochs]}, "
+        f"{int(epochs[0]['epoch/steps'])} steps of 16 each; epochs 3-"
+        f"{len(epochs)} (after each height's first): {steps_s:.2f} "
+        f"optimizer steps/s = {images_s:.1f} images/s ({card})")
+    log(f"train_localizer: logged (step, loss, box, obj, cls) {losses}")
+    log(f"train_localizer: val AP / AP50 / AP75 by evaluation {evals}; "
+        f"test (best checkpoint) {test}; peak device memory {peak:.3f} GiB "
+        f"({card}); {anchors}")
+
+    best = ckpt.best_checkpoint_path(run_dir, "best_bbox_mAP")
+    trainer = _loc_trainer(dev, os.path.join(WORK, "train_loc", "check"),
+                           os.path.join(run_dir, "model.json"))
+    trainer.set_variables(ckpt.load_variables(best))
+    val_ds = DetectionDataset(splits["val"], img_dir, 1024, input_height=96,
+                              channels=1)
+    batches = [(b[0], b[3]) for b in val_ds.batches(
+        16, shuffle=False, drop_last=False)]
+    cuda_nms.nms_kernel.launches = 0
+    t0 = time.perf_counter()
+    with kernels_checked("train_localizer evaluation") as (k1c, _):
+        preds, gts = trainer.predict(batches)
+    eval_launches = cuda_nms.nms_kernel.launches
+    ap_k1 = coco_map(preds, gts, num_classes=2)
+    eval_s = time.perf_counter() - t0
+    by_class = {}
+    for c, name in ((0, "char"), (1, "word")):
+        sel = [({"boxes": p["boxes"][p["classes"] == c],
+                 "scores": p["scores"][p["classes"] == c],
+                 "classes": np.zeros(int((p["classes"] == c).sum()), int)},
+                {"boxes": g["boxes"][g["classes"] == c],
+                 "classes": np.zeros(int((g["classes"] == c).sum()), int)})
+               for p, g in zip(preds, gts)]
+        by_class[name] = coco_map([a for a, _ in sel], [b for _, b in sel],
+                                  num_classes=1)
+    trainer.nms_kernel = "plain"
+    ap_plain = coco_map(*trainer.predict(batches), num_classes=2)
+    if ap_k1 != ap_plain or k1c.calls != len(batches):
+        raise AssertionError(f"train_localizer: AP with K1 {ap_k1} vs plain "
+                             f"NMS {ap_plain}; K1 calls {k1c.calls}")
+    log(f"train_localizer: best checkpoint on the val split: K1 held bit "
+        f"for bit against nms_mask on {k1c.calls} calls ({k1c.boxes} valid "
+        f"boxes of {len(batches) * 1024}), {eval_launches} launches; AP "
+        f"dictionary identical on plain NMS: {ap_k1} ({eval_s:.1f} s with "
+        f"the checks and coco_map); by class: {by_class}")
+    boxes, valid, thr = k1c.first
+    k1_eval = k1_case("train_localizer evaluation [16, 1024]", boxes, valid,
+                      thr, timed=True)
+
+    engine = load_engine(engine_args(run_dir, rec_dir))
+    with open(splits["read"]) as f:
+        read = json.load(f)["images"]
+    paths = [os.path.join(img_dir, im["file_name"]) for im in read]
+    run = checked_runs(engine, paths, "train_localizer")
+    pairs = [(im["text"], run["results"][p] or "")
+             for im, p in zip(read, paths)]
+    acc, cer = textline_evaluation(pairs)
+    read_pairs = [(gt, run["results"][p]) for (gt, _), p in zip(pairs, paths)
+                  if run["results"][p] is not None]
+    cer_read = textline_evaluation(read_pairs)[1] if read_pairs else None
+    out = report("train_localizer", run, card,
+                 f"; localizer and recognizer trained here; CER {cer:.4f}, "
+                 f"textline accuracy {acc:.2f}% on {len(pairs)} held-out "
+                 f"synthetic lines (CER {cer_read} over the "
+                 f"{len(read_pairs)} lines that read text)")
+    for gt, got in pairs[:4]:
+        log(f"train_localizer: {gt!r} -> {got!r}")
+    if out_dir != WORK:     # the trained localizer, without its train state
+        dst = os.path.join(out_dir, "train_localizer")
+        os.makedirs(dst, exist_ok=True)
+        for name in ("model.json", "best_bbox_mAP.msgpack", "metrics.jsonl",
+                     "args_log.json"):
+            shutil.copy(os.path.join(run_dir, name), dst)
+    out.update(k1_launches=run["k1_launches"] + eval_launches,
+               k1_eval_launches=eval_launches, k1_eval=k1_eval, cer=cer,
+               textline_accuracy=acc, cer_read=cer_read,
+               lines_read=len(read_pairs), ap_by_class=by_class,
+               steps_s=steps_s, images_s=images_s,
+               losses=losses, val_ap=evals, test_ap=test,
+               peak_train_gib=peak, train_wall_s=wall, anchors=anchors,
+               epoch_seconds=[r["epoch/seconds"] for r in epochs],
+               run_dir=run_dir, img_dir=img_dir, splits=splits)
+    return out
+
+
+def phase_loc_step(dev, card, img_dir, splits, model_json):
+    """One float32 step of the localizer recipe at full width (yolov5s,
+    batch 16, 96 x 1024, 1 channel, augment on one fixed set of draws)
+    on the card and on the CPU, on the same batch: loss within 1e-5
+    relative, gradients within 1e-3 of the largest |g|, new batch_stats
+    within 1e-3 of the largest.  Then the device time of each stage of
+    the recipe's bf16 step on the card (torch.profiler)."""
+    import copy
+
+    from effocr_torch.data.detection import DetectionDataset
+    from effocr_torch.kernels.det_augment import (
+        apply_detection_augment,
+        draw_detection_augment,
+    )
+    from effocr_torch.train.localizer import make_detector_train_step
+    from effocr_torch.train.losses import yolo_loss
+
+    ds = DetectionDataset(splits["test"], img_dir, 1024, input_height=96,
+                          channels=1)
+    imgs, tgts, masks, _ = next(ds.batches(16, shuffle=False))
+    batch = [torch.from_numpy(a) for a in (imgs, tgts, masks)]
+    draws = draw_detection_augment(torch.Generator().manual_seed(SEED + 81),
+                                   16, 96, 1024, 1)
+    t_cpu = _loc_trainer("cpu", os.path.join(WORK, "train_loc", "step"),
+                         model_json, augment=True)
+    base = init_params(_f32_copy(t_cpu.model, "cpu"), SEED + 82)
+    got = {}
+    for where in ("cuda", "cpu"):
+        model = copy.deepcopy(base).to(where).train()
+        rec = GradRecorder(dict(model.named_parameters()))
+        step = make_detector_train_step(model, t_cpu.cfg, rec, model.anchors)
+        t0 = time.perf_counter()
+        loss, _ = step(*(a.to(where) for a in batch),
+                       {k: v.to(where) for k, v in draws.items()})
+        loss = float(loss)
+        got[where] = (loss, rec.grads, time.perf_counter() - t0,
+                      {k: v.float().cpu() for k, v in
+                       model.state_dict().items() if "running" in k})
+    (lg, gg, sg_s, sg), (lc, gc, sc_s, sc) = got["cuda"], got["cpu"]
+    gmax = max(float(g.abs().max()) for g in gc.values())
+    gerr = max(float((gg[k] - gc[k]).abs().max()) for k in gc) / gmax
+    smax = max(float(v.abs().max()) for v in sc.values())
+    serr = max(float((sg[k] - sc[k]).abs().max()) for k in sc) / smax
+    lerr = abs(lg - lc) / abs(lc)
+    log(f"loc_step_vs_cpu: float32 yolov5s step at batch 16 x 96 x 1024, "
+        f"augment on: loss card {lg:.6f} CPU {lc:.6f} (rel {lerr:.3g}, "
+        f"tolerance 1e-5); max |grad diff| / max|g| {gerr:.3g} over "
+        f"{len(gc)} tensors; max |batch_stats diff| / max|stat| {serr:.3g} "
+        f"(tolerance 1e-3); CPU step {sc_s:.1f} s")
+    if not (lerr <= 1e-5 and gerr <= 1e-3 and serr <= 1e-3):
+        raise AssertionError("loc_step_vs_cpu: card and CPU disagree")
+
+    # the recipe's bf16 step split by stage: kernels under each range;
+    # backward's kernels run on autograd's device thread, outside the
+    # ranges, so backward is the rest of the device time
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    trainer = _loc_trainer(dev, os.path.join(WORK, "train_loc", "step"),
+                           model_json, augment=True)
+    trainer.init_state(SEED + 82)
+    model, opt, cfg = trainer.model, trainer.optimizer, trainer.cfg
+    bank = [a.to(dev) for a in batch]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 83)
+    stages = ("augment", "forward", "loss", "optimizer")
+
+    def one_step():
+        with record_function("train/augment"):
+            x, t, m = apply_detection_augment(
+                bank[0].float() / 255.0, bank[1], bank[2],
+                draw_detection_augment(gen, 16, 96, 1024, 1))
+        model.train()
+        opt.zero_grad()
+        with record_function("train/forward"):
+            raw = model(x, decode=False)
+        with record_function("train/loss"):
+            loss, _ = yolo_loss(raw, t, m, model.anchors, num_classes=2,
+                                box_gain=cfg.box_gain, obj_gain=cfg.obj_gain,
+                                cls_gain=cfg.cls_gain,
+                                anchor_t=cfg.anchor_match_thresh)
+        loss.backward()
+        with record_function("train/optimizer"):
+            opt.step()
+
+    n_steps = 10
+    for _ in range(3):
+        one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        one_step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            one_step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    cuda_ev = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in cuda_ev if not e.key.startswith("train/")]
+    spans = {name: sum(e.self_device_time_total for e in cuda_ev
+                       if e.key == f"train/{name}") / 1e3 / n_steps
+             for name in stages}
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / n_steps
+    times = {name: sum(e.device_time_total for e in events
+                       if e.key == f"train/{name}"
+                       and e.device_type == torch.autograd.DeviceType.CPU)
+             / 1e3 / n_steps for name in stages}
+    times["backward (the rest)"] = total - sum(times.values())
+    launches = sum(e.count for e in kernels) / n_steps
+    log(f"loc_step_vs_cpu: one bf16 step of the recipe at batch 16 x 96 x "
+        f"1024 ({card}): {step_ms:.2f} ms wall (host clock, {n_steps} "
+        f"steps, profiler off), {total:.2f} ms of kernels in "
+        f"{launches:.0f} launches (busy share {total / step_ms:.3f}); "
+        "kernel ms by stage: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + "; device span of each range (idle gaps included, not kernels): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in spans.items()))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        ms = e.self_device_time_total / 1e3 / n_steps
+        log(f"loc_step_vs_cpu: kernel {ms:8.3f} ms/step "
+            f"x{e.count // n_steps:<4d} {e.key[:100]}")
+    times.update(total=total, wall=step_ms, launches=launches, spans=spans,
+                 top_kernels={e.key[:100]: e.self_device_time_total / 1e3
+                              / n_steps for e in top})
+    return dict(loss_rel_err=lerr, grad_rel_err=gerr, stats_rel_err=serr,
+                cpu_step_s=sc_s, stage_ms=times)
 
 
 def profile_run(engine, paths, card, out_dir, tag):
@@ -2032,6 +2448,17 @@ def main(argv) -> int:
         dev, card, sl["paths"], en_loc, train["train"]["run_dir"],
         train["train"]["tree"])
     train["build_index_from"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train["train_localizer"] = phase_train_localizer(
+        dev, card, train["train"]["tree"], train["train"]["run_dir"],
+        args.out)
+    train["train_localizer"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tl = train["train_localizer"]
+    train["loc_step_vs_cpu"] = phase_loc_step(
+        dev, card, tl["img_dir"], tl["splits"],
+        os.path.join(tl["run_dir"], "model.json"))
+    train["loc_step_vs_cpu"]["phase_s"] = time.perf_counter() - t0
     for name, v in train.items():
         log(f"phase {name}: {v['phase_s']:.1f} s")
     log(f"the training phases: {time.perf_counter() - t_train:.1f} s")
@@ -2066,6 +2493,7 @@ def main(argv) -> int:
                         "(torchvision is not installed and is not a torch op)",
         "synthetic_512x1024": k1["synthetic_512x1024"],
         "jp_main_path": jp["k1_main"],
+        "train_localizer_eval": train["train_localizer"]["k1_eval"],
     }, {
         "name": "top1_retrieval",
         "route": "cuda",

@@ -1,6 +1,6 @@
 """``python -m effocr_torch <command>``; the ported commands are
-``infer``, ``serve``, ``train-recognizer``, ``build-index`` and
-``build-freq-dict``."""
+``infer``, ``serve``, ``train-recognizer``, ``train-localizer``,
+``build-index`` and ``build-freq-dict``."""
 
 import sys
 
@@ -9,6 +9,7 @@ def main():
     cmds = {"infer": "effocr_torch.cli.infer",
             "serve": "effocr_torch.cli.serve",
             "train_recognizer": "effocr_torch.cli.train_recognizer",
+            "train_localizer": "effocr_torch.cli.train_localizer",
             "build_index": "effocr_torch.cli.build_index",
             "build_freq_dict": "effocr_torch.cli.build_freq_dict"}
     if len(sys.argv) < 2 or sys.argv[1].replace("-", "_") not in cmds:

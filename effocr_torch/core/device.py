@@ -28,3 +28,12 @@ def use_full_f32() -> None:
     margins and box decodes.  bf16 convolutions are unaffected."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device`` without making the host wait for the
+    device (pinned memory, an asynchronous copy); a CPU device takes it
+    as it is."""
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -1,8 +1,10 @@
 """Image preprocessing of the inference path (the JAX package's
-kernels/image_ops.py): letterbox geometry, the on-device letterbox of
-bucket transfer, ImageNet normalisation, the 2-bit transfer quantiser, and
-the paired transform (MedianPad square -> /255 -> bilinear resize without
-antialias -> normalise) of crops cut from the original image.
+kernels/image_ops.py): letterbox geometry, the host letterbox of detector
+training (a numpy copy of OpenCV's uint8 bilinear resize, byte for
+byte), the on-device letterbox of bucket transfer, ImageNet
+normalisation, the 2-bit transfer quantiser, and the paired transform
+(MedianPad square -> /255 -> bilinear resize without antialias ->
+normalise) of crops cut from the original image.
 
 Resizes are bilinear interpolation matrices (each row a 2-tap hat
 function, samples past the edge clamped to it), applied as batched
@@ -40,6 +42,102 @@ def letterbox_params(
     top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
     left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
     return r, new_unpad, (top, bottom, left, right)
+
+
+# ---------------------------------------------------------------------------
+# host letterbox: OpenCV's INTER_LINEAR on uint8, byte for byte
+# ---------------------------------------------------------------------------
+
+_COEF_ONE = 2048        # OpenCV's INTER_RESIZE_COEF_SCALE (11 bits)
+
+
+def _cv_taps(src: int, dst: int, clamp: bool):
+    """Source index and the two 11-bit weights of each output position,
+    as OpenCV derives them: the position ``(d + 0.5) * scale - 0.5`` in
+    float64 rounded to float32, its floor and float32 fraction, the
+    weights ``1 - f`` and ``f`` times 2048 rounded half to even.
+    ``clamp`` (the horizontal pass): positions left of 0 or at/past the
+    last pixel take that pixel whole; ``edge`` marks the latter, which
+    OpenCV computes as ``pixel * 2048``.  The vertical pass keeps the
+    fraction and clamps only the row it reads."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(
+        np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(np.float32)
+    edge = s >= src - 1
+    if clamp:
+        f[s < 0] = 0.0
+        s[s < 0] = 0
+        f[edge] = 0.0
+        s[edge] = src - 1
+    a0 = np.rint((np.float32(1.0) - f) * np.float32(_COEF_ONE))
+    a1 = np.rint(f * np.float32(_COEF_ONE))
+    return s, a0.astype(np.int64), a1.astype(np.int64), edge
+
+
+def cv2_resize_linear(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """``cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_LINEAR)``
+    of a uint8 [H, W, C] image, byte for byte (OpenCV 4-5, x86), as
+    [out_h, out_w, C].
+
+    A shrink by exactly 2 on both axes is OpenCV's fast area path: the
+    mean of each 2 x 2 block, ``(sum + 2) >> 2``.  Otherwise two
+    fixed-point passes: rows, ``p0 * a0 + p1 * a1`` in int32 (weights of
+    11 bits); then columns, in the arithmetic of OpenCV's SIMD loop, which
+    it runs over the whole row: each row term shifted right by 4 and
+    saturated to int16, multiplied by its 11-bit weight keeping the high
+    16 bits, the two summed with int16 saturation, then ``(v + 2) >> 2``
+    saturated to uint8.  This differs by up to 1 level from the exact
+    rounding of ``INTER_LINEAR_EXACT``."""
+    h, w, c = img.shape
+    if min(h, w, out_h, out_w) < 1:
+        raise ValueError(f"cannot resize {w} x {h} to {out_w} x {out_h}")
+    x = img.astype(np.int64)
+    if w == 2 * out_w and h == 2 * out_h:
+        s = x[0::2, 0::2] + x[1::2, 0::2] + x[0::2, 1::2] + x[1::2, 1::2]
+        return ((s + 2) >> 2).astype(np.uint8)
+    sx, a0, a1, edge = _cv_taps(w, out_w, clamp=True)
+    rows = (x[:, sx] * a0[None, :, None]
+            + x[:, np.minimum(sx + 1, w - 1)] * a1[None, :, None])
+    rows[:, edge] = x[:, sx[edge]] * _COEF_ONE
+    sy, b0, b1, _ = _cv_taps(h, out_h, clamp=False)
+    r0 = rows[np.clip(sy, 0, h - 1)]
+    r1 = rows[np.clip(sy + 1, 0, h - 1)]
+
+    def sat16(v):
+        return np.clip(v, -32768, 32767)
+
+    def mul_hi(r, b):
+        return (sat16(r >> 4) * b[:, None, None]) >> 16
+
+    v = sat16(mul_hi(r0, b0) + mul_hi(r1, b1))
+    return np.clip((v + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+def letterbox_host(
+    im: np.ndarray,
+    new_shape: Tuple[int, int] = (640, 640),
+    color: int = 114,
+    scaleup: bool = True,
+) -> Tuple[np.ndarray, float, Tuple[float, float]]:
+    """The JAX package's cv2 letterbox, byte for byte: uint8 HWC (or HW)
+    in, (canvas [H, W, C] uint8, ratio, (dw, dh)) out.  The image is
+    resized by ``cv2_resize_linear`` (skipped when its size is already
+    the target) and padded with ``color`` at the rounded offsets."""
+    if im.ndim == 2:
+        im = im[:, :, None]
+    h, w = im.shape[:2]
+    r, new_unpad, (top, bottom, left, right) = letterbox_params(
+        h, w, new_shape, scaleup)
+    if (w, h) != new_unpad:
+        im = cv2_resize_linear(im, new_unpad[0], new_unpad[1])
+    out = np.full((im.shape[0] + top + bottom, im.shape[1] + left + right,
+                   im.shape[2]), color, np.uint8)
+    out[top:top + im.shape[0], left:left + im.shape[1]] = im
+    dw = (new_shape[1] - new_unpad[0]) / 2
+    dh = (new_shape[0] - new_unpad[1]) / 2
+    return out, r, (dw, dh)
 
 
 def _fma_positions(first: torch.Tensor, ratio: torch.Tensor) -> torch.Tensor:

@@ -78,17 +78,37 @@ def create_localizer(name: str, num_classes: int = 2, in_channels: int = 3,
         **kw).eval()
 
 
+# Flax's lecun_normal: a standard normal truncated at +-2, divided by the
+# truncated distribution's standard deviation, times 1/sqrt(fan_in)
+_TRUNC_STD = 0.87962566103423978
+
+
+def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard normal draws, each one outside +-2 drawn again: the same
+    values from a seed on every machine and torch version
+    (``nn.init.trunc_normal_`` has changed its algorithm between torch
+    releases)."""
+    w = torch.randn(shape, generator=generator)
+    out = w.abs() > 2.0
+    while out.any():
+        w[out] = torch.randn(int(out.sum()), generator=generator)
+        out = w.abs() > 2.0
+    return w
+
+
 def init_params(model: nn.Module, seed: int) -> nn.Module:
-    """Seeded random init in place: conv and Dense weights ~ N(0, 1/fan_in)
-    (Flax's lecun_normal scale), biases 0, BatchNorm and LayerNorm at
-    identity, ConvNeXt's LayerScale ``gamma`` at its Flax init (1e-6)."""
+    """Seeded random init in place, with Flax's default distributions:
+    conv and Dense weights lecun_normal (std 1/sqrt(fan_in), truncated at
+    2 of the untruncated standard deviations), biases 0, BatchNorm and
+    LayerNorm at identity, ConvNeXt's LayerScale ``gamma`` at its Flax
+    init (1e-6)."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (layers.Conv, layers.Dense)):
                 fan_in = m.weight[0].numel()
-                m.weight.copy_(torch.randn(m.weight.shape, generator=g)
-                               / fan_in ** 0.5)
+                w = _truncated_normal(m.weight.shape, g)
+                m.weight.copy_(w / (_TRUNC_STD * fan_in ** 0.5))
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, layers.LayerNorm):

@@ -12,6 +12,13 @@ optax 0.2.6 computes them (the JAX package trains with
   by the update count before its increment (so the first update of a
   warmup has lr 0).
 
+``max_grad_norm`` puts optax's ``clip_by_global_norm`` ahead of it (the
+localizer trainer's ``optax.chain(clip_by_global_norm(10.0), adamw)``):
+the float32 norm of every gradient taken together, and when it is not
+below the limit each gradient becomes ``(g / norm) * limit``, divided
+first (``torch.nn.utils.clip_grad_norm_`` multiplies by ``limit / (norm
++ 1e-6)`` instead).
+
 Each parameter group has its own schedule (the JAX trainer's
 ``multi_transform`` gives the aux head ``aux_lr_mult`` times the model's);
 the groups step together, so one count serves all.  Scalars are rounded
@@ -21,7 +28,7 @@ to float32 where optax computes them in float32.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -72,15 +79,32 @@ def scaled(lr: Schedule, mult: float) -> Schedule:
     return lr * mult
 
 
+def clip_by_global_norm_(grads: List[torch.Tensor],
+                         max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm in place on the device, without a host
+    sync: returns the global norm (a float32 device scalar)."""
+    norm = torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm(grads)).float())
+    keep = norm < max_norm
+    one = torch.ones((), dtype=norm.dtype, device=norm.device)
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
+    return norm
+
+
 class AdamW:
     """optax.adamw(lr, b1, b2, eps, weight_decay) over parameter groups
-    [(params, lr or schedule), ...]; ``step()`` reads each ``.grad``."""
+    [(params, lr or schedule), ...], optionally behind
+    ``clip_by_global_norm(max_grad_norm)``; ``step()`` reads each
+    ``.grad``."""
 
     def __init__(self, groups: Sequence[Tuple[List[torch.Tensor], Schedule]],
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 1e-4):
+                 weight_decay: float = 1e-4,
+                 max_grad_norm: Optional[float] = None):
         self.groups = [(list(ps), lr) for ps, lr in groups]
         self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
+        self.max_grad_norm = max_grad_norm
         self.count = 0
         self.mu = [[torch.zeros_like(p) for p in ps] for ps, _ in self.groups]
         self.nu = [[torch.zeros_like(p) for p in ps] for ps, _ in self.groups]
@@ -104,6 +128,9 @@ class AdamW:
         n = self.count + 1
         bc1 = float(f32(1) - f32(b1) ** f32(n))
         bc2 = float(f32(1) - f32(b2) ** f32(n))
+        if self.max_grad_norm is not None:
+            clip_by_global_norm_([p.grad for p in self.params],
+                                 self.max_grad_norm)
         for gi, (ps, _) in enumerate(self.groups):
             lr = float(-f32(self.lr(gi)))
             grads = [p.grad for p in ps]

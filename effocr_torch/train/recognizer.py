@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from effocr_torch.core.config import RecognizerTrainConfig
-from effocr_torch.core.device import resolve_device, use_full_f32
+from effocr_torch.core.device import resolve_device, upload, use_full_f32
 from effocr_torch.data.folder import CharFolderDataset, embed_items
 from effocr_torch.data.samplers import (
     HardNegativeClassSampler,
@@ -393,16 +393,17 @@ class RecognizerTrainer:
                     high_blur=cfg.high_blur, crop_sim=cfg.crop_sim,
                     paired_jitter=cfg.paired_jitter)
                 if self.bank is not None:
-                    idx = self._upload(torch.tensor(global_idx))
+                    idx = upload(torch.tensor(global_idx), self.device)
                     loss = self._step_fn(self.bank, self._bank_targets,
                                          self._bank_paired, idx, draws)
                 else:
                     imgs, targets, paired = dataset.load_batch(global_idx,
                                                                size)
                     loss = self._step_fn(
-                        self._upload(torch.from_numpy(imgs)),
-                        self._upload(torch.from_numpy(targets).long()),
-                        self._upload(torch.from_numpy(paired)), draws)
+                        upload(torch.from_numpy(imgs), self.device),
+                        upload(torch.from_numpy(targets).long(),
+                               self.device),
+                        upload(torch.from_numpy(paired), self.device), draws)
                 if step % 50 == 0:
                     self.metrics.log({"train/loss": float(loss)}, step=step)
                 step += 1
@@ -426,13 +427,6 @@ class RecognizerTrainer:
             peak = torch.cuda.max_memory_allocated(self.device) / 2**30
             self.metrics.log({"device/peak_gib": peak}, step=step)
         return self.best_acc
-
-    def _upload(self, t: torch.Tensor) -> torch.Tensor:
-        """A host batch to the device without making the host wait for
-        the device (pinned memory, asynchronous copy)."""
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _save_last(self, epoch_done: int, step: int, last_path: str,
                    meta_path: str) -> None:

@@ -3,9 +3,11 @@
 Needs an NVIDIA GPU with nvcc (sm_90a); every test skips without one.
 Imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed: ``python -m pytest tests/test_torch_cuda.py``.
-Tolerances: NMS keep masks bit-identical.  Top-1 retrieval (any D: the
-wrapper pads D to a multiple of 4): scores within
-1e-5 (float32 sums in another order), indices identical wherever the
+Tolerances: NMS keep masks bit-identical (also at the localizer
+trainer's evaluation shape, [16, 1024] at IoU 0.45).  The detection
+augmentation on the card against the CPU on the same draws: 1e-5.
+Top-1 retrieval (any D: the wrapper pads D to a multiple of 4): scores
+within 1e-5 (float32 sums in another order), indices identical wherever the
 plain top-2 margin exceeds 1e-5, and everywhere on inputs whose products
 are exact in float32 (ties, all rows masked).
 """
@@ -53,6 +55,52 @@ def test_kernel_matches_plain(cuda, b, n, iou_thresh):
     torch.cuda.synchronize()
     assert nms_kernel.launches == before + 1
     assert torch.equal(got.cpu(), ref)
+
+
+def test_kernel_at_localizer_eval_shape(cuda):
+    """The trainer's mAP evaluation: batch 16, max_nms 1024, IoU 0.45, conf
+    0.001, so nearly every slot is valid; char-sized boxes crowded along
+    a 96 x 1024 line (many overlaps), two classes offset apart."""
+    rng = np.random.default_rng(16)
+    b, n = 16, 1024
+    cx = rng.uniform(0, 1024, (b, n))
+    cy = rng.uniform(20, 76, (b, n))
+    w = rng.uniform(6, 40, (b, n))
+    h = rng.uniform(10, 60, (b, n))
+    boxes = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+    boxes += (rng.uniform(size=(b, n, 1)) < 0.3) * 4096.0   # class 1
+    valid = np.ones((b, n), bool)
+    valid[:, 1000 + rng.integers(0, 24, b)[:, None] <= np.arange(n)] = False
+    boxes = torch.from_numpy(boxes.astype(np.float32))
+    valid = torch.from_numpy(valid)
+    ref = nms_mask(boxes, None, valid, 0.45, presorted=True)
+    got = nms_keep(boxes.to(cuda), valid.to(cuda), 0.45)
+    assert torch.equal(got.cpu(), ref)
+    assert 0 < int(ref.sum()) < int(valid.sum())
+
+
+def test_detection_augment_card_matches_cpu(cuda):
+    from effocr_torch.kernels.det_augment import (
+        apply_detection_augment,
+        draw_detection_augment,
+    )
+
+    rng = np.random.default_rng(7)
+    b, h, w, c = 16, 96, 1024, 1
+    x = torch.from_numpy(rng.uniform(0, 1, (b, h, w, c)).astype(np.float32))
+    tg = np.zeros((b, 64, 5), np.float32)
+    tg[..., 1:] = rng.uniform([0, 0, 4, 8], [1024, 96, 60, 80], (b, 64, 4))
+    tg = torch.from_numpy(tg)
+    mask = torch.from_numpy(rng.uniform(size=(b, 64)) < 0.9)
+    draws = draw_detection_augment(torch.Generator().manual_seed(3), b, h,
+                                   w, c)
+    ref = apply_detection_augment(x, tg, mask, draws)
+    got = apply_detection_augment(x.to(cuda), tg.to(cuda), mask.to(cuda),
+                                  {k: v.to(cuda) for k, v in draws.items()})
+    for r, g in zip(ref[:2], got[:2]):
+        np.testing.assert_allclose(g.cpu().numpy(), r.numpy(), rtol=0,
+                                   atol=1e-5)
+    assert torch.equal(got[2].cpu(), ref[2])
 
 
 def test_kernel_cross_tile_chain(cuda):

@@ -13,8 +13,8 @@
   from a JAX-written classifier directory; ``--data_parallel`` still
   raises;
 - golden checks pin each copied module (config, batching, lang, tiling,
-  textline, image_ops, spell_check, native decode/letterbox/pack bytes)
-  to the original's outputs.
+  textline, coco_map, image_ops, spell_check, native
+  decode/letterbox/pack bytes) to the original's outputs.
 Tolerance: none (exact equality) throughout.
 """
 
@@ -35,6 +35,7 @@ from PIL import Image
 from effocr_tpu import native as j_native
 from effocr_tpu.core import batching as j_batching
 from effocr_tpu.core import config as j_config
+from effocr_tpu.eval import coco_map as j_coco_map
 from effocr_tpu.eval import textline as j_textline
 from effocr_tpu.kernels import image_ops as j_image_ops
 from effocr_tpu.models import create_encoder as j_encoder
@@ -46,7 +47,7 @@ from effocr_tpu.train import checkpoint as j_ckpt
 from effocr_torch import native
 from effocr_torch.cli.infer import add_engine_args, load_engine
 from effocr_torch.core import batching, config
-from effocr_torch.eval import textline
+from effocr_torch.eval import coco_map, textline
 from effocr_torch.interop import flax_msgpack
 from effocr_torch.interop.flax_bridge import (
     flax_to_state_dict,
@@ -536,6 +537,58 @@ def test_textline_copy_matches():
         assert textline.textline_evaluation(pairs, **kw) == \
             j_textline.textline_evaluation(pairs, **kw)
     assert textline.edit_distance("kitten", "sitting") == 3
+
+
+def _random_detections(rng, n_img, nc, pred_classes):
+    """Predictions and ground truths of ``n_img`` images: boxes near the
+    ground truth (so some match at every IoU threshold) plus strays, tied
+    scores, an image without predictions and one without ground truth;
+    predictions only of ``pred_classes``."""
+    preds, gts = [], []
+    for i in range(n_img):
+        n_gt = 0 if i == 1 else int(rng.integers(1, 7))
+        xy = rng.uniform(0, 80, (n_gt, 2))
+        g = np.concatenate([xy, xy + rng.uniform(4, 20, (n_gt, 2))], 1)
+        g_cls = rng.integers(0, nc, n_gt)
+        near = g + rng.normal(0, 1.5, g.shape)
+        stray = rng.uniform(0, 90, (int(rng.integers(0, 4)), 2))
+        stray = np.concatenate([stray, stray + 8], 1)
+        p = np.concatenate([near, stray]) if i != 2 else np.zeros((0, 4))
+        scores = np.round(rng.uniform(0, 1, len(p)), 1)   # ties
+        p_cls = rng.choice(pred_classes, len(p))
+        if i != 2:     # near boxes mostly carry their ground truth's class
+            keep = rng.uniform(size=n_gt) < 0.8
+            p_cls[:n_gt] = np.where(keep & np.isin(g_cls, pred_classes),
+                                    g_cls, p_cls[:n_gt])
+        preds.append({"boxes": p, "scores": scores, "classes": p_cls})
+        gts.append({"boxes": g, "classes": g_cls})
+    return preds, gts
+
+
+@pytest.mark.parametrize("nc,pred_classes", [(2, [0, 1]), (3, [0, 2]),
+                                             (1, [0])])
+def test_coco_map_copy_matches(nc, pred_classes):
+    """The same AP dictionary, NaN for NaN, on random detections: classes
+    without ground truth or without predictions, images with neither."""
+    rng = np.random.default_rng(nc)
+    preds, gts = _random_detections(rng, 9, nc, pred_classes)
+    if nc == 3:        # class 1: no ground truth anywhere -> AP NaN
+        for g in gts:
+            g["classes"] = np.where(g["classes"] == 1, 0, g["classes"])
+    got = coco_map.coco_map(preds, gts, num_classes=nc)
+    ref = j_coco_map.coco_map(preds, gts, num_classes=nc)
+    assert got.keys() == ref.keys()
+    for k in ref:
+        assert got[k] == ref[k] or (np.isnan(got[k]) and np.isnan(ref[k]))
+    empty = coco_map.coco_map([{"boxes": np.zeros((0, 4)),
+                                "scores": np.zeros(0), "classes": []}],
+                              [{"boxes": np.zeros((0, 4)), "classes": []}],
+                              num_classes=nc)
+    ref_empty = j_coco_map.coco_map([{"boxes": np.zeros((0, 4)),
+                                      "scores": np.zeros(0), "classes": []}],
+                                    [{"boxes": np.zeros((0, 4)),
+                                      "classes": []}], num_classes=nc)
+    assert all(np.isnan(empty[k]) and np.isnan(ref_empty[k]) for k in ref)
 
 
 def test_image_ops_copy_matches():

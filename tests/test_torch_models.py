@@ -196,3 +196,27 @@ def test_convnext_atto_matches_flax(dtype):
                                    atol=1e-4 * np.abs(ref).max())
     else:
         assert cos.min() >= 0.99, cos
+
+
+@pytest.mark.parametrize("kind", ["conv", "dense"])
+def test_init_params_draws_flax_lecun_normal(kind):
+    """factory.init_params draws conv and Dense weights as Flax's default
+    lecun_normal does: a normal truncated at +-2 and rescaled, std within
+    2% of 1/sqrt(fan_in) and no |w| past 2.28/sqrt(fan_in), as JAX's own
+    draw of the same shape gives."""
+    from flax import linen as fnn
+
+    from effocr_torch.models import layers
+    from effocr_torch.models.factory import init_params
+
+    if kind == "conv":   # a (3, 3, 64, 256) Flax kernel
+        m, shape, fan_in = layers.Conv(64, 256, 3), (3, 3, 64, 256), 576
+    else:
+        m, shape, fan_in = layers.Dense(512, 384), (512, 384), 512
+    w = init_params(m, 0).weight.detach().numpy() * fan_in ** 0.5
+    ref = np.asarray(fnn.initializers.lecun_normal()(
+        jax.random.PRNGKey(0), shape)) * fan_in ** 0.5
+    for a in (w, ref):
+        assert abs(a.std() - 1.0) < 0.02
+        assert 2.2 < np.abs(a).max() <= 2.28
+    assert (m.bias.detach().numpy() == 0).all()
