@@ -55,7 +55,7 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    - classifier: mobilenetv3_small_050 + a 90-class head and a
      class_map.json from the en ref.txt; 256 lines;
    - serve: ``python -m effocr_torch serve --stdin --device cuda
-     --spell_check`` in a subprocess, fed 200 paths; its answers must
+     --spell_check`` in a subprocess, fed 128 paths; its answers must
      equal ``engine.run`` with the same flags over the batches the server
      logged, run in-process once with every K1 keep mask held bit for bit
      against nms_mask and once on plain NMS.
@@ -83,8 +83,8 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    - train_localizer: ``python -m effocr_torch train-localizer --device
      cuda`` with the en localizer recipe of scripts/northstar_en.sh at
      full width (yolov5s, 1024 wide, heights 64 and 96, 1 channel,
-     fitted anchors, batch 16, resident bank; depth cut to 12 epochs,
-     ``--eval_period 6``, ``--test_coco``) on 2,000 synthetic lines of
+     fitted anchors, batch 16, resident bank; depth cut to 6 epochs,
+     ``--eval_period 3``, ``--test_coco``) on 2,000 synthetic lines of
      phase train's glyphs; prints steps/s and images/s of the epochs
      after each height's first, the logged losses, AP / AP50 / AP75 of
      each evaluation and the test split, peak device memory and the
@@ -98,14 +98,40 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      on fixed draws) on the card and on the CPU (loss 1e-5 relative,
      gradients and batch_stats 1e-3 of the largest), then the device
      time of each stage of the recipe's bf16 step.
-8. a ``kernels`` JSON line (launches per path under
+8. The other model families, each through ``checked_runs`` or with
+   every K1 call checked inside the run:
+   - xcit: BENCH_TRAINED.json's flags with a random xcit_small_12_p8_224
+     recognizer (224 px crops, 784 tokens; 90 random prototypes) and the
+     en localizer; 512 lines;
+   - fcos / rcnn: the fcos_infer flags of scripts/chain_r5b.sh:29-39
+     (1024 wide, gray, conf 0.3, IoU 0.25, 2-bit transfer, u16 output,
+     ``--nms_kernel cuda``) with a random fcos_s / rcnn_s localizer
+     (heads calibrated to read ~26 chars and ~5 words a line) and the en
+     recognizer; 512 lines; the R-CNN's K1 calls split by site (its RPN
+     at IoU 0.7, the decode at 0.25) and its RPN K1 timed at the path's
+     first [512, N] input;
+   - train_fcos / train_rcnn: ``train-localizer --arch fcos_s / rcnn_s``
+     with the fcos_train recipe of scripts/chain_r5b.sh:21-27 (1024
+     wide, heights 64 and 96, gray, batch 16, resident bank; depth cut to
+     3 epochs, one evaluation) on phase train_localizer's lines, run in
+     this process with every K1 call checked; steps/s, images/s, losses,
+     AP and peak memory;
+   - train_xcit: ``train-recognizer`` with the en recipe's flags and
+     xcit_small_12_p8_224 at 224 px (2 epochs) on phase train's tree,
+     then ``build-index --test``;
+   - family_steps_vs_cpu: one float32 step of each family (the XCiT
+     recognizer at batch 16, FCOS and R-CNN at batch 4 x 96 x 1024) from
+     the weights trained above, on the card and on the CPU: loss 1e-5
+     relative, gradients and batch_stats 1e-3 of the largest.
+9. a ``kernels`` JSON line (launches per path under
    ``launches_by_path``; K1's ``train_localizer`` counts the evaluation's
-   launches and the engine's), then ``{"ok": true, "device": ...}``
-   last.
+   launches and the engine's; ``calls_by_iou`` splits the family paths'
+   calls by site), then ``{"ok": true, "device": ...}`` last.
 
-``--profile`` adds a torch.profiler run over one chunk of the en, jp and
-square paths: device time per engine stage and per kernel, and the device
-busy share.
+``--profile`` adds a torch.profiler run over one chunk of the en, jp,
+square, xcit, fcos and rcnn paths: device time per engine stage (and per
+R-CNN stage: trunk, RPN, ROIAlign, box head) and per kernel, and the
+device busy share.
 
 Needs a CUDA device, nvcc (sm_90a) and g++.  Writes its artifacts,
 line images and results under build/chip_smoke/ in the checkout (the
@@ -131,7 +157,10 @@ import torch
 from effocr_torch import native
 from effocr_torch.cli.infer import add_engine_args, load_engine
 from effocr_torch.core.device import use_full_f32
-from effocr_torch.interop.flax_bridge import state_dict_to_flax
+from effocr_torch.interop.flax_bridge import (
+    flax_to_state_dict,
+    state_dict_to_flax,
+)
 from effocr_torch.interop.flax_msgpack import write_variables
 from effocr_torch.kernels import cuda_nms, cuda_top1
 from effocr_torch.kernels.cuda_build import BUILD_DIR
@@ -879,16 +908,22 @@ class NmsCheck:
         self.kernel, self.tag = kernel, tag
         self.first = None
         self.calls = self.boxes = 0
+        # launch sites told apart by threshold (the R-CNN path has two:
+        # its RPN at IoU 0.7 and the decode's NMS): calls and first input
+        self.by_thr, self.first_by_thr = {}, {}
 
     def __call__(self, boxes, valid, thr):
         keep = self.kernel(boxes, valid, thr)
         if self.first is None:
             self.first = (boxes.clone(), valid.clone(), thr)
+        if thr not in self.first_by_thr:
+            self.first_by_thr[thr] = (boxes.clone(), valid.clone(), thr)
         if not torch.equal(keep, nms_mask(boxes, None, valid, thr,
                                           presorted=True)):
             raise AssertionError(f"K1 on the {self.tag} path: keep mask "
                                  "differs from nms_mask")
         self.calls += 1
+        self.by_thr[thr] = self.by_thr.get(thr, 0) + 1
         self.boxes += int(valid.sum())
         return keep
 
@@ -910,13 +945,19 @@ def kernels_checked(tag, k2=False):
 
 @contextlib.contextmanager
 def plain_kernels(engine):
-    """``engine`` on plain NMS and top1_plain inside the block."""
+    """``engine`` on plain NMS (its localizer's RPN too, for an R-CNN)
+    and top1_plain inside the block."""
     saved, top1 = engine._nms_kernel, cuda_top1.top1_kernel
+    rpn = getattr(engine.localizer, "nms_kernel", None)
     engine._nms_kernel, cuda_top1.top1_kernel = "plain", top1_plain
+    if rpn is not None:
+        engine.localizer.nms_kernel = "plain"
     try:
         yield
     finally:
         engine._nms_kernel, cuda_top1.top1_kernel = saved, top1
+        if rpn is not None:
+            engine.localizer.nms_kernel = rpn
 
 
 def checked_runs(engine, paths, tag, k2=False):
@@ -957,7 +998,8 @@ def checked_runs(engine, paths, tag, k2=False):
                k1_checked=k1c.calls, plain_lines_differ=n_diff,
                k2_differs=k2c.differs, k2_low_margin=k2c.low_margin,
                k2_max_err=k2c.max_err, n_lines=len(paths),
-               k1_first=k1c.first, k2_first=k2c.first)
+               k1_calls_by_iou=k1c.by_thr, k1_first=k1c.first,
+               k1_first_by_iou=k1c.first_by_thr, k2_first=k2c.first)
     return run
 
 
@@ -972,7 +1014,8 @@ def report(tag, run, card, extra=""):
         f"differ with plain NMS + top1_plain; peak device memory "
         f"{run['peak_gib']:.2f} GiB{extra}")
     return {k: v for k, v in run.items()
-            if k not in ("results", "k1_first", "k2_first")}
+            if k not in ("results", "k1_first", "k1_first_by_iou",
+                         "k2_first")}
 
 
 # the square canvas: the JAX default localizer (640 x 640, no
@@ -1165,7 +1208,7 @@ def phase_classifier(dev, card, paths, loc_dir):
     return report("classifier", run, card, f"; {len(chars)} classes")
 
 
-N_SERVE = 200
+N_SERVE = 128
 SERVE_BATCH = 64
 
 
@@ -1555,7 +1598,10 @@ def make_char_tree(chars):
 
 def run_cli(args, tag, timeout=900):
     """``python -m effocr_torch <args>`` in a subprocess from the checkout;
-    its output goes to WORK/<tag>.log, and a failure raises."""
+    its output goes to WORK/<tag>.log, and a failure raises.  This
+    process's cached device memory is released first: the subprocess
+    needs it (the xcit phase's engine leaves ~37 GiB cached)."""
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "effocr_torch", *args],
                          cwd=ROOT, capture_output=True, text=True,
@@ -1881,12 +1927,13 @@ def phase_build_index_from(dev, card, paths, loc_dir, run_dir, tree):
 # ------------------------------------------------- localizer training
 # the en localizer recipe of scripts/northstar_en.sh:52-56 at full width
 # (yolov5s, gray, 1024 wide, heights 64 and 96, fitted anchors, batch 16,
-# resident bank); depth cut to 12 epochs of 60, an evaluation every 6
+# resident bank); depth cut to 6 epochs of 60 (12 before the family
+# phases took the time), an evaluation every 3
 LOC_TRAIN_FLAGS = ["--arch", "yolov5s", "--input_size", "1024",
                    "--multi_height", "64,96", "--input_channels", "1",
                    "--fit_anchors", "--batch_size", "16",
-                   "--data_device", "resident", "--num_epochs", "12",
-                   "--eval_period", "6"]
+                   "--data_device", "resident", "--num_epochs", "6",
+                   "--eval_period", "3"]
 LOC_SPLITS = {"train": 2000, "val": 128, "test": 128, "read": 256}
 
 
@@ -1979,7 +2026,7 @@ def _loc_trainer(dev, run_dir, model_json, augment=False):
 def phase_train_localizer(dev, card, tree, rec_dir, out_dir):
     """``python -m effocr_torch train-localizer --device cuda`` with the
     en recipe at full width on a synthetic line corpus of phase train's
-    glyphs (depth cut to 12 epochs), ``--test_coco`` included.  Then, in
+    glyphs (depth cut to 6 epochs), ``--test_coco`` included.  Then, in
     process, the best checkpoint on the val split twice: every K1 keep
     mask held bit for bit against nms_mask, and on plain NMS; the AP
     dictionaries must be equal.  Then the en engine with the new
@@ -2249,6 +2296,440 @@ def phase_loc_step(dev, card, img_dir, splits, model_json):
                 cpu_step_s=sc_s, stage_ms=times)
 
 
+# ------------------------------------------ the other model families
+# scripts/chain_r5b.sh:29-39 (the fcos_infer stage), paths swapped and K1
+# named as this package names it; the xcit phase takes BENCH_TRAINED.json's
+# flags instead
+FAMILY_FLAGS = ["--lang", "en", "--localizer_conf_thresh", "0.3",
+                "--localizer_iou_thresh", "0.25", "--adaptive_height",
+                "--adaptive_width", "--chunk_sort", "width",
+                "--encoder_sub_batch", "2048", "--line_batch", "512",
+                "--crop_batch", "20480", "--max_det", "96", "--max_words",
+                "16", "--nms_kernel", "cuda", "--transfer_bits", "2",
+                "--out_quant", "u16"]
+N_FAMILY_LINES = 512
+XCIT_ARCH = "xcit_small_12_p8_224"
+# chars and words a line the random detectors are calibrated to read (en
+# engine thresholds, 16 sample lines)
+CHARS_TARGET, WORDS_TARGET = 26.0, 5.0
+# the fcos_train recipe of scripts/chain_r5b.sh:21-27 at full width (1024
+# wide, heights 64 and 96, gray, batch 16, resident bank); depth cut to 3
+# epochs of 60, one evaluation
+FAMILY_TRAIN_FLAGS = ["--input_size", "1024", "--multi_height", "64,96",
+                      "--input_channels", "1", "--batch_size", "16",
+                      "--data_device", "resident", "--num_epochs", "3",
+                      "--eval_period", "3"]
+
+
+def _with(flags, **values):
+    """``flags`` with the values of some ``--name value`` pairs
+    replaced."""
+    out = list(flags)
+    for name, v in values.items():
+        out[out.index(f"--{name}") + 1] = v
+    return out
+
+
+# train-recognizer with the en recipe's flags and XCiT at its 224 px;
+# depth cut to 2 epochs
+XCIT_TRAIN_FLAGS = _with(TRAIN_FLAGS, auto_model=XCIT_ARCH, imsize="224",
+                         num_epochs="2")
+
+
+def family_engine_args(loc_dir, rec_dir):
+    import argparse
+
+    p = argparse.ArgumentParser()
+    add_engine_args(p)
+    return p.parse_args(["--localizer_dir", loc_dir, "--recognizer_dir",
+                         rec_dir, *FAMILY_FLAGS])
+
+
+def _kept_per_line(loc, x, cls_id):
+    """Mean detections of class ``cls_id`` a line after the en engine's
+    decode and NMS (conf 0.3, IoU 0.25, max_nms 1024, max_det 96)."""
+    from effocr_torch.kernels.yolo_decode import decode_and_nms
+
+    _, _, classes, valid = decode_and_nms(
+        loc(x)[0], conf_thresh=0.3, iou_thresh=0.25, max_nms=1024,
+        max_det=96, nms_kernel="cuda")
+    return float(((classes == cls_id) & valid).sum(1).float().mean())
+
+
+def _bisect(apply, measure, target, lo=-12.0, hi=12.0, iters=10):
+    """The offset v in [lo, hi] where measure() (rising in v) after
+    apply(v) meets ``target``; leaves it applied, returns (v, measure)."""
+    for _ in range(iters):
+        mid = (lo + hi) / 2
+        apply(mid)
+        lo, hi = (mid, hi) if measure() < target else (lo, mid)
+    apply((lo + hi) / 2)
+    return (lo + hi) / 2, measure()
+
+
+def _unit_spread(weight, bias, out):
+    """Rescale a head (weight [O, ...], bias [O]) so that its outputs
+    ``out`` [..., O] get zero mean and unit spread; returns the new
+    bias."""
+    out = out.reshape(-1, out.shape[-1]).double()
+    m, sd = out.mean(0).float(), out.std(0).float()
+    weight /= sd.view(-1, *([1] * (weight.dim() - 1)))
+    bias.copy_((bias - m) / sd)
+    return bias.clone()
+
+
+def calibrated_family_detector(dev, arch, canvas, seed):
+    """A random FCOS or R-CNN localizer whose heads read chars and words.
+    A random detector's activations shrink layer by layer, so each head
+    (FCOS: per level; R-CNN: the class logits) is rescaled to unit spread
+    on ``canvas``, then offsets are set by bisection so that the en engine
+    reads ~CHARS_TARGET chars and ~WORDS_TARGET words a line: FCOS's
+    chars from stride 8 (centerness offset), words from stride 32, none
+    from stride 16; the R-CNN's background and word logits."""
+    loc = init_params(create_localizer(arch, 2, in_channels=1),
+                      seed).to(dev).eval()
+    x = torch.from_numpy(canvas).to(dev).float() / 255.0
+    with torch.no_grad():
+        raw = loc(x, decode=False)
+        if arch.startswith("fcos"):
+            heads = [getattr(loc, f"head{i}_out") for i in range(3)]
+            base = [_unit_spread(h.weight, h.bias, r)
+                    for h, r in zip(heads, raw)]
+            for lvl, offsets in ((0, {5: 4.0, 6: -4.0}), (1, {4: -8.0}),
+                                 (2, {5: -4.0, 6: 4.0})):
+                for ch, v in offsets.items():
+                    heads[lvl].bias[ch] += v
+
+            def ctr(lvl):
+                def apply(v):
+                    heads[lvl].bias[4] = base[lvl][4] + v
+                return apply
+
+            chars = _bisect(ctr(0), lambda: _kept_per_line(loc, x, 0),
+                            CHARS_TARGET)
+            words = _bisect(ctr(2), lambda: _kept_per_line(loc, x, 1),
+                            WORDS_TARGET)
+        else:
+            head = loc.cls
+            base = _unit_spread(head.weight, head.bias, raw["roi_cls"])
+
+            def bg(v):
+                head.bias[0] = base[0] - v
+
+            def word(v):
+                head.bias[2] = base[2] + v
+
+            chars = _bisect(bg, lambda: _kept_per_line(loc, x, 0),
+                            CHARS_TARGET)
+            words = _bisect(word, lambda: _kept_per_line(loc, x, 1),
+                            WORDS_TARGET)
+    log(f"{arch}: heads calibrated on {len(canvas)} lines: offset "
+        f"{chars[0]:.3f} -> {chars[1]:.1f} chars/line, offset "
+        f"{words[0]:.3f} -> {words[1]:.1f} words/line")
+    return loc.cpu()
+
+
+def make_family_artifacts(dev, sample_paths):
+    """Artifact dirs of the new families: fcos_s and rcnn_s localizers
+    (loc2k_fcos's model.json, the R-CNN's with its arch swapped in)
+    calibrated on ``sample_paths`` letterboxed at 96 x 1024, and an
+    xcit_small_12_p8_224 recognizer at 224 px (rec2k_mn_hn's model.json
+    with arch and size swapped) with 90 random unit prototypes of its 384
+    dims and rec2k_mn_hn's ref.txt."""
+    canvas = letterboxed(sample_paths, 1, 1024, 96)
+    dirs = {}
+    for i, arch in enumerate(("fcos_s", "rcnn_s")):
+        d = dirs[arch] = os.path.join(WORK, f"loc_{arch}")
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(R5, "loc2k_fcos", "model.json")) as f:
+            meta = json.load(f)
+        meta["arch"] = arch
+        with open(os.path.join(d, "model.json"), "w") as f:
+            json.dump(meta, f)
+        loc = calibrated_family_detector(dev, arch, canvas, SEED + 90 + i)
+        write_variables(state_dict_to_flax(loc.state_dict()),
+                        os.path.join(d, "best_bbox_mAP.msgpack"))
+    d = dirs[XCIT_ARCH] = os.path.join(WORK, "rec_xcit")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(R5, "rec2k_mn_hn", "model.json")) as f:
+        meta = json.load(f)
+    meta.update(arch=XCIT_ARCH, image_size=224)
+    with open(os.path.join(d, "model.json"), "w") as f:
+        json.dump(meta, f)
+    enc = init_params(create_encoder(XCIT_ARCH, in_channels=1,
+                                     image_size=224), SEED + 92)
+    write_variables(state_dict_to_flax(enc.state_dict()),
+                    os.path.join(d, "enc_best.msgpack"))
+    with open(os.path.join(R5, "rec2k_mn_hn", "ref.txt"), newline="") as f:
+        chars = f.read().rstrip("\n").split("\n")
+    protos = np.random.default_rng(SEED + 93).normal(size=(len(chars), 384))
+    PrototypeIndex(protos.astype(np.float32), chars).save(d)
+    shutil.copy(os.path.join(R5, "rec2k_mn_hn", "ref.txt"), d)
+    return dirs
+
+
+def phase_family(dev, card, tag, args, paths, out_dir, profile=False):
+    """One new family through the en engine over ``paths``
+    (``checked_runs``: every K1 keep mask, the R-CNN's RPN masks
+    included, held bit for bit against nms_mask; the text against the
+    engine on plain NMS).  The R-CNN's K1 launches are split by site (RPN
+    at IoU 0.7, decode at the engine's IoU) and its RPN K1 timed at the
+    path's first input."""
+    engine = load_engine(args)
+    c = engine.config
+    log(f"{tag}: localizer {c.localizer.arch} {c.localizer.input_size} x "
+        f"{c.localizer.input_height}, recognizer {c.encoder.arch} at "
+        f"{c.encoder.image_size} px; line_batch {c.line_batch} crop_batch "
+        f"{c.crop_batch} encoder_sub_batch {c.encoder_sub_batch} max_nms "
+        f"{c.localizer.max_nms} transfer_bits {c.transfer_bits} out_quant "
+        f"{c.out_quant} nms {engine._nms_kernel}")
+    run = checked_runs(engine, paths, tag)
+    extra = ""
+    rpn = getattr(engine.localizer, "rpn_nms_iou", None)
+    if rpn is not None:
+        by = run["k1_calls_by_iou"]
+        if not by.get(rpn) or not by.get(c.localizer.iou_thresh):
+            raise AssertionError(f"{tag}: K1 calls by IoU {by}: both sites "
+                                 "must launch it")
+        boxes, valid, thr = run["k1_first_by_iou"][rpn]
+        run["k1_rpn"] = k1_case(f"{tag} RPN {list(valid.shape)}", boxes,
+                                valid, thr, timed=True)
+        extra = (f"; K1 sites: RPN (IoU {rpn}) {by[rpn]} calls, decode "
+                 f"(IoU {c.localizer.iou_thresh}) "
+                 f"{by[c.localizer.iou_thresh]} calls per run")
+    if profile:
+        profile_run(engine, paths[:c.line_batch], card, out_dir, tag)
+    return report(tag, run, card, extra)
+
+
+def _metrics(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(ln) for ln in f]
+
+
+def phase_train_family(dev, card, arch, img_dir, splits):
+    """``train-localizer --device cuda --arch <arch>`` with the fcos_train
+    recipe at full width on phase train_localizer's lines, run in this
+    process with every K1 call (the evaluations'; the R-CNN's RPN in every
+    step too) held bit for bit against nms_mask; prints steps/s and
+    images/s of the third epoch (the first at height 64 after its
+    first), the logged losses, AP of the evaluation and the test split,
+    and peak device memory."""
+    import io
+
+    from effocr_torch.cli import train_localizer
+
+    tag = f"train_{arch.split('_')[0]}"
+    run_dir = os.path.join(WORK, tag, "loc")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with kernels_checked(tag) as (k1c, _), contextlib.redirect_stdout(out):
+        train_localizer.main([
+            "--device", "cuda", "--image_dir", img_dir, "--train_coco",
+            splits["train"], "--val_coco", splits["val"], "--test_coco",
+            splits["test"], "--run_name", run_dir, "--arch", arch,
+            *FAMILY_TRAIN_FLAGS])
+    wall = time.perf_counter() - t0
+    with open(os.path.join(WORK, f"{tag}.log"), "w") as f:
+        f.write(out.getvalue())
+    recs = _metrics(run_dir)
+    losses = [(r["step"], r["train/loss"], r["loss/box"], r["loss/obj"],
+               r["loss/cls"]) for r in recs if "train/loss" in r]
+    epochs = [r for r in recs if "epoch/steps" in r]
+    timed = epochs[2:]
+    steps_s = sum(r["epoch/steps"] for r in timed) / sum(
+        r["epoch/seconds"] for r in timed)
+    images_s = steps_s * 16
+    evals = [{k: r[k] for k in ("bbox/AP", "bbox/AP50", "bbox/AP75")}
+             for r in recs if "bbox/AP" in r]
+    test = [{k: r[f"test/{k}"] for k in ("bbox/AP", "bbox/AP50",
+                                          "bbox/AP75")}
+            for r in recs if "test/bbox/AP" in r][-1]
+    peak = [r["device/peak_gib"] for r in recs if "device/peak_gib" in r][-1]
+    with open(os.path.join(run_dir, "model.json")) as f:
+        meta = json.load(f)
+    numbers = [v for row in losses for v in row[1:]] + [steps_s, peak] + [
+        v for e in evals + [test] for v in e.values()]
+    if (len(losses) < 2 or not all(np.isfinite(v) for v in numbers)
+            or meta["anchors"] is not None or k1c.calls == 0):
+        raise AssertionError(f"{tag}: losses {losses}, evals {evals}, test "
+                             f"{test}, anchors {meta['anchors']}, K1 calls "
+                             f"{k1c.calls}")
+    if not losses[-1][1] < losses[0][1]:
+        raise AssertionError(f"{tag}: the last logged loss {losses[-1]} is "
+                             f"not below the first {losses[0]}")
+    log(f"{tag}: train-localizer --arch {arch} returned in {wall:.1f} s "
+        f"(corpus letterbox, evaluations and K1 checks included); epochs "
+        f"{[round(r['epoch/seconds'], 3) for r in epochs]} s at heights "
+        f"{[int(r['epoch/height']) for r in epochs]}, "
+        f"{int(epochs[0]['epoch/steps'])} steps of 16 each; epoch 3: "
+        f"{steps_s:.2f} optimizer steps/s = {images_s:.1f} images/s "
+        f"({card}; every K1 call checked inside the run)")
+    log(f"{tag}: logged (step, loss, box, obj, cls) {losses}")
+    log(f"{tag}: val AP / AP50 / AP75 {evals}; test (best checkpoint) "
+        f"{test}; peak device memory {peak:.3f} GiB ({card}); K1 held bit "
+        f"for bit against nms_mask on {k1c.calls} calls (by IoU "
+        f"{k1c.by_thr}); model.json anchors {meta['anchors']}")
+    return dict(k1_launches=k1c.calls, k1_calls_by_iou=k1c.by_thr,
+                steps_s=steps_s, images_s=images_s, losses=losses,
+                val_ap=evals, test_ap=test, peak_train_gib=peak,
+                train_wall_s=wall,
+                epoch_seconds=[r["epoch/seconds"] for r in epochs],
+                run_dir=run_dir)
+
+
+def phase_train_xcit(dev, card, tree):
+    """``train-recognizer --device cuda`` with the en recipe's flags and
+    xcit_small_12_p8_224 at 224 px (2 epochs) on phase train's char tree,
+    then ``build-index --test``."""
+    run_dir = os.path.join(WORK, "train_xcit", "rec")
+    splits = {k: os.path.join(os.path.dirname(tree), f"{k}.json")
+              for k in ("train", "val", "test")}
+    stdout, wall = run_cli(
+        ["train-recognizer", "--device", "cuda", "--root_dir_path", tree,
+         "--train_ann_path", splits["train"], "--val_ann_path",
+         splits["val"], "--test_ann_path", splits["test"], "--run_name",
+         run_dir, *XCIT_TRAIN_FLAGS], "train_xcit")
+    recs = _metrics(run_dir)
+    losses = [(r["step"], r["train/loss"]) for r in recs
+              if "train/loss" in r]
+    epochs = [r for r in recs if "epoch/steps" in r]
+    steps_s = epochs[-1]["epoch/steps"] / epochs[-1]["epoch/seconds"]
+    images_s = epochs[-1]["epoch/images"] / epochs[-1]["epoch/seconds"]
+    val = [r["val/accuracy"] for r in recs if "val/accuracy" in r]
+    peak = [r["device/peak_gib"] for r in recs if "device/peak_gib" in r][-1]
+    test_acc = _after(stdout, "Final test acc: ")
+    if len(losses) < 2 or not all(np.isfinite(v) for _, v in losses):
+        raise AssertionError(f"train_xcit: losses {losses}")
+    log(f"train_xcit: train-recognizer --auto_model {XCIT_ARCH} --imsize "
+        f"224 exited 0 in {wall:.1f} s; epochs "
+        f"{[round(r['epoch/seconds'], 3) for r in epochs]} s for "
+        f"{[int(r['epoch/steps']) for r in epochs]} steps of 128 images; "
+        f"epoch 2: {steps_s:.2f} optimizer steps/s = {images_s:.1f} "
+        f"images/s ({card}); losses {losses}; val p@1 {val}; test p@1 "
+        f"{test_acc}; peak device memory {peak:.3f} GiB")
+    stdout, bwall = run_cli(["build-index", "--device", "cuda", "--run_dir",
+                             run_dir, "--test"], "build_index_xcit")
+    test_p1 = _after(stdout, "Test precision@1: ")
+    log(f"train_xcit: build-index --test exited 0 in {bwall:.1f} s: test "
+        f"p@1 {test_p1}")
+    return dict(steps_s=steps_s, images_s=images_s, losses=losses,
+                val_p1=val, test_p1=test_acc, build_index_test_p1=test_p1,
+                peak_train_gib=peak, train_wall_s=wall, run_dir=run_dir,
+                epoch_seconds=[r["epoch/seconds"] for r in epochs])
+
+
+def _card_vs_cpu(tag, base, step_of, batch):
+    """One float32 step of ``base`` (a CPU module) on the card and on the
+    CPU on the same batch: loss within 1e-5 relative, gradients within
+    1e-3 of the largest |g|, new batch_stats within 1e-3 of the largest."""
+    import copy
+
+    def to(a, where):
+        if isinstance(a, dict):
+            return {k: v.to(where) for k, v in a.items()}
+        return a.to(where) if torch.is_tensor(a) else a
+
+    got = {}
+    for where in ("cuda", "cpu"):
+        model = copy.deepcopy(base).to(where)
+        rec = GradRecorder(dict(model.named_parameters()))
+        t0 = time.perf_counter()
+        loss = step_of(model, rec)(*(to(a, where) for a in batch))
+        loss = float(loss[0] if isinstance(loss, tuple) else loss)
+        got[where] = (loss, rec.grads, time.perf_counter() - t0,
+                      {k: v.float().cpu() for k, v in
+                       model.state_dict().items() if "running" in k})
+    (lg, gg, _, sg), (lc, gc, cpu_s, sc) = got["cuda"], got["cpu"]
+    gmax = max(float(g.abs().max()) for g in gc.values())
+    gerr = max(float((gg[k] - gc[k]).abs().max()) for k in gc) / gmax
+    smax = max([float(v.abs().max()) for v in sc.values()] or [1.0])
+    serr = max([float((sg[k] - sc[k]).abs().max()) for k in sc] or [0.0]
+               ) / smax
+    lerr = abs(lg - lc) / abs(lc)
+    log(f"family_steps_vs_cpu: {tag}: loss card {lg:.6f} CPU {lc:.6f} "
+        f"(rel {lerr:.3g}, tolerance 1e-5); max |grad diff| / max|g| "
+        f"{gerr:.3g} over {len(gc)} tensors, max |batch_stats diff| / "
+        f"max|stat| {serr:.3g} (tolerance 1e-3); CPU step {cpu_s:.1f} s")
+    if not (lerr <= 1e-5 and gerr <= 1e-3 and serr <= 1e-3):
+        raise AssertionError(f"family_steps_vs_cpu: {tag}: card and CPU "
+                             "disagree")
+    return dict(loss_rel_err=lerr, grad_rel_err=gerr, stats_rel_err=serr,
+                cpu_step_s=cpu_s)
+
+
+def phase_family_steps(dev, card, tree, loc_runs, xcit_run, img_dir,
+                       splits):
+    """One float32 step of each new family at full width on the card and
+    on the CPU (``_card_vs_cpu``), from the weights trained in the phases
+    before: the XCiT recognizer (bank step, batch 16 of 224 px, aux head,
+    augmentation on fixed draws) and the FCOS and R-CNN localizers
+    (batch 4 of 96 x 1024, no augmentation)."""
+    from effocr_torch.core.config import (
+        EncoderConfig,
+        LocalizerConfig,
+        LocalizerTrainConfig,
+        RecognizerTrainConfig,
+    )
+    from effocr_torch.data.detection import DetectionDataset
+    from effocr_torch.data.folder import CharFolderDataset
+    from effocr_torch.data.transforms import draw_augment
+    from effocr_torch.train import checkpoint as ckpt
+    from effocr_torch.train.localizer import make_detector_train_step
+    from effocr_torch.train.recognizer import make_train_step
+
+    out = {}
+    cfg = RecognizerTrainConfig(
+        encoder=EncoderConfig(arch=XCIT_ARCH, image_size=224,
+                              input_channels=1),
+        batch_size=16, lang="en", paired_jitter=0.1, aux_ce_weight=1.0)
+    ds = CharFolderDataset(tree)
+    bank = torch.from_numpy(ds.decode_all_gray(224))
+    targets = torch.tensor(ds.targets)
+    paired = torch.tensor([ds.is_paired(i) for i in range(len(ds))])
+    idx = torch.from_numpy(np.random.default_rng(SEED + 95).choice(
+        len(ds), 16, replace=False))
+    draws = draw_augment(torch.Generator().manual_seed(SEED + 96), 16, 224,
+                         lang="en", paired_jitter=0.1)
+    enc = create_encoder(XCIT_ARCH, in_channels=1, dtype=torch.float32,
+                         image_size=224)
+    enc.load_state_dict(flax_to_state_dict(ckpt.load_variables(
+        os.path.join(xcit_run, "enc_best.msgpack"))))
+    aux0 = torch.randn((len(ds.classes), enc.out_features),
+                       generator=torch.Generator().manual_seed(SEED + 97)
+                       ) * 0.02
+
+    def xcit_step(model, rec):
+        aux = aux0.clone().to(next(model.parameters()).device
+                              ).requires_grad_()
+        rec.named["aux"] = aux
+        return make_train_step(model, cfg, rec, False, aux=aux,
+                               bank_mode=True)
+
+    out[XCIT_ARCH] = _card_vs_cpu(
+        f"{XCIT_ARCH} recognizer, batch 16 x 224 px", enc, xcit_step,
+        (bank, targets, paired, idx, draws))
+    ds = DetectionDataset(splits["test"], img_dir, 1024, input_height=96,
+                          channels=1)
+    imgs, tgts, masks, _ = next(ds.batches(4, shuffle=False))
+    batch = [torch.from_numpy(a) for a in (imgs, tgts, masks)]
+    for arch, run_dir in loc_runs.items():
+        lcfg = LocalizerTrainConfig(localizer=LocalizerConfig(
+            arch=arch, input_size=1024, input_height=96, input_channels=1))
+        model = create_localizer(arch, 2, in_channels=1,
+                                 dtype=torch.float32)
+        model.load_state_dict(flax_to_state_dict(ckpt.load_variables(
+            ckpt.best_checkpoint_path(run_dir, "best_bbox_mAP"))))
+        out[arch] = _card_vs_cpu(
+            f"{arch} localizer, batch 4 x 96 x 1024", model,
+            lambda m, rec: make_detector_train_step(m, lcfg, rec, None),
+            (*batch, None))
+    return out
+
+
 def profile_run(engine, paths, card, out_dir, tag):
     """torch.profiler over one chunk of ``paths``, prepared, issued and
     finished on this thread (the profiler records the CPU-side ranges of
@@ -2275,15 +2756,17 @@ def profile_run(engine, paths, card, out_dir, tag):
     # device-side events: the kernels, plus one span per stage range
     dev_events = [e for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels = [e for e in dev_events if not e.key.startswith("ocr/")]
+    kernels = [e for e in dev_events
+               if not e.key.startswith(("ocr/", "rcnn/"))]
     kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     log(f"profile {tag}: one chunk of {len(paths)} lines ({card}); wall "
         f"{wall_ms:.1f} ms (profiler on), device kernel time "
         f"{kernel_ms:.1f} ms in {sum(e.count for e in kernels)} kernel "
         f"launches, busy share {kernel_ms / wall_ms:.3f}")
+    stage = ("ocr/", "rcnn/")
     spans = {e.key: e.device_time_total / 1e3 for e in dev_events
-             if e.key.startswith("ocr/")}
-    for e in sorted((e for e in events if e.key.startswith("ocr/")
+             if e.key.startswith(stage)}
+    for e in sorted((e for e in events if e.key.startswith(stage)
                      and e.device_type == torch.autograd.DeviceType.CPU),
                     key=lambda e: -e.device_time_total):
         log(f"profile {tag}: stage {e.key:16s} kernels "
@@ -2462,16 +2945,51 @@ def main(argv) -> int:
     for name, v in train.items():
         log(f"phase {name}: {v['phase_s']:.1f} s")
     log(f"the training phases: {time.perf_counter() - t_train:.1f} s")
-    launched = {k: v for k, v in {**more, **train}.items()
+    # the other model families: XCiT, FCOS and R-CNN through the en
+    # engine, trained here, and one float32 step of each against the CPU
+    t_fam = time.perf_counter()
+    dirs = make_family_artifacts(dev, sl["paths"][:16])
+    log(f"families: artifacts in {time.perf_counter() - t_fam:.1f} s")
+    tl = train["train_localizer"]
+    fam_paths = sl["paths"][:N_FAMILY_LINES]
+    fam = {}
+    for name, run_phase in (
+        ("xcit", lambda: phase_family(
+            dev, card, "xcit", engine_args(en_loc, dirs[XCIT_ARCH]),
+            fam_paths, args.out, profile=args.profile)),
+        ("fcos", lambda: phase_family(
+            dev, card, "fcos", family_engine_args(dirs["fcos_s"], en_rec),
+            fam_paths, args.out, profile=args.profile)),
+        ("rcnn", lambda: phase_family(
+            dev, card, "rcnn", family_engine_args(dirs["rcnn_s"], en_rec),
+            fam_paths, args.out, profile=args.profile)),
+        ("train_fcos", lambda: phase_train_family(
+            dev, card, "fcos_s", tl["img_dir"], tl["splits"])),
+        ("train_rcnn", lambda: phase_train_family(
+            dev, card, "rcnn_s", tl["img_dir"], tl["splits"])),
+        ("train_xcit", lambda: phase_train_xcit(dev, card,
+                                                train["train"]["tree"])),
+        ("family_steps_vs_cpu", lambda: phase_family_steps(
+            dev, card, train["train"]["tree"],
+            {"fcos_s": fam["train_fcos"]["run_dir"],
+             "rcnn_s": fam["train_rcnn"]["run_dir"]},
+            fam["train_xcit"]["run_dir"], tl["img_dir"], tl["splits"])),
+    ):
+        t0 = time.perf_counter()
+        fam[name] = run_phase()
+        fam[name]["phase_s"] = time.perf_counter() - t0
+        log(f"phase {name}: {fam[name]['phase_s']:.1f} s")
+    log(f"the family phases: {time.perf_counter() - t_fam:.1f} s")
+    launched = {k: v for k, v in {**more, **train, **fam}.items()
                 if "k1_launches" in v}
     k1_by_path = {"en": sl["k1_launches"], "jp": jp["k1_launches"],
                   **{k: v["k1_launches"] for k, v in launched.items()}}
     k2_by_path = {"en": sl["k2_launches"], "jp": jp["k2_launches"],
-                  **{k: v["k2_launches"] for k, v in launched.items()}}
+                  **{k: v.get("k2_launches", 0) for k, v in launched.items()}}
 
     main_row = sl["k1_main"]
     err = max(r["max_abs_err"] for r in list(k1.values())
-              + [main_row, jp["k1_main"]])
+              + [main_row, jp["k1_main"], fam["rcnn"]["k1_rpn"]])
     k2_main = jp["k2_main"]
     k2_err = max([r["max_abs_err"] for r in list(k2.values()) + [k2_main]]
                  + [v["k2_max_err"] for v in more.values()
@@ -2494,6 +3012,10 @@ def main(argv) -> int:
         "synthetic_512x1024": k1["synthetic_512x1024"],
         "jp_main_path": jp["k1_main"],
         "train_localizer_eval": train["train_localizer"]["k1_eval"],
+        "rcnn_rpn_main_path": fam["rcnn"]["k1_rpn"],
+        "calls_by_iou": {k: fam[k]["k1_calls_by_iou"]
+                         for k in ("fcos", "rcnn", "train_fcos",
+                                   "train_rcnn")},
     }, {
         "name": "top1_retrieval",
         "route": "cuda",
@@ -2516,7 +3038,7 @@ def main(argv) -> int:
                        if k not in ("k1_main", "paths")},
                    jp={k: v for k, v in jp.items()
                        if k not in ("k1_main", "k2_main", "paths")},
-                   other_paths=more, training=train,
+                   other_paths=more, training=train, families=fam,
                    kernels=kernels, k1_sweep=k1_sweep,
                    total_s=time.perf_counter() - t_start)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

@@ -72,7 +72,8 @@ def main(argv=None):
     )
 
     trainer = RecognizerTrainer(
-        cfg, create_encoder(a["auto_model"], in_channels=ch), args.run_dir,
+        cfg, create_encoder(a["auto_model"], in_channels=ch,
+                            image_size=a["imsize"]), args.run_dir,
         classifier_mode=False, device=device,
     )
     trainer.load_best()

@@ -95,9 +95,10 @@ def load_engine(args) -> EffOCRInference:
     arch = rec_meta.get("arch", "convnext_tiny")
     if rec_meta.get("num_classes"):
         encoder = create_classifier(arch, rec_meta["num_classes"],
-                                    in_channels=rec_ch)
+                                    in_channels=rec_ch, image_size=imsize)
     else:
-        encoder = create_encoder(arch, in_channels=rec_ch)
+        encoder = create_encoder(arch, in_channels=rec_ch,
+                                 image_size=imsize)
     encoder = _load_model(encoder, os.path.join(args.recognizer_dir,
                                                 "enc_best.msgpack"))
 

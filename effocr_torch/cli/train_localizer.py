@@ -2,8 +2,10 @@
 
 Flag for flag the JAX package's ``train-localizer``, plus ``--device``
 (default cuda; one device: the JAX command's multi-chip mesh is not
-ported).  Writes the same run directory: args_log.json, model.json (with
-the fitted ``anchors`` and the ``trained_heights``), best_bbox_mAP.msgpack
+ported); every ``--arch`` of the registry trains (YOLO, FCOS, R-CNN).
+Writes the same run directory: args_log.json, model.json (with the
+fitted ``anchors``, null for FCOS and R-CNN, and the
+``trained_heights``), best_bbox_mAP.msgpack
 (Flax layout), metrics.jsonl, and last.msgpack (this package's
 train-state layout).  As in the JAX command, ``--resume`` restores
 last.msgpack and then runs ``--num_epochs`` epochs from epoch 0.
@@ -86,10 +88,6 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)   # fail before writing anything
-    if not args.arch.startswith("yolo"):
-        from effocr_torch.train.localizer import NOT_PORTED
-
-        raise NotImplementedError(f"--arch {args.arch}: {NOT_PORTED}")
 
     os.makedirs(args.run_name, exist_ok=True)
     with open(os.path.join(args.run_name, "args_log.json"), "w") as f:

@@ -140,10 +140,12 @@ def main(argv=None):
     classifier_mode = args.N_classes is not None
     if classifier_mode:
         model = create_classifier(args.auto_model, args.N_classes,
-                                  in_channels=args.input_channels)
+                                  in_channels=args.input_channels,
+                                  image_size=args.imsize)
     else:
         model = create_encoder(args.auto_model,
-                               in_channels=args.input_channels)
+                               in_channels=args.input_channels,
+                               image_size=args.imsize)
 
     dataset = CharFolderDataset(args.root_dir_path)
     idx_train, idx_val, idx_test = split_indices(

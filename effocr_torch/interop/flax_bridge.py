@@ -14,7 +14,11 @@ and relayouts it:
   ConvBnAct, 1e-5 in MobileNetV3), not in the checkpoint;
 - LayerNorm ``scale``/``bias`` -> ``weight``/``bias`` (ConvNeXt's
   ``stem_norm``, ``downsample_norm{i}``, the blocks' ``LayerNorm_0``,
-  ``head_norm``), and ConvNeXt's LayerScale ``gamma`` keeps its name.
+  ``head_norm``);
+- parameters that are neither kernel nor norm keep their name and
+  layout: ConvNeXt's LayerScale ``gamma``, the transformers' ``pos``
+  (1, n, dim) and ``cls`` (1, 1, dim), XCA's ``temperature`` (heads, 1,
+  1) and XCiT's layer scales ``gamma1``, ``gamma2``, ``gamma3``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,10 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-_PARAM_NAMES = {"scale": "weight", "bias": "bias", "gamma": "gamma"}
+# leaves that keep their name and layout both ways
+_SAME_NAMES = ("bias", "gamma", "gamma1", "gamma2", "gamma3", "pos", "cls",
+               "temperature")
+_PARAM_NAMES = {"scale": "weight", **{k: k for k in _SAME_NAMES}}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -88,7 +95,7 @@ def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             tree, name, arr = params, "kernel", arr.T
         elif leaf == "weight":
             tree, name = params, "scale"
-        elif leaf in ("bias", "gamma"):
+        elif leaf in _SAME_NAMES:
             tree, name = params, leaf
         else:
             raise KeyError(f"unexpected state_dict entry {key}")

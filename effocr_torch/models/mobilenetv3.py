@@ -124,3 +124,7 @@ class MobileNetV3Small(nn.Module):
 
 def mobilenetv3_small_050(**kw):
     return MobileNetV3Small(multiplier=0.5, **kw)
+
+
+def mobilenetv3_small_100(**kw):
+    return MobileNetV3Small(multiplier=1.0, **kw)

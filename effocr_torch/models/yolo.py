@@ -88,20 +88,21 @@ def _upsample2(x: torch.Tensor) -> torch.Tensor:
     return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
 
 
-class YOLOv5(nn.Module):
-    """Returns (decoded [B, A, 5+nc], raw per-scale grids)."""
+class CSPTrunk(nn.Module):
+    """The CSP backbone + SPPF + PAN neck the YOLO, FCOS and R-CNN
+    families share, under the Flax scope names (``stem``, ``down1``,
+    ``c3_1`` ... ``neck5``).  ``trunk`` returns the three PAN outputs
+    (strides 8, 16, 32; widths ``w(256)``, ``w(512)``, ``w(1024)``)."""
 
-    def __init__(self, num_classes: int = 2, depth_multiple: float = 0.33,
-                 width_multiple: float = 0.50,
-                 anchors: Tuple[Tuple[float, ...], ...] = DEFAULT_ANCHORS,
-                 in_channels: int = 3, dtype: torch.dtype = torch.bfloat16):
-        super().__init__()
-        self.num_classes = num_classes
-        self.anchors = tuple(tuple(float(v) for v in a) for a in anchors)
+    def w(self, f: int) -> int:
+        """Channel width ``f`` at this model's width multiple."""
+        return int(math.ceil(f * self.width_multiple / 8) * 8)
+
+    def _build_trunk(self, in_channels: int, width_multiple: float,
+                     depth_multiple: float, dtype: torch.dtype) -> None:
         self.dtype = dtype
-
-        def w(f):
-            return int(math.ceil(f * width_multiple / 8) * 8)
+        self.width_multiple = width_multiple
+        w = self.w
 
         def d(n):
             return max(round(n * depth_multiple), 1)
@@ -132,15 +133,9 @@ class YOLOv5(nn.Module):
         self.neck4b = c3(2 * w(256), 512, 3, False)            # P4 out
         self.pan4 = cba(w(512), 512, 3, 2)
         self.neck5 = c3(2 * w(512), 1024, 3, False)            # P5 out
-        # detect head (float32 convolutions)
-        self.na = len(self.anchors[0]) // 2
-        self.no = 5 + num_classes
-        for i, f in enumerate((w(256), w(512), w(1024))):
-            setattr(self, f"detect{i}",
-                    Conv(f, self.na * self.no, 1, dtype=torch.float32))
 
-    def forward(self, x: torch.Tensor, decode: bool = True):
-        """x: [B, H, W, C] float images (NHWC, as in the JAX package)."""
+    def trunk(self, x: torch.Tensor):
+        """x: [B, H, W, C] float images (NHWC) -> (o3, o4, o5), NCHW."""
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         x = self.down1(self.stem(x))
         x = self.c3_1(x)
@@ -155,9 +150,32 @@ class YOLOv5(nn.Module):
         o3 = self.neck3(torch.cat([_upsample2(t4), p3], dim=1))
         o4 = self.neck4b(torch.cat([self.pan3(o3), t4], dim=1))
         o5 = self.neck5(torch.cat([self.pan4(o4), t5], dim=1))
+        return o3, o4, o5
 
+
+class YOLOv5(CSPTrunk):
+    """Returns (decoded [B, A, 5+nc], raw per-scale grids)."""
+
+    def __init__(self, num_classes: int = 2, depth_multiple: float = 0.33,
+                 width_multiple: float = 0.50,
+                 anchors: Tuple[Tuple[float, ...], ...] = DEFAULT_ANCHORS,
+                 in_channels: int = 3, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.num_classes = num_classes
+        self.anchors = tuple(tuple(float(v) for v in a) for a in anchors)
+        self._build_trunk(in_channels, width_multiple, depth_multiple, dtype)
+        w = self.w
+        # detect head (float32 convolutions)
+        self.na = len(self.anchors[0]) // 2
+        self.no = 5 + num_classes
+        for i, f in enumerate((w(256), w(512), w(1024))):
+            setattr(self, f"detect{i}",
+                    Conv(f, self.na * self.no, 1, dtype=torch.float32))
+
+    def forward(self, x: torch.Tensor, decode: bool = True):
+        """x: [B, H, W, C] float images (NHWC, as in the JAX package)."""
         raw = []
-        for i, feat in enumerate((o3, o4, o5)):
+        for i, feat in enumerate(self.trunk(x)):
             y = getattr(self, f"detect{i}")(feat.float())  # [B, na*no, h, w]
             b, _, gh, gw = y.shape
             # NHWC before the reshape: A flattens as (gy, gx, anchor)

@@ -1,14 +1,15 @@
 """Localizer (detector) training (the JAX package's train/localizer.py),
-YOLO family, on one device.
+every detector family, on one device.
 
 One step: uint8 canvases / 255 on the device -> (with ``cfg.augment``)
 kernels/det_augment.py ``apply_detection_augment`` on draws from a
 device generator seeded from (cfg.seed + 101, aug_step) -> forward in
 train mode (BatchNorm on batch statistics; convolutions in the model's
-dtype, the detect head float32) -> ``yolo_loss`` -> backward ->
-``clip_by_global_norm(10)`` + AdamW (train/optim.py) on one warmup +
-cosine schedule.  The step returns device tensors: the host syncs only
-where a caller reads them (a log line).
+dtype, the heads float32) -> the family's loss (``yolo_loss`` with
+anchors, ``rcnn_loss`` for a two-stage model, else ``fcos_loss``) ->
+backward -> ``clip_by_global_norm(10)`` + AdamW (train/optim.py) on one
+warmup + cosine schedule.  The step returns device tensors: the host
+syncs only where a caller reads them (a log line).
 
 ``attach_bank`` keeps a dataset on the device as a uint8 bank with its
 targets and masks, one bank per dataset; ``train_step_bank`` gathers a
@@ -16,13 +17,11 @@ batch there from indices.
 
 ``evaluate`` decodes at conf 0.001 and IoU 0.45 (a low-confidence sweep
 for COCO mAP, eval/coco_map.py); on a CUDA device its NMS keep masks come
-from the CUDA kernel (kernels/cuda_nms.py).  The best checkpoint on
+from the CUDA kernel (kernels/cuda_nms.py), as do the R-CNN's RPN keep
+masks in every step.  The best checkpoint on
 bbox/AP (``>=``) goes to ``best_bbox_mAP.msgpack`` in the Flax layout,
 which both packages' ``load_engine`` read; ``save``/``resume`` write and
 read ``last.msgpack`` in this package's train-state layout.
-
-The FCOS and two-stage families are not ported (ROADMAP.md, queue 1
-item 6).
 """
 
 from __future__ import annotations
@@ -46,15 +45,12 @@ from effocr_torch.kernels.det_augment import (
 )
 from effocr_torch.kernels.yolo_decode import decode_and_nms
 from effocr_torch.models.factory import init_params
+from effocr_torch.models.fcos import fcos_loss
+from effocr_torch.models.rcnn import rcnn_loss
 from effocr_torch.train import checkpoint as ckpt
 from effocr_torch.train.losses import yolo_loss
 from effocr_torch.train.metrics import MetricsWriter
 from effocr_torch.train.optim import AdamW, warmup_cosine_decay_schedule
-
-NOT_PORTED = ("only YOLO localizers train in this package: the FCOS and "
-              "two-stage (R-CNN) losses are not ported yet (ROADMAP.md, "
-              "queue 1 item 6)")
-
 
 def fit_anchors(boxes_wh: np.ndarray, n: int = 9, iters: int = 50,
                 seed: int = 0) -> np.ndarray:
@@ -92,15 +88,28 @@ def aug_seed(seed: int, aug_step: int) -> int:
 def make_detector_train_step(model: torch.nn.Module,
                              cfg: LocalizerTrainConfig, optimizer,
                              anchors, bank_mode: bool = False):
-    """The step: (augment) -> forward -> yolo_loss -> backward ->
-    ``optimizer.step()``; returns (loss, parts) as device tensors.
+    """The step: (augment) -> forward -> loss -> backward ->
+    ``optimizer.step()``; returns (loss, parts) as device tensors.  The
+    loss by family, as in the JAX package: ``anchors`` given -> yolo_loss;
+    a model with ``num_proposals`` (two-stage) -> rcnn_loss; otherwise
+    fcos_loss.
 
     Stream mode: step(images [B,H,W,C] uint8 or float in [0, 1], targets
     [B,T,5], mask [B,T], draws).  Bank mode: step(bank_imgs, bank_targets,
     bank_masks, idx [B], draws), gathered on the bank's device.  ``draws``
     (draw_detection_augment) is used only with ``cfg.augment``."""
-    if anchors is None:
-        raise NotImplementedError(NOT_PORTED)
+    two_stage = anchors is None and hasattr(model, "num_proposals")
+    nc = cfg.localizer.num_classes
+
+    def loss_of(raw, targets, target_mask):
+        if two_stage:
+            return rcnn_loss(raw, targets, target_mask, num_classes=nc)
+        if anchors is None:
+            return fcos_loss(raw, targets, target_mask, num_classes=nc)
+        return yolo_loss(raw, targets, target_mask, anchors, num_classes=nc,
+                         box_gain=cfg.box_gain, obj_gain=cfg.obj_gain,
+                         cls_gain=cfg.cls_gain,
+                         anchor_t=cfg.anchor_match_thresh)
 
     def step(images, targets, target_mask, draws=None):
         if images.dtype == torch.uint8:
@@ -110,12 +119,8 @@ def make_detector_train_step(model: torch.nn.Module,
                 images, targets, target_mask, draws)
         model.train()
         optimizer.zero_grad()
-        raw = model(images, decode=False)
-        loss, parts = yolo_loss(
-            raw, targets, target_mask, anchors,
-            num_classes=cfg.localizer.num_classes, box_gain=cfg.box_gain,
-            obj_gain=cfg.obj_gain, cls_gain=cfg.cls_gain,
-            anchor_t=cfg.anchor_match_thresh)
+        loss, parts = loss_of(model(images, decode=False), targets,
+                              target_mask)
         loss.backward()
         optimizer.step()
         return loss.detach(), {k: v.detach() if torch.is_tensor(v) else v

@@ -4,7 +4,9 @@ Needs an NVIDIA GPU with nvcc (sm_90a); every test skips without one.
 Imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed: ``python -m pytest tests/test_torch_cuda.py``.
 Tolerances: NMS keep masks bit-identical (also at the localizer
-trainer's evaluation shape, [16, 1024] at IoU 0.45).  The detection
+trainer's evaluation shape, [16, 1024] at IoU 0.45, and on the R-CNN's
+RPN route: unsorted candidates sorted, kept and scattered back, against
+``nms_mask(presorted=False)``).  The detection
 augmentation on the card against the CPU on the same draws: 1e-5.
 Top-1 retrieval (any D: the wrapper pads D to a multiple of 4): scores
 within 1e-5 (float32 sums in another order), indices identical wherever the
@@ -20,6 +22,7 @@ from effocr_torch.kernels.cuda_nms import MAX_N, nms_kernel, nms_keep
 from effocr_torch.kernels.cuda_top1 import top1, top1_kernel
 from effocr_torch.kernels.nms import batched_nms, nms_mask
 from effocr_torch.kernels.retrieval import NEG_INF, top1_plain
+from effocr_torch.models.rcnn import rpn_keep
 
 
 @pytest.fixture()
@@ -70,7 +73,7 @@ def test_kernel_at_localizer_eval_shape(cuda):
     boxes = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
     boxes += (rng.uniform(size=(b, n, 1)) < 0.3) * 4096.0   # class 1
     valid = np.ones((b, n), bool)
-    valid[:, 1000 + rng.integers(0, 24, b)[:, None] <= np.arange(n)] = False
+    valid[1000 + rng.integers(0, 24, b)[:, None] <= np.arange(n)] = False
     boxes = torch.from_numpy(boxes.astype(np.float32))
     valid = torch.from_numpy(valid)
     ref = nms_mask(boxes, None, valid, 0.45, presorted=True)
@@ -101,6 +104,34 @@ def test_detection_augment_card_matches_cpu(cuda):
         np.testing.assert_allclose(g.cpu().numpy(), r.numpy(), rtol=0,
                                    atol=1e-5)
     assert torch.equal(got[2].cpu(), ref[2])
+
+
+@pytest.mark.parametrize("n", [704, 768])
+def test_rpn_keep_route_matches_plain(cuda, n):
+    """The R-CNN RPN's keep mask on the card (stable sort by score, K1 on
+    the sorted boxes, scatter back) against nms_mask(presorted=False) on
+    the CPU: [16, n] candidates at IoU 0.7 (rcnn_s's pre-NMS top-k of 256
+    a level: 704 on a 64-high canvas, 768 from 96 up), clipped to the
+    canvas, with degenerate (< 1 px) boxes, exact duplicate boxes and
+    scores quantised so ties are common."""
+    rng = np.random.default_rng(n)
+    cxy = rng.uniform(0, 1024, (16, n, 2))
+    wh = rng.uniform(0.2, 120, (16, n, 2))
+    boxes = np.clip(np.concatenate([cxy - wh / 2, cxy + wh / 2], -1), 0,
+                    1024).astype(np.float32)
+    boxes[:, 1::7] = boxes[:, 0::7][:, :boxes[:, 1::7].shape[1]]
+    scores = (np.round(rng.normal(0, 1, (16, n)) * 8) / 8).astype(
+        np.float32)
+    bx, sc = torch.from_numpy(boxes), torch.from_numpy(scores)
+    valid = ((bx[..., 2] - bx[..., 0]) >= 1.0) & (
+        (bx[..., 3] - bx[..., 1]) >= 1.0)
+    ref = nms_mask(bx, sc, valid, 0.7)
+    before = nms_kernel.launches
+    got = rpn_keep(bx.to(cuda), sc.to(cuda), valid.to(cuda), 0.7)
+    torch.cuda.synchronize()
+    assert nms_kernel.launches == before + 1
+    assert (~valid).any() and 0 < int(ref.sum()) < int(valid.sum())
+    assert torch.equal(got.cpu(), ref)
 
 
 def test_kernel_cross_tile_chain(cuda):

@@ -587,15 +587,25 @@ def test_trainer_steps_evaluate_resume(corpus, tmp_path):
 
 
 def test_trainer_refuses_other_families(tmp_path):
+    """The FCOS and two-stage families are no longer refused (their steps
+    are held to JAX in test_torch_families.py): the step builds without
+    anchors, and the CLI takes ``--arch fcos_s`` / ``rcnn_s``, writes
+    model.json with null anchors, and goes on to read its COCO files.
+    Without a GPU and without ``--device cpu`` the CLI still raises
+    before writing anything."""
     from effocr_torch.cli import train_localizer
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_detector_train_step(None, _cfgs(1)[1], None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_localizer.main(["--device", "cpu", "--image_dir", "x",
-                              "--train_coco", "a", "--val_coco", "b",
-                              "--run_name", str(tmp_path / "r"),
-                              "--arch", "fcos_s"])
+    assert callable(make_detector_train_step(None, _cfgs(1)[1], None, None))
+    for arch in ("fcos_s", "rcnn_s"):
+        run = tmp_path / arch
+        with pytest.raises(FileNotFoundError):
+            train_localizer.main(["--device", "cpu", "--image_dir", "x",
+                                  "--train_coco", str(tmp_path / "a.json"),
+                                  "--val_coco", "b", "--run_name", str(run),
+                                  "--arch", arch])
+        with open(run / "model.json") as f:
+            meta = json.load(f)
+        assert meta["arch"] == arch and meta["anchors"] is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_localizer.main(["--image_dir", "x", "--train_coco", "a",

@@ -739,8 +739,8 @@ def test_infer_build_index_from_matches_jax(char_tree, tmp_path,  # noqa: F811
         rec[pkg] = d
     _skip_flax_init(monkeypatch, jnp.float32)
     monkeypatch.setattr(t_infer_cli, "create_encoder",
-                        lambda a, in_channels: create_encoder(
-                            a, in_channels=in_channels, dtype=F32))
+                        lambda a, in_channels, **kw: create_encoder(
+                            a, in_channels=in_channels, dtype=F32, **kw))
     loc = _loc_dir(str(tmp_path))
     flags = ("--build_index_from", char_tree, "--render_font_name", "Other")
     j_infer_cli.load_engine(_engine_args(j_infer_cli.add_engine_args,
