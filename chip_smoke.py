@@ -55,7 +55,7 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    - classifier: mobilenetv3_small_050 + a 90-class head and a
      class_map.json from the en ref.txt; 256 lines;
    - serve: ``python -m effocr_torch serve --stdin --device cuda
-     --spell_check`` in a subprocess, fed 128 paths; its answers must
+     --spell_check`` in a subprocess, fed 200 paths; its answers must
      equal ``engine.run`` with the same flags over the batches the server
      logged, run in-process once with every K1 keep mask held bit for bit
      against nms_mask and once on plain NMS.
@@ -83,8 +83,8 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    - train_localizer: ``python -m effocr_torch train-localizer --device
      cuda`` with the en localizer recipe of scripts/northstar_en.sh at
      full width (yolov5s, 1024 wide, heights 64 and 96, 1 channel,
-     fitted anchors, batch 16, resident bank; depth cut to 6 epochs,
-     ``--eval_period 3``, ``--test_coco``) on 2,000 synthetic lines of
+     fitted anchors, batch 16, resident bank; depth cut to 12 epochs,
+     ``--eval_period 6``, ``--test_coco``) on 2,000 synthetic lines of
      phase train's glyphs; prints steps/s and images/s of the epochs
      after each height's first, the logged losses, AP / AP50 / AP75 of
      each evaluation and the test split, peak device memory and the
@@ -902,12 +902,16 @@ def phase_jp(dev, card, out_dir, profile=False):
 class NmsCheck:
     """Stands in for cuda_nms.nms_kernel during one run: launches the
     kernel, keeps the first input of the path, and holds every keep mask
-    bit for bit against nms_mask on the same inputs."""
+    bit for bit against nms_mask on the same inputs.  With ``defer`` it
+    keeps a device copy of each call's inputs and mask instead, and
+    ``verify`` checks them after the run: no host sync inside the run,
+    which a training phase times."""
 
-    def __init__(self, kernel, tag):
-        self.kernel, self.tag = kernel, tag
+    def __init__(self, kernel, tag, defer=False):
+        self.kernel, self.tag, self.defer = kernel, tag, defer
         self.first = None
         self.calls = self.boxes = 0
+        self.pending = []
         # launch sites told apart by threshold (the R-CNN path has two:
         # its RPN at IoU 0.7 and the decode's NMS): calls and first input
         self.by_thr, self.first_by_thr = {}, {}
@@ -918,22 +922,37 @@ class NmsCheck:
             self.first = (boxes.clone(), valid.clone(), thr)
         if thr not in self.first_by_thr:
             self.first_by_thr[thr] = (boxes.clone(), valid.clone(), thr)
+        self.calls += 1
+        self.by_thr[thr] = self.by_thr.get(thr, 0) + 1
+        if self.defer:
+            self.pending.append((boxes.clone(), valid.clone(), thr,
+                                 keep.clone()))
+        else:
+            self._check(boxes, valid, thr, keep)
+        return keep
+
+    def _check(self, boxes, valid, thr, keep):
         if not torch.equal(keep, nms_mask(boxes, None, valid, thr,
                                           presorted=True)):
             raise AssertionError(f"K1 on the {self.tag} path: keep mask "
                                  "differs from nms_mask")
-        self.calls += 1
-        self.by_thr[thr] = self.by_thr.get(thr, 0) + 1
         self.boxes += int(valid.sum())
-        return keep
+
+    def verify(self):
+        """The deferred checks; returns the number of calls checked."""
+        for case in self.pending:
+            self._check(*case)
+        n, self.pending = len(self.pending), []
+        return n
 
 
 @contextlib.contextmanager
-def kernels_checked(tag, k2=False):
+def kernels_checked(tag, k2=False, defer=False):
     """K1 (and K2, when ``k2``) held against the plain versions on every
-    call made inside the block; yields the two checks."""
+    call made inside the block (K1's checks after it, with ``defer``:
+    ``NmsCheck.verify``); yields the two checks."""
     nms, top1 = cuda_nms.nms_kernel, cuda_top1.top1_kernel
-    k1c, k2c = NmsCheck(nms, tag), Top1Check(top1, tag)
+    k1c, k2c = NmsCheck(nms, tag, defer), Top1Check(top1, tag)
     cuda_nms.nms_kernel = k1c
     if k2:
         cuda_top1.top1_kernel = k2c
@@ -943,21 +962,25 @@ def kernels_checked(tag, k2=False):
         cuda_nms.nms_kernel, cuda_top1.top1_kernel = nms, top1
 
 
+def nms_plain(boxes, valid, thr):
+    """Stands in for cuda_nms.nms_kernel: nms_mask on the same inputs."""
+    return nms_mask(boxes, None, valid, thr, presorted=True)
+
+
 @contextlib.contextmanager
 def plain_kernels(engine):
-    """``engine`` on plain NMS (its localizer's RPN too, for an R-CNN)
-    and top1_plain inside the block."""
-    saved, top1 = engine._nms_kernel, cuda_top1.top1_kernel
-    rpn = getattr(engine.localizer, "nms_kernel", None)
-    engine._nms_kernel, cuda_top1.top1_kernel = "plain", top1_plain
-    if rpn is not None:
-        engine.localizer.nms_kernel = "plain"
+    """``engine`` on plain NMS and top1_plain inside the block: the
+    engine's decode takes nms_mask, and every call that reaches
+    cuda_nms.nms_kernel (an R-CNN's RPN) gets ``nms_plain``."""
+    saved, nms, top1 = (engine._nms_kernel, cuda_nms.nms_kernel,
+                        cuda_top1.top1_kernel)
+    engine._nms_kernel, cuda_nms.nms_kernel = "plain", nms_plain
+    cuda_top1.top1_kernel = top1_plain
     try:
         yield
     finally:
-        engine._nms_kernel, cuda_top1.top1_kernel = saved, top1
-        if rpn is not None:
-            engine.localizer.nms_kernel = rpn
+        engine._nms_kernel, cuda_nms.nms_kernel = saved, nms
+        cuda_top1.top1_kernel = top1
 
 
 def checked_runs(engine, paths, tag, k2=False):
@@ -1208,7 +1231,7 @@ def phase_classifier(dev, card, paths, loc_dir):
     return report("classifier", run, card, f"; {len(chars)} classes")
 
 
-N_SERVE = 128
+N_SERVE = 200
 SERVE_BATCH = 64
 
 
@@ -1927,13 +1950,12 @@ def phase_build_index_from(dev, card, paths, loc_dir, run_dir, tree):
 # ------------------------------------------------- localizer training
 # the en localizer recipe of scripts/northstar_en.sh:52-56 at full width
 # (yolov5s, gray, 1024 wide, heights 64 and 96, fitted anchors, batch 16,
-# resident bank); depth cut to 6 epochs of 60 (12 before the family
-# phases took the time), an evaluation every 3
+# resident bank); depth cut to 12 epochs of 60, an evaluation every 6
 LOC_TRAIN_FLAGS = ["--arch", "yolov5s", "--input_size", "1024",
                    "--multi_height", "64,96", "--input_channels", "1",
                    "--fit_anchors", "--batch_size", "16",
-                   "--data_device", "resident", "--num_epochs", "6",
-                   "--eval_period", "3"]
+                   "--data_device", "resident", "--num_epochs", "12",
+                   "--eval_period", "6"]
 LOC_SPLITS = {"train": 2000, "val": 128, "test": 128, "read": 256}
 
 
@@ -2026,7 +2048,7 @@ def _loc_trainer(dev, run_dir, model_json, augment=False):
 def phase_train_localizer(dev, card, tree, rec_dir, out_dir):
     """``python -m effocr_torch train-localizer --device cuda`` with the
     en recipe at full width on a synthetic line corpus of phase train's
-    glyphs (depth cut to 6 epochs), ``--test_coco`` included.  Then, in
+    glyphs (depth cut to 12 epochs), ``--test_coco`` included.  Then, in
     process, the best checkpoint on the val split twice: every K1 keep
     mask held bit for bit against nms_mask, and on plain NMS; the AP
     dictionaries must be equal.  Then the en engine with the new
@@ -2511,10 +2533,11 @@ def phase_train_family(dev, card, arch, img_dir, splits):
     """``train-localizer --device cuda --arch <arch>`` with the fcos_train
     recipe at full width on phase train_localizer's lines, run in this
     process with every K1 call (the evaluations'; the R-CNN's RPN in every
-    step too) held bit for bit against nms_mask; prints steps/s and
-    images/s of the third epoch (the first at height 64 after its
-    first), the logged losses, AP of the evaluation and the test split,
-    and peak device memory."""
+    step too) held bit for bit against nms_mask once the run has returned
+    (``NmsCheck`` with ``defer``: the timed epochs hold no check and no
+    host sync of it); prints steps/s and images/s of the third epoch
+    (the first at height 64 after its first), the logged losses, AP of
+    the evaluation and the test split, and peak device memory."""
     import io
 
     from effocr_torch.cli import train_localizer
@@ -2526,13 +2549,20 @@ def phase_train_family(dev, card, arch, img_dir, splits):
     torch.cuda.reset_peak_memory_stats()
     out = io.StringIO()
     t0 = time.perf_counter()
-    with kernels_checked(tag) as (k1c, _), contextlib.redirect_stdout(out):
+    cuda_nms.nms_kernel.launches = cuda_top1.top1_kernel.launches = 0
+    with kernels_checked(tag, defer=True) as (k1c, _), \
+            contextlib.redirect_stdout(out):
         train_localizer.main([
             "--device", "cuda", "--image_dir", img_dir, "--train_coco",
             splits["train"], "--val_coco", splits["val"], "--test_coco",
             splits["test"], "--run_name", run_dir, "--arch", arch,
             *FAMILY_TRAIN_FLAGS])
+    k1_launches = cuda_nms.nms_kernel.launches
+    k2_launches = cuda_top1.top1_kernel.launches
     wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checked = k1c.verify()
+    check_s = time.perf_counter() - t0
     with open(os.path.join(WORK, f"{tag}.log"), "w") as f:
         f.write(out.getvalue())
     recs = _metrics(run_dir)
@@ -2554,26 +2584,32 @@ def phase_train_family(dev, card, arch, img_dir, splits):
     numbers = [v for row in losses for v in row[1:]] + [steps_s, peak] + [
         v for e in evals + [test] for v in e.values()]
     if (len(losses) < 2 or not all(np.isfinite(v) for v in numbers)
-            or meta["anchors"] is not None or k1c.calls == 0):
+            or meta["anchors"] is not None or k1_launches == 0
+            or not k1_launches == k1c.calls == checked):
         raise AssertionError(f"{tag}: losses {losses}, evals {evals}, test "
-                             f"{test}, anchors {meta['anchors']}, K1 calls "
-                             f"{k1c.calls}")
+                             f"{test}, anchors {meta['anchors']}, K1 "
+                             f"launches {k1_launches}, calls {k1c.calls}, "
+                             f"checked {checked}")
     if not losses[-1][1] < losses[0][1]:
         raise AssertionError(f"{tag}: the last logged loss {losses[-1]} is "
                              f"not below the first {losses[0]}")
     log(f"{tag}: train-localizer --arch {arch} returned in {wall:.1f} s "
-        f"(corpus letterbox, evaluations and K1 checks included); epochs "
+        f"(corpus letterbox and evaluations included); epochs "
         f"{[round(r['epoch/seconds'], 3) for r in epochs]} s at heights "
         f"{[int(r['epoch/height']) for r in epochs]}, "
         f"{int(epochs[0]['epoch/steps'])} steps of 16 each; epoch 3: "
         f"{steps_s:.2f} optimizer steps/s = {images_s:.1f} images/s "
-        f"({card}; every K1 call checked inside the run)")
+        f"({card}; K1's inputs copied on the device in the run, checked "
+        f"after it)")
     log(f"{tag}: logged (step, loss, box, obj, cls) {losses}")
     log(f"{tag}: val AP / AP50 / AP75 {evals}; test (best checkpoint) "
-        f"{test}; peak device memory {peak:.3f} GiB ({card}); K1 held bit "
-        f"for bit against nms_mask on {k1c.calls} calls (by IoU "
-        f"{k1c.by_thr}); model.json anchors {meta['anchors']}")
-    return dict(k1_launches=k1c.calls, k1_calls_by_iou=k1c.by_thr,
+        f"{test}; peak device memory {peak:.3f} GiB ({card}); K1 launched "
+        f"{k1_launches} times, K2 {k2_launches}; every K1 call held bit "
+        f"for bit against nms_mask after the run ({checked} calls by IoU "
+        f"{k1c.by_thr}, {k1c.boxes} valid boxes; {check_s:.1f} s); "
+        f"model.json anchors {meta['anchors']}")
+    return dict(k1_launches=k1_launches, k2_launches=k2_launches,
+                k1_calls_by_iou=k1c.by_thr,
                 steps_s=steps_s, images_s=images_s, losses=losses,
                 val_ap=evals, test_ap=test, peak_train_gib=peak,
                 train_wall_s=wall,
@@ -2985,7 +3021,7 @@ def main(argv) -> int:
     k1_by_path = {"en": sl["k1_launches"], "jp": jp["k1_launches"],
                   **{k: v["k1_launches"] for k, v in launched.items()}}
     k2_by_path = {"en": sl["k2_launches"], "jp": jp["k2_launches"],
-                  **{k: v.get("k2_launches", 0) for k, v in launched.items()}}
+                  **{k: v["k2_launches"] for k, v in launched.items()}}
 
     main_row = sl["k1_main"]
     err = max(r["max_abs_err"] for r in list(k1.values())

@@ -191,9 +191,7 @@ def roi_align(feats: Sequence[torch.Tensor], boxes: torch.Tensor,
 
 
 class FasterRCNN(CSPTrunk):
-    """Two-stage detector; see the module docstring.  ``nms_kernel``
-    picks the RPN's keep mask (``rpn_keep``): "cuda" (default) or
-    "plain"."""
+    """Two-stage detector; see the module docstring."""
 
     def __init__(self, num_classes: int = 2, depth_multiple: float = 0.33,
                  width_multiple: float = 0.50, num_proposals: int = 256,
@@ -204,7 +202,6 @@ class FasterRCNN(CSPTrunk):
         self.num_proposals = num_proposals
         self.pre_nms_topk = pre_nms_topk
         self.rpn_nms_iou = rpn_nms_iou
-        self.nms_kernel = "cuda"
         self._build_trunk(in_channels, width_multiple, depth_multiple, dtype)
         w = self.w
         fdim = w(256)
@@ -223,8 +220,7 @@ class FasterRCNN(CSPTrunk):
         valid [B, P])."""
         degenerate = ((rpn_boxes[..., 2] - rpn_boxes[..., 0]) < 1.0) | (
             (rpn_boxes[..., 3] - rpn_boxes[..., 1]) < 1.0)
-        keep = rpn_keep(rpn_boxes, rpn_scores, ~degenerate, self.rpn_nms_iou,
-                        self.nms_kernel)
+        keep = rpn_keep(rpn_boxes, rpn_scores, ~degenerate, self.rpn_nms_iou)
         key = torch.where(keep, rpn_scores,
                           torch.full_like(rpn_scores, float("-inf")))
         p_eff = min(self.num_proposals, rpn_boxes.shape[1])
