@@ -55,7 +55,7 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    - classifier: mobilenetv3_small_050 + a 90-class head and a
      class_map.json from the en ref.txt; 256 lines;
    - serve: ``python -m effocr_torch serve --stdin --device cuda
-     --spell_check`` in a subprocess, fed 200 paths; its answers must
+     --spell_check`` in a subprocess, fed 128 paths; its answers must
      equal ``engine.run`` with the same flags over the batches the server
      logged, run in-process once with every K1 keep mask held bit for bit
      against nms_mask and once on plain NMS.
@@ -83,8 +83,8 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    - train_localizer: ``python -m effocr_torch train-localizer --device
      cuda`` with the en localizer recipe of scripts/northstar_en.sh at
      full width (yolov5s, 1024 wide, heights 64 and 96, 1 channel,
-     fitted anchors, batch 16, resident bank; depth cut to 12 epochs,
-     ``--eval_period 6``, ``--test_coco``) on 2,000 synthetic lines of
+     fitted anchors, batch 16, resident bank; depth cut to 6 epochs,
+     ``--eval_period 3``, ``--test_coco``) on 2,000 synthetic lines of
      phase train's glyphs; prints steps/s and images/s of the epochs
      after each height's first, the logged losses, AP / AP50 / AP75 of
      each evaluation and the test split, peak device memory and the
@@ -102,12 +102,13 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    every K1 call checked inside the run:
    - xcit: BENCH_TRAINED.json's flags with a random xcit_small_12_p8_224
      recognizer (224 px crops, 784 tokens; 90 random prototypes) and the
-     en localizer; 512 lines;
+     en localizer; one chunk of 512 lines (no run on plain NMS: the
+     warm-up holds every K1 call bit for bit);
    - fcos / rcnn: the fcos_infer flags of scripts/chain_r5b.sh:29-39
      (1024 wide, gray, conf 0.3, IoU 0.25, 2-bit transfer, u16 output,
      ``--nms_kernel cuda``) with a random fcos_s / rcnn_s localizer
      (heads calibrated to read ~26 chars and ~5 words a line) and the en
-     recognizer; 512 lines; the R-CNN's K1 calls split by site (its RPN
+     recognizer; 256 lines; the R-CNN's K1 calls split by site (its RPN
      at IoU 0.7, the decode at 0.25) and its RPN K1 timed at the path's
      first [512, N] input;
    - train_fcos / train_rcnn: ``train-localizer --arch fcos_s / rcnn_s``
@@ -122,8 +123,55 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    - family_steps_vs_cpu: one float32 step of each family (the XCiT
      recognizer at batch 16, FCOS and R-CNN at batch 4 x 96 x 1024) from
      the weights trained above, on the card and on the CPU: loss 1e-5
-     relative, gradients and batch_stats 1e-3 of the largest.
-9. a ``kernels`` JSON line (launches per path under
+     relative, gradients and batch_stats 1e-3 of the largest.  The
+     R-CNN's RPN selection (stable sort, K1, top-k) on one device's
+     candidates must give the other device's proposals bit for bit; when
+     its free steps differ by more than 1e-3, the proposal slots that
+     took another candidate and the box-head ReLU gates whose sign
+     differs are counted and must be rounding ties (1e-4 of the largest
+     score / pre-activation), and the CPU step with only those pinned to
+     the card's must meet it at 1e-3.
+9. Data parallelism on the one card (the JAX package's mesh paths):
+   - data_parallel: ``load_engine --data_parallel`` with one visible card
+     must print the JAX command's "single device visible; running
+     unsharded"; then ``EffOCRInference(devices=[cuda:0, cuda:0])``, two
+     replicas each on half of every chunk with half the crop cap, through
+     ``checked_runs``: the en flags on 512 lines and the jp flags with K2
+     on 240 lines, their lines/s beside the unsharded engine's in the
+     same phase; text and COCO boxes bit for bit: the bfloat16 replicas
+     on the fixed canvas against the unsharded engine on it at a
+     replica's batch (line_batch / 2 lines, crop_batch / 2 slots), and
+     float32 copies of the models on 2 replicas against them unsharded at
+     the recipe's canvas and batch (cuDNN's bfloat16 detector
+     convolutions round differently at half the batch: the bfloat16
+     lines that differ at the recipe's batch are counted); then float32
+     en models with
+     a crop cap under the first replica's glyphs (its segment spills lines
+     into a re-dispatch) on the fixed canvas, bit for bit with the
+     unsharded engine at the replicas' crop cap; then
+     ``knn_topk_sharded`` over 2 shards of the jp index at the jp path's
+     K2 input against unsharded K2 (indices exact, scores 1e-5);
+   - ddp_train: ``torchrun --nproc_per_node 2`` (``python -m
+     torch.distributed.run --standalone``) of ``train-recognizer`` with
+     phase train's recipe (1 epoch of 56 steps, no test split or
+     hard-negative mining) and of
+     ``train-localizer`` with phase train_localizer's (1 epoch, one
+     evaluation; the first 640 lines of its train split), both ranks on
+     cuda:0 over gloo; the ranks' log must
+     name the backend and end with the trainer's check that both ranks'
+     parameters are bit-identical; the localizer's best checkpoint is
+     evaluated again here with every K1 mask checked, to the AP the ranks
+     logged; then a 1-rank launch of ``train-recognizer``, on NCCL;
+   - ddp_step_vs_single: one float32 step of the recognizer recipe and of
+     yolov5s on 2 ranks sharing the card against 1 rank on the whole
+     batch (loss 1e-5 relative, ranks bit-identical, new batch_stats
+     1e-4 of the largest, gradients after DDP's averaging 1e-4 of the
+     largest for yolov5s); the recognizer also in float64 on 2 ranks and
+     on 1 (loss 1e-5, gradients and batch_stats 1e-4), its float32
+     gradients held to twice the 1-rank float32 step's distance from the
+     float64 step (2 vs 1, and 2 ranks vs float64); and a profiled step
+     on the ranks: wall time and all-reduce time.
+10. a ``kernels`` JSON line (launches per path under
    ``launches_by_path``; K1's ``train_localizer`` counts the evaluation's
    launches and the engine's; ``calls_by_iou`` splits the family paths'
    calls by site), then ``{"ok": true, "device": ...}`` last.
@@ -141,8 +189,11 @@ results to ``--out DIR`` when given).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import io
 import json
 import os
+import re
 import shutil
 import struct
 import subprocess
@@ -156,7 +207,9 @@ import torch
 
 from effocr_torch import native
 from effocr_torch.cli.infer import add_engine_args, load_engine
+from effocr_torch.core import distributed
 from effocr_torch.core.device import use_full_f32
+from effocr_torch.core.dryrun import GradRecorder
 from effocr_torch.interop.flax_bridge import (
     flax_to_state_dict,
     state_dict_to_flax,
@@ -983,12 +1036,12 @@ def plain_kernels(engine):
         cuda_top1.top1_kernel = top1
 
 
-def checked_runs(engine, paths, tag, k2=False):
+def checked_runs(engine, paths, tag, k2=False, plain=True):
     """A warm-up run with K1 (and K2, when the path reaches it) held
     against the plain versions on every call, then the timed run
-    (``timed_run``).  Then the same engine with plain NMS and top1_plain:
-    its text must be identical apart from lines holding a slot where
-    K2's index differed at a low margin."""
+    (``timed_run``).  Then (``plain``) the same engine with plain NMS and
+    top1_plain: its text must be identical apart from lines holding a
+    slot where K2's index differed at a low margin."""
     t0 = time.perf_counter()
     with kernels_checked(tag, k2) as (k1c, k2c):
         res0, coco = engine.run(paths, return_coco=True)
@@ -1008,10 +1061,12 @@ def checked_runs(engine, paths, tag, k2=False):
         raise AssertionError(f"{tag}: the timed run launched K1 "
                              f"{run['k1_launches']} and K2 "
                              f"{run['k2_launches']} times")
-    with plain_kernels(engine):
-        plain = engine.run(paths)
-    n_diff = sum(plain[p] != run["results"][p] for p in plain)
-    if set(plain) != set(run["results"]) or n_diff > k2c.differs:
+    n_diff = None
+    if plain:
+        with plain_kernels(engine):
+            ref = engine.run(paths)
+        n_diff = sum(ref[p] != run["results"][p] for p in ref)
+    if plain and (set(ref) != set(run["results"]) or n_diff > k2c.differs):
         raise AssertionError(f"{tag}: {n_diff} lines differ with plain NMS "
                              f"and top1_plain ({k2c.differs} low-margin "
                              "index differences allow that many)")
@@ -1033,8 +1088,11 @@ def report(tag, run, card, extra=""):
         f"{run['dispatches']} dispatches for {run['chunks']} chunks "
         f"({run['spilled']} spilled); {run['no_words']} lines read None "
         f"(chars, no word box); K1 launches {run['k1_launches']}, K2 "
-        f"launches {run['k2_launches']}; {run['plain_lines_differ']} lines "
-        f"differ with plain NMS + top1_plain; peak device memory "
+        f"launches {run['k2_launches']}; "
+        + (f"{run['plain_lines_differ']} lines differ with plain NMS + "
+           "top1_plain" if run["plain_lines_differ"] is not None
+           else "no run on plain NMS")
+        + f"; peak device memory "
         f"{run['peak_gib']:.2f} GiB{extra}")
     return {k: v for k, v in run.items()
             if k not in ("results", "k1_first", "k1_first_by_iou",
@@ -1231,7 +1289,7 @@ def phase_classifier(dev, card, paths, loc_dir):
     return report("classifier", run, card, f"; {len(chars)} classes")
 
 
-N_SERVE = 200
+N_SERVE = 128
 SERVE_BATCH = 64
 
 
@@ -1712,23 +1770,8 @@ def phase_train(dev, card, paths, loc_dir):
                val_p1=val, test_p1=test_acc, build_index_test_p1=test_p1,
                peak_train_gib=peak[-1], train_wall_s=wall,
                epoch_seconds=[r["epoch/seconds"] for r in epochs],
-               tree=tree, run_dir=run_dir, n_items=n_items)
+               tree=tree, splits=splits, run_dir=run_dir, n_items=n_items)
     return out
-
-
-class GradRecorder:
-    """Optimizer stand-in for make_train_step: keeps the gradients."""
-
-    def __init__(self, named):
-        self.named, self.grads = named, None
-
-    def zero_grad(self):
-        for p in self.named.values():
-            p.grad = None
-
-    def step(self):
-        self.grads = {k: p.grad.detach().float().cpu()
-                      for k, p in self.named.items()}
 
 
 def normal_init(model, seed):
@@ -1950,12 +1993,12 @@ def phase_build_index_from(dev, card, paths, loc_dir, run_dir, tree):
 # ------------------------------------------------- localizer training
 # the en localizer recipe of scripts/northstar_en.sh:52-56 at full width
 # (yolov5s, gray, 1024 wide, heights 64 and 96, fitted anchors, batch 16,
-# resident bank); depth cut to 12 epochs of 60, an evaluation every 6
+# resident bank); depth cut to 6 epochs of 125, an evaluation every 3
 LOC_TRAIN_FLAGS = ["--arch", "yolov5s", "--input_size", "1024",
                    "--multi_height", "64,96", "--input_channels", "1",
                    "--fit_anchors", "--batch_size", "16",
-                   "--data_device", "resident", "--num_epochs", "12",
-                   "--eval_period", "6"]
+                   "--data_device", "resident", "--num_epochs", "6",
+                   "--eval_period", "3"]
 LOC_SPLITS = {"train": 2000, "val": 128, "test": 128, "read": 256}
 
 
@@ -2048,7 +2091,7 @@ def _loc_trainer(dev, run_dir, model_json, augment=False):
 def phase_train_localizer(dev, card, tree, rec_dir, out_dir):
     """``python -m effocr_torch train-localizer --device cuda`` with the
     en recipe at full width on a synthetic line corpus of phase train's
-    glyphs (depth cut to 12 epochs), ``--test_coco`` included.  Then, in
+    glyphs (depth cut to 6 epochs), ``--test_coco`` included.  Then, in
     process, the best checkpoint on the val split twice: every K1 keep
     mask held bit for bit against nms_mask, and on plain NMS; the AP
     dictionaries must be equal.  Then the en engine with the new
@@ -2329,7 +2372,11 @@ FAMILY_FLAGS = ["--lang", "en", "--localizer_conf_thresh", "0.3",
                 "--crop_batch", "20480", "--max_det", "96", "--max_words",
                 "16", "--nms_kernel", "cuda", "--transfer_bits", "2",
                 "--out_quant", "u16"]
-N_FAMILY_LINES = 512
+N_FAMILY_LINES = 256
+# one chunk at BENCH_TRAINED's line_batch; XCiT encodes every crop slot
+# of it (~19 s of device time at 20,480 slots), so its path skips the
+# run on plain NMS (the warm-up holds every K1 call bit for bit)
+N_XCIT_LINES = 512
 XCIT_ARCH = "xcit_small_12_p8_224"
 # chars and words a line the random detectors are calibrated to read (en
 # engine thresholds, 16 sample lines)
@@ -2490,7 +2537,8 @@ def make_family_artifacts(dev, sample_paths):
     return dirs
 
 
-def phase_family(dev, card, tag, args, paths, out_dir, profile=False):
+def phase_family(dev, card, tag, args, paths, out_dir, profile=False,
+                 plain=True):
     """One new family through the en engine over ``paths``
     (``checked_runs``: every K1 keep mask, the R-CNN's RPN masks
     included, held bit for bit against nms_mask; the text against the
@@ -2505,7 +2553,7 @@ def phase_family(dev, card, tag, args, paths, out_dir, profile=False):
         f"{c.crop_batch} encoder_sub_batch {c.encoder_sub_batch} max_nms "
         f"{c.localizer.max_nms} transfer_bits {c.transfer_bits} out_quant "
         f"{c.out_quant} nms {engine._nms_kernel}")
-    run = checked_runs(engine, paths, tag)
+    run = checked_runs(engine, paths, tag, plain=plain)
     extra = ""
     rpn = getattr(engine.localizer, "rpn_nms_iou", None)
     if rpn is not None:
@@ -2658,30 +2706,162 @@ def phase_train_xcit(dev, card, tree):
                 epoch_seconds=[r["epoch/seconds"] for r in epochs])
 
 
+# an R-CNN step's discrete decisions (proposal choice, box-head ReLU
+# gates) that differ between the card and the CPU must be rounding ties:
+# within this share of the largest |score| / |pre-activation|
+RCNN_TIE = 1e-4
+
+
+@contextlib.contextmanager
+def _rcnn_probe(model, seen, pins=None):
+    """Records an R-CNN step's RPN candidates and proposals (the inputs
+    and outputs of ``model._proposals``) and its box head's
+    pre-activations (the arguments of ``torch.relu``) into ``seen``.
+    ``pins`` (the card step's record and a [B, P] mask of proposal
+    slots): those slots take the card step's proposals, and every
+    pre-activation whose sign differs from the card step's takes the
+    card's gate, its |x| over the layer's largest |x| listed in
+    ``seen["flips"]``; every other decision is this step's own."""
+    proposals, relu = model._proposals, torch.relu
+    seen.update(acts=[], flips=[])
+
+    def keep(boxes, scores):
+        props, valid = proposals(boxes, scores)
+        if pins is not None:
+            slots = pins["slots"].to(boxes.device)
+            card_p, card_v = (t.to(boxes.device)
+                              for t in pins["card"]["props"])
+            props = torch.where(slots[..., None], card_p, props)
+            valid = torch.where(slots, card_v, valid)
+        seen["cand"] = (boxes.cpu(), scores.cpu())
+        seen["props"] = (props.cpu(), valid.cpu())
+        return props, valid
+
+    def gate(x):
+        xs = x.detach().float().cpu()
+        seen["acts"].append(xs)
+        if pins is None:
+            return relu(x)
+        card = pins["card"]["acts"][len(seen["acts"]) - 1]
+        flip = (xs > 0) != (card > 0)
+        seen["flips"] += (xs[flip].abs() / card.abs().max()).tolist()
+        g = torch.where(flip, card > 0, xs > 0)
+        return x * g.to(device=x.device, dtype=x.dtype)
+
+    model._proposals = keep
+    torch.relu = gate
+    try:
+        yield
+    finally:
+        model._proposals, torch.relu = proposals, relu
+
+
+def _pick_scores(cand, props):
+    """The score of the candidate each proposal slot took."""
+    boxes, scores = cand
+    hit = (boxes[:, :, None, :] == props[:, None, :, :]).all(-1)
+    return torch.gather(scores, 1, hit.float().argmax(1))
+
+
+def _rcnn_ties(tag, base, seen, gerr, rerun):
+    """The R-CNN's RPN selection and gates, card against CPU.  The card's
+    selection (stable sort, K1, top-k) fed the CPU step's candidates must
+    give the CPU step's proposals bit for bit, and the CPU's selection
+    fed the card's candidates the card's.  When the free steps' gradients
+    differ by more than 1e-3 of the largest, the proposal slots that took
+    another candidate and the gates whose sign differs are counted, with
+    their margins; each must be a rounding tie (RCNN_TIE), and the CPU
+    step with only those pinned to the card's (``rerun``) must meet the
+    card at 1e-3."""
+    card, cpu = seen["cuda"], seen["cpu"]
+    for name, cand, want in (
+            ("card selection on the CPU's candidates",
+             [t.to("cuda") for t in cpu["cand"]], cpu["props"]),
+            ("CPU selection on the card's candidates", card["cand"],
+             card["props"])):
+        got = [t.cpu() for t in base._proposals(*cand)]
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"family_steps_vs_cpu: {tag}: the {name} "
+                                 "differs from that step's proposals")
+    sc_card, sc_cpu = card["cand"][1], cpu["cand"][1]
+    cand_spread = float((sc_card.sort(-1)[0] - sc_cpu.sort(-1)[0]).abs()
+                        .max() / sc_cpu.abs().max())
+    (pc, vc), (pu, vu) = card["props"], cpu["props"]
+    dist = (pc - pu).abs().amax(-1)
+    slots = (vc != vu) | (vc & vu & (dist > 0.5))
+    shift = float(dist[vc & vu & ~slots].max())
+    out = dict(selection_cross_checked=True, candidate_score_spread=
+               cand_spread, proposal_shift_px=shift,
+               differing_slots=int(slots.sum()), gate_flips=None,
+               pinned_grad_rel_err=None)
+    note = (f"{tag}: RPN selection bit for bit across devices on the same "
+            f"candidates (both ways); candidate scores card vs CPU "
+            f"{cand_spread:.3g} of the largest; proposals on the same "
+            f"candidate moved {shift:.3g} px")
+    if gerr <= 1e-3:
+        log(f"family_steps_vs_cpu: {note}; nothing pinned")
+        return out
+    gaps = (_pick_scores(card["cand"], pc) - _pick_scores(cpu["cand"], pu)
+            )[slots & vc & vu].abs() / sc_cpu.abs().max()
+    pinned = {}
+    grads = rerun(pinned, dict(card=card, slots=slots))
+    flips = pinned["flips"]
+    acts = max(float((a - c).abs().max() / c.abs().max())
+               for a, c in zip(pinned["acts"], card["acts"]))
+    out.update(gate_flips=len(flips), pinned_grad_rel_err=grads,
+               pick_score_gaps=gaps.tolist(), gate_flip_margins=flips,
+               preactivation_spread=acts)
+    log(f"family_steps_vs_cpu: {note}; free steps {gerr:.3g} apart: "
+        f"{int(slots.sum())} proposal slots took another candidate (pick "
+        f"score gaps {[f'{g:.3g}' for g in gaps.tolist()]} of the largest "
+        f"score), then, with those slots given the card's proposals, "
+        f"{len(flips)} box-head gates of {sum(a.numel() for a in card['acts'])}"
+        f" differ in sign (|x| {[f'{f:.3g}' for f in flips[:8]]} of the "
+        f"layer's largest; pre-activations card vs CPU {acts:.3g}); with "
+        f"only those pinned to the card's: {grads:.3g} (tolerance 1e-3)")
+    if (cand_spread > RCNN_TIE or any(f > RCNN_TIE for f in flips)
+            or grads > 1e-3):
+        raise AssertionError(f"family_steps_vs_cpu: {tag}: the decisions "
+                             "that differ are not rounding ties, or pinning "
+                             "them leaves the steps apart")
+    return out
+
+
 def _card_vs_cpu(tag, base, step_of, batch):
     """One float32 step of ``base`` (a CPU module) on the card and on the
     CPU on the same batch: loss within 1e-5 relative, gradients within
-    1e-3 of the largest |g|, new batch_stats within 1e-3 of the largest."""
+    1e-3 of the largest |g|, new batch_stats within 1e-3 of the largest.
+    An R-CNN's discrete decisions are checked across devices
+    (``_rcnn_ties``)."""
     import copy
+
+    rcnn = hasattr(base, "num_proposals")
 
     def to(a, where):
         if isinstance(a, dict):
             return {k: v.to(where) for k, v in a.items()}
         return a.to(where) if torch.is_tensor(a) else a
 
-    got = {}
-    for where in ("cuda", "cpu"):
+    def run(where, seen=None, pins=None):
         model = copy.deepcopy(base).to(where)
         rec = GradRecorder(dict(model.named_parameters()))
         t0 = time.perf_counter()
-        loss = step_of(model, rec)(*(to(a, where) for a in batch))
+        with (_rcnn_probe(model, seen, pins) if rcnn
+              else contextlib.nullcontext()):
+            loss = step_of(model, rec)(*(to(a, where) for a in batch))
         loss = float(loss[0] if isinstance(loss, tuple) else loss)
-        got[where] = (loss, rec.grads, time.perf_counter() - t0,
-                      {k: v.float().cpu() for k, v in
-                       model.state_dict().items() if "running" in k})
-    (lg, gg, _, sg), (lc, gc, cpu_s, sc) = got["cuda"], got["cpu"]
-    gmax = max(float(g.abs().max()) for g in gc.values())
-    gerr = max(float((gg[k] - gc[k]).abs().max()) for k in gc) / gmax
+        return (loss, rec.grads, time.perf_counter() - t0,
+                {k: v.float().cpu() for k, v in
+                 model.state_dict().items() if "running" in k})
+
+    def grad_err(got, ref):
+        gmax = max(float(g.abs().max()) for g in ref.values())
+        return max(float((got[k] - ref[k]).abs().max()) for k in ref) / gmax
+
+    seen = {"cuda": {}, "cpu": {}}
+    (lg, gg, _, sg), (lc, gc, cpu_s, sc) = (run(w, seen[w])
+                                            for w in ("cuda", "cpu"))
+    gerr = grad_err(gg, gc)
     smax = max([float(v.abs().max()) for v in sc.values()] or [1.0])
     serr = max([float((sg[k] - sc[k]).abs().max()) for k in sc] or [0.0]
                ) / smax
@@ -2690,11 +2870,17 @@ def _card_vs_cpu(tag, base, step_of, batch):
         f"(rel {lerr:.3g}, tolerance 1e-5); max |grad diff| / max|g| "
         f"{gerr:.3g} over {len(gc)} tensors, max |batch_stats diff| / "
         f"max|stat| {serr:.3g} (tolerance 1e-3); CPU step {cpu_s:.1f} s")
+    out = dict(loss_rel_err=lerr, grad_rel_err=gerr, stats_rel_err=serr,
+               cpu_step_s=cpu_s)
+    if rcnn:
+        out.update(_rcnn_ties(tag, base, seen, gerr, lambda into, pins:
+                              grad_err(gg, run("cpu", into, pins)[1])))
+        if out["pinned_grad_rel_err"] is not None:
+            gerr = out["pinned_grad_rel_err"]
     if not (lerr <= 1e-5 and gerr <= 1e-3 and serr <= 1e-3):
         raise AssertionError(f"family_steps_vs_cpu: {tag}: card and CPU "
                              "disagree")
-    return dict(loss_rel_err=lerr, grad_rel_err=gerr, stats_rel_err=serr,
-                cpu_step_s=cpu_s)
+    return out
 
 
 def phase_family_steps(dev, card, tree, loc_runs, xcit_run, img_dir,
@@ -2876,6 +3062,534 @@ def _f32_copy(model, device):
     return m.eval()
 
 
+# ------------------------------------------------------- data parallelism
+N_DP_EN = 512
+N_DP_JP = 240
+N_DDP_LOC_LINES = 640       # 40 steps of 16 for the localizer's DDP epoch
+DP_STEP_TOL = 1e-4          # gradients and batch_stats, of the largest
+# the recognizer's float32 gradients, of the largest (2 ranks vs 1, and
+# each against its float64 step): the stem convolution's weight
+# gradient sums a near-constant glyph background against an upstream
+# gradient that BatchNorm's backward makes sum to ~0, so its float32
+# rounding follows the summation order (batch split, threads,
+# algorithm) at up to ~1e-3: 1 rank 2.45e-4 and 2 ranks 1.02e-3 from
+# float64 on the card, 3.1e-4 / 6.4e-4 on the CPU by thread count; with
+# the stem and the first two blocks in float64 (``_f64_stem``) the step
+# is ~2e-6 from float64 (CPU), and 2 ranks are held to 1 at DP_STEP_TOL
+REC_F32_GRAD_TOL = 2e-3
+
+
+def _step_errors(ref, got):
+    """(max |grad diff| / max|g|, max |batch_stats diff| / max|stat|)."""
+    gmax = max(float(g.abs().max()) for g in ref["grads"].values())
+    smax = max(float(v.abs().max()) for v in ref["buffers"].values())
+    return (max(float((got["grads"][k] - g).abs().max())
+                for k, g in ref["grads"].items()) / gmax,
+            max(float((got["buffers"][k] - v).abs().max())
+                for k, v in ref["buffers"].items()) / smax)
+
+
+def _two_vs_one(one, two):
+    """(loss rel, grads, batch_stats) of a 2-rank step against 1 rank."""
+    return (abs(two["loss"] - one["loss"]) / abs(one["loss"]),
+            *_step_errors(one, two))
+
+
+def _f64_copy(model):
+    """``model`` with float64 parameters, convolutions, BatchNorm and
+    Dense layers: a float64 evaluation of its step."""
+    import copy
+
+    m = copy.deepcopy(model).double()
+    for mod in m.modules():
+        if hasattr(mod, "dtype"):
+            mod.dtype = torch.float64
+    return m
+
+
+def _f64_stem(model):
+    """A mobilenetv3 ``model`` whose stem and first two blocks compute in
+    float64 (parameters float32): the rounding REC_F32_GRAD_TOL names
+    taken out of its float32 step."""
+    import copy
+
+    m = copy.deepcopy(model)
+    for part in (m.stem, m.block0, m.block1):
+        for mod in part.modules():
+            if hasattr(mod, "dtype"):
+                mod.dtype = torch.float64
+    return m
+
+
+SINGLE_MSG = "--data_parallel: single device visible; running unsharded"
+
+
+def _replicated(engine, n=2, f32=False, **changes):
+    """The engine's models, index and config (with ``changes``) as
+    ``EffOCRInference(devices=[cuda:0] * n)``: n replicas on the card (n =
+    1: unsharded).  ``f32``: float32 copies of the models (convolutions in
+    float32, TF32 off)."""
+    from effocr_torch.pipelines.infer import EffOCRInference
+
+    loc, enc = engine.localizer, engine.encoder
+    if f32:
+        loc, enc = _f32_copy(loc, "cuda"), _f32_copy(enc, "cuda")
+        changes["compute_dtype"] = "f32"
+    cfg = dataclasses.replace(engine.config, **changes)
+    return EffOCRInference(cfg, loc, enc, engine.index, device="cuda",
+                           class_map=engine.class_map,
+                           devices=[torch.device("cuda", 0)] * n)
+
+
+def _coco_by_line(coco):
+    """COCO output keyed by line, free of the order lines finished in."""
+    out = {}
+    for im in coco["images"]:
+        anns = [{k: v for k, v in a.items() if k not in ("id", "image_id")}
+                for a in coco["annotations"] if a["image_id"] == im["id"]]
+        out[im["file_name"]] = json.dumps(
+            [{k: v for k, v in im.items() if k != "id"}, anns],
+            sort_keys=True)
+    return out
+
+
+def _differing(got, ref):
+    """(lines whose text differs, lines whose COCO boxes differ)."""
+    (rg, cg), (rr, cr) = got, ref
+    if set(rg) != set(rr):
+        raise AssertionError("the engines read different sets of lines")
+    by_g, by_r = _coco_by_line(cg), _coco_by_line(cr)
+    return (sum(rg[k] != v for k, v in rr.items()),
+            sum(by_g[k] != by_r[k] for k in by_r))
+
+
+def _same_output(tag, got, ref):
+    """Text and COCO boxes bit for bit, line by line (the whole JSON too
+    when no line spilled: the order is then the same)."""
+    n_text, n_box = _differing(got, ref)
+    if n_text or n_box:
+        raise AssertionError(f"{tag}: {n_text} lines' text and {n_box} "
+                             "lines' COCO boxes differ from the unsharded "
+                             "engine")
+    return json.dumps(got[1], sort_keys=True) == json.dumps(ref[1],
+                                                            sort_keys=True)
+
+
+def _timed_unsharded(engine, paths, tag, k2=False):
+    """The unsharded engine's output (its first K2 input kept), then its
+    lines/s in a second, timed run."""
+    with kernels_checked(tag, k2) as (_, k2c):
+        ref = engine.run(paths, return_coco=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run(paths)
+    torch.cuda.synchronize()
+    return ref, len(paths) / (time.perf_counter() - t0), k2c.first
+
+
+def _dp_path(card, engine, paths, tag, k2=False):
+    """One path on 2 replicas: the recipe's engine through
+    ``checked_runs`` beside the unsharded engine's lines/s.  Then bit for
+    bit, text and COCO boxes: the replicas on the fixed canvas against
+    the unsharded engine on it at a replica's batch (line_batch / 2
+    lines, crop_batch / 2 slots), in the recipe's bfloat16; and float32
+    copies of the models on 2 replicas against them unsharded, canvas
+    and batch as the recipe has them.  (cuDNN's bfloat16 detector
+    convolutions at batch line_batch / 2 round differently from those at
+    line_batch, so the bfloat16 replicas and the unsharded engine at the
+    recipe's batch may differ; the lines that do are counted.)"""
+    ref, ref_lines_s, k2_in = _timed_unsharded(engine, paths,
+                                               f"{tag} unsharded", k2)
+    dp = _replicated(engine)
+    run = checked_runs(dp, paths, tag, k2=k2)
+    bf16_text, bf16_box = _differing(dp.run(paths, return_coco=True), ref)
+    c, fixed = engine.config, dict(adaptive_height=False,
+                                   adaptive_width=False)
+    half = _replicated(engine, 1, line_batch=c.line_batch // 2,
+                       crop_batch=c.crop_batch // 2, **fixed).run(
+        paths, return_coco=True)
+    whole16 = _same_output(f"{tag} bfloat16", _replicated(
+        engine, **fixed).run(paths, return_coco=True), half)
+    f32_ref = _replicated(engine, 1, f32=True).run(paths, return_coco=True)
+    whole32 = _same_output(f"{tag} float32", _replicated(
+        engine, f32=True).run(paths, return_coco=True), f32_ref)
+    out = report(tag, run, card,
+                 f"; 2 replicas on 1 card (correctness, not scaling); the "
+                 f"unsharded engine {ref_lines_s:.1f} lines/s in this phase;"
+                 f" text and COCO boxes bit for bit: bfloat16 replicas on "
+                 f"the fixed canvas against the unsharded engine at "
+                 f"{c.line_batch // 2} lines and {c.crop_batch // 2} slots "
+                 f"(whole JSON equal: {whole16}), float32 models on the "
+                 f"recipe's canvas and batch (whole JSON equal: {whole32}); "
+                 f"bfloat16 at the recipe's batch: {bf16_text} lines' text "
+                 f"and {bf16_box} lines' boxes differ from the unsharded "
+                 "engine")
+    out.update(unsharded_lines_s=ref_lines_s, bf16_lines_differ=bf16_text,
+               bf16_boxes_differ=bf16_box)
+    return out, k2_in
+
+
+def phase_data_parallel(dev, card, sl, jp):
+    """``EffOCRInference(devices=[cuda:0, cuda:0])``, two replicas on the
+    one card, each on half of every chunk with half the crop cap
+    (``_dp_path``): the en flags on N_DP_EN lines and the jp flags (K2)
+    on N_DP_JP lines;
+    then float32 en models with a crop cap under the first replica's
+    glyphs (its segment spills lines into a re-dispatch) through
+    ``checked_runs``, bit for bit with the unsharded float32 engine.
+    ``load_engine --data_parallel`` with one card must print the JAX
+    command's message and build an unsharded engine.  Then
+    ``knn_topk_sharded`` over 2 shards of the jp index at the jp path's
+    K2 input against unsharded K2: indices exact, scores 1e-5.  Lines/s
+    of 2 replicas on 1 card measure that the layout is right, not
+    scaling."""
+    from effocr_torch.kernels.retrieval import knn_topk_sharded
+
+    out = {}
+    msg = io.StringIO()
+    with contextlib.redirect_stdout(msg):
+        en = load_engine(engine_args(sl["loc_dir"], sl["rec_dir"],
+                                     "--data_parallel"))
+    if SINGLE_MSG not in msg.getvalue() or len(en._replicas) != 1:
+        raise AssertionError("data_parallel: load_engine with one card did "
+                             f"not say {SINGLE_MSG!r}: {msg.getvalue()!r}")
+    log(f"data_parallel: load_engine --data_parallel on 1 card printed "
+        f"{SINGLE_MSG!r} and built an unsharded engine")
+    paths = sl["paths"][:N_DP_EN]
+    out["en"] = _dp_path(card, en, paths, "dp_en")[0]
+
+    # a crop cap under the first replica's glyphs: its segment spills.
+    # The spilled lines ride a dispatch of their own, whose adaptive
+    # canvas is cut to them, so the canvas is fixed here (as it is
+    # whenever a chunk's lines fill it); and the unsharded reference has
+    # the replicas' crop-slot count (cuBLAS may round the retrieval
+    # matmul differently at another row count), so it spills as well
+    fixed = dict(adaptive_height=False, adaptive_width=False)
+    probe = _replicated(en, 1, f32=True, **fixed).run(paths,
+                                                      return_coco=True)
+    chars = [len(c) for c in _chars_per_line(probe[1])]
+    per = en.config.line_batch // 2
+    first, second = sum(chars[:per]), sum(chars[per:2 * per])
+    sub = en.config.encoder_sub_batch
+    cap = max(sub, (first - 1) // sub * sub)
+    f32_ref = _replicated(en, 1, f32=True, crop_batch=cap, **fixed).run(
+        paths, return_coco=True)
+    spill = _replicated(en, f32=True, crop_batch=2 * cap, **fixed)
+    srun = checked_runs(spill, paths, "dp_spill")
+    if srun["spilled"] < 1:
+        raise AssertionError("dp_spill: no segment spilled")
+    _same_output("dp_spill", spill.run(paths, return_coco=True), f32_ref)
+    out["spill"] = report("dp_spill", srun, card,
+                          f"; float32 models on the fixed 96 x 1024 canvas, "
+                          f"crop cap {cap} a replica against {first} / "
+                          f"{second} glyphs in the two halves of the chunk; "
+                          "text and COCO boxes bit for bit with the "
+                          "unsharded float32 engine at that crop cap")
+
+    jeng = load_engine(jp_engine_args(jp["loc_dir"], jp["rec_dir"],
+                                      "--nms_kernel", "pallas"))
+    out["jp"], k2_in = _dp_path(card, jeng, jp["paths"][:N_DP_JP],
+                                "dp_jp", k2=True)
+
+    # the jp index over 2 shards at the path's K2 input
+    q, p, mask = k2_in
+    two = [torch.device("cuda", 0)] * 2
+    cuda_top1.top1_kernel.launches = 0
+    with kernels_checked("knn_topk_sharded", k2=True) as (_, k2c):
+        s_sh, i_sh = knn_topk_sharded(q, p, two, k=1, row_mask=mask,
+                                      normalize_queries=False)
+    torch.cuda.synchronize()
+    knn_launches = cuda_top1.top1_kernel.launches
+    s_un, i_un = cuda_top1.top1(q, p, mask)
+    same = torch.equal(i_sh[:, 0], i_un.long())
+    err = float((s_sh[:, 0] - s_un).abs().max())
+    if knn_launches != 2 or not same or err > K2_TOL:
+        raise AssertionError(f"knn_topk_sharded: {knn_launches} K2 "
+                             f"launches, indices equal {same}, max|score "
+                             f"diff| {err:.3g}")
+    sh_ms = device_ms(lambda: knn_topk_sharded(
+        q, p, two, k=1, row_mask=mask, normalize_queries=False))
+    un_ms = device_ms(lambda: cuda_top1.top1(q, p, mask))
+    log(f"knn_topk_sharded: [{q.shape[0]}, {q.shape[1]}] x [{p.shape[0]}, "
+        f"{p.shape[1]}] over 2 shards on cuda:0: indices equal to "
+        f"unsharded K2, max|score diff| {err:.3g}; each shard's K2 held to "
+        f"top1_plain ({k2c.calls} calls, {k2c.differs} low-margin index "
+        f"differences); {sh_ms:.4f} ms sharded vs {un_ms:.4f} ms unsharded "
+        f"({card})")
+    out["knn_sharded"] = dict(k2_launches=knn_launches, max_abs_err=err,
+                              ms=sh_ms, unsharded_ms=un_ms)
+    out["k1_launches"] = sum(out[k]["k1_launches"]
+                             for k in ("en", "spill", "jp"))
+    out["k2_launches"] = out["jp"]["k2_launches"] + knn_launches
+    out["k2_max_err"] = max(err, out["jp"]["k2_max_err"], k2c.max_err)
+    return out
+
+
+def run_torchrun(nproc, args, tag, timeout=900):
+    """``torchrun --standalone --nproc_per_node nproc -m effocr_torch
+    <args>`` from the checkout (``distributed.torchrun_argv``); its
+    output goes to WORK/<tag>.log, and a failure raises."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        distributed.torchrun_argv(nproc, ["-m", "effocr_torch", *args]),
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(WORK, f"{tag}.log"), "w") as f:
+        f.write(out.stdout + "\n--- stderr ---\n" + out.stderr)
+    if out.returncode != 0:
+        raise AssertionError(f"{tag}: exit {out.returncode}: "
+                             f"{out.stderr[-3000:]}")
+    return out.stdout, wall
+
+
+def _ddp_log_checks(tag, stdout, backend, ranks):
+    """The ranks' log: the backend the rule chose, and the trainer's
+    check that every rank's parameters are bit-identical."""
+    chosen = re.findall(r"rank (\d+) of (\d+): backend (\w+)", stdout)
+    if sorted(chosen) != [(str(r), str(ranks), backend)
+                          for r in range(ranks)]:
+        raise AssertionError(f"{tag}: expected {ranks} ranks on {backend}, "
+                             f"got {chosen}")
+    sync = re.findall(r"replicas in sync: [^\n]*", stdout)
+    if ranks > 1 and not sync:
+        raise AssertionError(f"{tag}: no replica check in the log")
+    return (f"{ranks} rank(s) on {backend}",
+            sync[0] if sync else "1 rank")
+
+
+def _epoch_rate(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f]
+    ep = [r for r in recs if "epoch/steps" in r]
+    return (sum(r["epoch/steps"] for r in ep)
+            / sum(r["epoch/seconds"] for r in ep)), recs
+
+
+def phase_ddp_train(dev, card, train):
+    """``torchrun --nproc_per_node 2`` of ``train-recognizer`` (phase
+    train's en recipe, 1 epoch of 56 steps) and of ``train-localizer``
+    (phase train_localizer's recipe on 640 lines, 1 epoch of 40 steps,
+    one evaluation), both ranks
+    on cuda:0 over gloo; each run must end with the trainer's check that
+    both ranks' parameters are bit-identical.  The localizer run's best
+    checkpoint is evaluated again in this process with every K1 mask held
+    to nms_mask: the AP the ranks logged.  Then a 1-rank launch of
+    ``train-recognizer``, which takes NCCL."""
+    from effocr_torch.data.detection import DetectionDataset
+    from effocr_torch.train import checkpoint as ckpt
+
+    out = {}
+    tr = train["train"]
+    with open(os.path.join(tr["run_dir"], "metrics.jsonl")) as f:
+        first = [r for r in map(json.loads, f) if "epoch/steps" in r][0]
+    first_rate = first["epoch/steps"] / first["epoch/seconds"]
+    # the recipe at 1 epoch, without the test split and the hard-negative
+    # mining (phase train runs both)
+    flags = _with(TRAIN_FLAGS, num_epochs="1", infer_hardneg_k="0")
+    flags.remove("--test_at_end")
+    rec_args = ["train-recognizer", "--device", "cuda", "--root_dir_path",
+                tr["tree"], "--train_ann_path", tr["splits"]["train"],
+                "--val_ann_path", tr["splits"]["val"], "--test_ann_path",
+                tr["splits"]["test"], *flags]
+    for tag, nproc, backend in (("ddp_recognizer", 2, "gloo"),
+                                ("nccl_recognizer", 1, "nccl")):
+        run_dir = os.path.join(WORK, "ddp", tag)
+        stdout, wall = run_torchrun(nproc, rec_args + ["--run_name",
+                                                       run_dir], tag)
+        chosen, sync = _ddp_log_checks(tag, stdout, backend, nproc)
+        steps_s, recs = _epoch_rate(run_dir)
+        losses = [r["train/loss"] for r in recs if "train/loss" in r]
+        val = [r["val/accuracy"] for r in recs if "val/accuracy" in r]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{tag}: losses {losses}")
+        log(f"{tag}: {nproc} rank(s) exited 0 in {wall:.1f} s; {chosen}; "
+            f"{sync}; epoch 1 (cuDNN warm-up included): {steps_s:.2f} "
+            f"steps/s = {steps_s * 128:.1f} images/s ({card}); losses "
+            f"{losses}; val p@1 {val}; one process (phase train): "
+            f"{first_rate:.2f} steps/s in its first epoch, "
+            f"{tr['steps_s']:.2f} in epochs 2-3")
+        out[tag] = dict(steps_s=steps_s, wall_s=wall, losses=losses,
+                        val_p1=val, backend=backend, ranks=nproc,
+                        one_process_first_epoch_steps_s=first_rate)
+
+    tl = train["train_localizer"]
+    run_dir = os.path.join(WORK, "ddp", "ddp_localizer")
+    with open(tl["splits"]["train"]) as f:
+        coco = json.load(f)
+    keep = {im["id"] for im in coco["images"][:N_DDP_LOC_LINES]}
+    sub = os.path.join(WORK, "ddp", "loc_train.json")
+    with open(sub, "w") as f:
+        json.dump({"images": [im for im in coco["images"]
+                              if im["id"] in keep],
+                   "annotations": [a for a in coco["annotations"]
+                                   if a["image_id"] in keep],
+                   "categories": coco.get("categories", [])}, f)
+    loc_args = ["train-localizer", "--device", "cuda", "--image_dir",
+                tl["img_dir"], "--train_coco", sub,
+                "--val_coco", tl["splits"]["val"], "--run_name", run_dir,
+                *_with(LOC_TRAIN_FLAGS, num_epochs="1", eval_period="1")]
+    stdout, wall = run_torchrun(2, loc_args, "ddp_localizer")
+    chosen, sync = _ddp_log_checks("ddp_localizer", stdout, "gloo", 2)
+    steps_s, recs = _epoch_rate(run_dir)
+    logged = [{k: r[k] for k in ("bbox/AP", "bbox/AP50", "bbox/AP75")}
+              for r in recs if "bbox/AP" in r]
+    val_ds = DetectionDataset(tl["splits"]["val"], tl["img_dir"], 1024,
+                              input_height=96, channels=1)
+    trainer = _loc_trainer(dev, os.path.join(WORK, "ddp", "check"),
+                           os.path.join(run_dir, "model.json"))
+    trainer.set_variables(ckpt.load_variables(
+        ckpt.best_checkpoint_path(run_dir, "best_bbox_mAP")))
+    cuda_nms.nms_kernel.launches = 0
+    with kernels_checked("ddp_localizer evaluation") as (k1c, _):
+        ap = trainer.evaluate((b[0], b[3]) for b in val_ds.batches(
+            16, shuffle=False, drop_last=False))
+    k1_launches = cuda_nms.nms_kernel.launches
+    ap = {k: ap[k] for k in logged[-1]}
+    if len(logged) != 1 or ap != logged[-1] or k1_launches == 0:
+        raise AssertionError(f"ddp_localizer: the ranks logged {logged}, "
+                             f"one rank evaluates {ap} ({k1_launches} K1 "
+                             "launches)")
+    log(f"ddp_localizer: 2 ranks exited 0 in {wall:.1f} s; {chosen}; "
+        f"{sync}; epoch 1 (height 64, cuDNN warm-up included): "
+        f"{steps_s:.2f} steps/s = {steps_s * 16:.1f} images/s ({card}); "
+        f"the ranks' AP {logged[-1]} equals one rank's evaluation of the "
+        f"best checkpoint here, K1 held to nms_mask on {k1c.calls} calls")
+    out["ddp_localizer"] = dict(steps_s=steps_s, wall_s=wall, ap=ap,
+                                backend="gloo", ranks=2)
+    out["k1_launches"] = k1_launches
+    out["k2_launches"] = 0
+    return out
+
+
+def phase_ddp_steps(dev, card, train):
+    """One float32 step of the en recognizer recipe (phase
+    train_step_vs_cpu's batch and draws) and of yolov5s (phase
+    loc_step_vs_cpu's) on 2 ranks sharing the card (gloo) against one
+    rank on the whole batch on the card: loss 1e-5 relative, the new
+    batch_stats 1e-4 of the largest, the ranks bit-identical; gradients
+    after DDP's averaging 1e-4 of the largest for yolov5s.  The
+    recognizer's float32 step on glyph images rounds at up to ~1e-3 by
+    itself (REC_F32_GRAD_TOL), so it is also run on 2 ranks and on 1 in
+    float64 (``_f64_copy``) and with its stem and first two blocks in
+    float64 (``_f64_stem``): each pair must agree at 1e-5 / 1e-4 / 1e-4,
+    which shows that 2 ranks compute the 1-rank step; its float32
+    gradients are held to REC_F32_GRAD_TOL, 2 vs 1 and each against the
+    float64 step.  A second,
+    profiled step on the ranks gives the step's wall time and the time of
+    its all-reduces."""
+    from effocr_torch.core import dryrun
+    from effocr_torch.core.config import EncoderConfig, RecognizerTrainConfig
+    from effocr_torch.data.detection import DetectionDataset
+    from effocr_torch.data.folder import CharFolderDataset
+    from effocr_torch.data.samplers import (
+        NoReplacementMPerClassSampler,
+        batch_iterator,
+    )
+    from effocr_torch.data.transforms import draw_augment
+    from effocr_torch.kernels.det_augment import draw_detection_augment
+
+    ds = CharFolderDataset(train["train"]["tree"])
+    idx = next(batch_iterator(iter(NoReplacementMPerClassSampler(
+        ds.targets, m=4, batch_size=128, num_passes=20, seed=0)), 128))
+    base = normal_init(create_encoder("mobilenetv3_small_050",
+                                      in_channels=1, dtype=torch.float32),
+                       SEED + 90)
+    rec = dict(
+        kind="recognizer", model=base, bank=True, profile=True,
+        cfg=RecognizerTrainConfig(
+            encoder=EncoderConfig(arch="mobilenetv3_small_050",
+                                  image_size=128, input_channels=1),
+            batch_size=128, lang="en", lr=1e-3, paired_jitter=0.1,
+            aux_ce_weight=1.0, data_device="resident"),
+        batch=(torch.from_numpy(ds.decode_all_gray(128)),
+               torch.tensor(ds.targets),
+               torch.tensor([ds.is_paired(i) for i in range(len(ds))]),
+               torch.tensor(idx)),
+        draws=draw_augment(torch.Generator().manual_seed(SEED + 91), 128,
+                           128, lang="en", paired_jitter=0.1),
+        aux=torch.randn((len(ds.classes), base.out_features),
+                        generator=torch.Generator().manual_seed(SEED + 92))
+        * 0.02)
+    tl = train["train_localizer"]
+    lds = DetectionDataset(tl["splits"]["test"], tl["img_dir"], 1024,
+                           input_height=96, channels=1)
+    imgs, tgts, masks, _ = next(lds.batches(16, shuffle=False))
+    t_cpu = _loc_trainer("cpu", os.path.join(WORK, "ddp", "step"),
+                         os.path.join(tl["run_dir"], "model.json"),
+                         augment=True)
+    loc = dict(
+        kind="localizer", bank=False, profile=True, cfg=t_cpu.cfg,
+        model=init_params(_f32_copy(t_cpu.model, "cpu"), SEED + 93),
+        batch=(imgs, tgts, masks),
+        draws=draw_detection_augment(torch.Generator().manual_seed(SEED + 94),
+                                     16, 96, 1024, 1))
+    rec64 = dict(rec, model=_f64_copy(base), aux=rec["aux"].double(),
+                 profile=False)
+    rec_st = dict(rec, model=_f64_stem(base), profile=False)
+    t0 = time.perf_counter()
+    ranks = dryrun.run_ranks([rec, loc, rec64, rec_st], 2, device="cuda",
+                             timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    out = {}
+    for i, (tag, spec) in enumerate((("recognizer", rec), ("yolov5s", loc))):
+        one = dryrun.run_step(dict(spec, profile=False), device="cuda")
+        got = [r[i] for r in ranks]
+        lerr = abs(got[0]["loss"] - one["loss"]) / abs(one["loss"])
+        gerr, serr = _step_errors(one, got[0])
+        same = all(torch.equal(got[1]["grads"][k], got[0]["grads"][k])
+                   for k in one["grads"]) and all(
+            torch.equal(got[1]["buffers"][k], got[0]["buffers"][k])
+            for k in one["buffers"])
+        gtol, witness, w = DP_STEP_TOL, "", {}
+        if tag == "recognizer":
+            one64, one_st = (dryrun.run_step(x, device="cuda")
+                             for x in (rec64, rec_st))
+            two64, two_st = ([r[j] for r in ranks] for j in (2, 3))
+            w = dict(f64=_two_vs_one(one64, two64[0]),
+                     f64_stem=_two_vs_one(one_st, two_st[0]),
+                     f32_one_vs_f64=_step_errors(one64, one)[0],
+                     f32_two_vs_f64=_step_errors(one64, got[0])[0])
+            gtol = REC_F32_GRAD_TOL
+            same = same and all(torch.equal(t[1]["grads"][k],
+                                            t[0]["grads"][k])
+                                for t in (two64, two_st)
+                                for k in one64["grads"])
+            witness = (
+                "; 2 ranks vs 1 (loss rel, grads, batch_stats; tolerance "
+                "1e-5 / 1e-4 / 1e-4): float64 "
+                + ", ".join(f"{v:.3g}" for v in w["f64"])
+                + "; stem and first two blocks in float64 "
+                + ", ".join(f"{v:.3g}" for v in w["f64_stem"])
+                + f"; float32 gradients against the float64 step: 1 rank "
+                f"{w['f32_one_vs_f64']:.3g}, 2 ranks "
+                f"{w['f32_two_vs_f64']:.3g} (tolerance {gtol:.3g})")
+            if not (all(lr <= 1e-5 and g <= DP_STEP_TOL and st <= DP_STEP_TOL
+                        for lr, g, st in (w["f64"], w["f64_stem"]))
+                    and w["f32_one_vs_f64"] <= gtol
+                    and w["f32_two_vs_f64"] <= gtol):
+                raise AssertionError(f"ddp_step_vs_single {tag}: the float64 "
+                                     f"witnesses fail{witness}")
+        prof = {k: got[0][k] for k in ("step_ms", "collective_host_ms",
+                                       "collective_device_ms",
+                                       "collective_events")}
+        log(f"ddp_step_vs_single {tag}: float32, 2 ranks on cuda:0 (gloo) "
+            f"vs 1 rank on the whole batch: loss {got[0]['loss']:.6f} vs "
+            f"{one['loss']:.6f} (rel {lerr:.3g}, tolerance 1e-5); max "
+            f"|grad diff| / max|g| {gerr:.3g} (tolerance {gtol:.3g}), max "
+            f"|batch_stats diff| / max|stat| {serr:.3g} (tolerance "
+            f"{DP_STEP_TOL:.3g}){witness}; ranks bit-identical {same}; rank "
+            f"0's profiled step {prof} ({card})")
+        if not (lerr <= 1e-5 and gerr <= gtol and serr <= DP_STEP_TOL
+                and same):
+            raise AssertionError(f"ddp_step_vs_single {tag}: 2 ranks and 1 "
+                                 "disagree")
+        out[tag] = dict(loss_rel=lerr, grad_err=gerr, stats_err=serr,
+                        grad_tol=gtol, **w, **prof)
+    out["ranks_wall_s"] = ranks_s
+    return out
+
+
 # --------------------------------------------------------------- main
 def main(argv) -> int:
     import argparse
@@ -2992,7 +3706,8 @@ def main(argv) -> int:
     for name, run_phase in (
         ("xcit", lambda: phase_family(
             dev, card, "xcit", engine_args(en_loc, dirs[XCIT_ARCH]),
-            fam_paths, args.out, profile=args.profile)),
+            sl["paths"][:N_XCIT_LINES], args.out, profile=args.profile,
+            plain=False)),
         ("fcos", lambda: phase_family(
             dev, card, "fcos", family_engine_args(dirs["fcos_s"], en_rec),
             fam_paths, args.out, profile=args.profile)),
@@ -3016,7 +3731,20 @@ def main(argv) -> int:
         fam[name]["phase_s"] = time.perf_counter() - t0
         log(f"phase {name}: {fam[name]['phase_s']:.1f} s")
     log(f"the family phases: {time.perf_counter() - t_fam:.1f} s")
-    launched = {k: v for k, v in {**more, **train, **fam}.items()
+    # data parallelism on the one card: engine replicas, DDP training
+    t_dp = time.perf_counter()
+    par = {}
+    for name, run_phase in (
+        ("data_parallel", lambda: phase_data_parallel(dev, card, sl, jp)),
+        ("ddp_train", lambda: phase_ddp_train(dev, card, train)),
+        ("ddp_step_vs_single", lambda: phase_ddp_steps(dev, card, train)),
+    ):
+        t0 = time.perf_counter()
+        par[name] = run_phase()
+        par[name]["phase_s"] = time.perf_counter() - t0
+        log(f"phase {name}: {par[name]['phase_s']:.1f} s")
+    log(f"the data-parallel phases: {time.perf_counter() - t_dp:.1f} s")
+    launched = {k: v for k, v in {**more, **train, **fam, **par}.items()
                 if "k1_launches" in v}
     k1_by_path = {"en": sl["k1_launches"], "jp": jp["k1_launches"],
                   **{k: v["k1_launches"] for k, v in launched.items()}}
@@ -3028,8 +3756,8 @@ def main(argv) -> int:
               + [main_row, jp["k1_main"], fam["rcnn"]["k1_rpn"]])
     k2_main = jp["k2_main"]
     k2_err = max([r["max_abs_err"] for r in list(k2.values()) + [k2_main]]
-                 + [v["k2_max_err"] for v in more.values()
-                    if "k2_max_err" in v])
+                 + [v["k2_max_err"] for v in list(more.values())
+                    + [par["data_parallel"]] if "k2_max_err" in v])
     kernels = [{
         "name": "nms_keep_mask",
         "route": "cuda",
@@ -3052,6 +3780,8 @@ def main(argv) -> int:
         "calls_by_iou": {k: fam[k]["k1_calls_by_iou"]
                          for k in ("fcos", "rcnn", "train_fcos",
                                    "train_rcnn")},
+        "data_parallel_by_run": {k: par["data_parallel"][k]["k1_launches"]
+                                 for k in ("en", "spill", "jp")},
     }, {
         "name": "top1_retrieval",
         "route": "cuda",
@@ -3068,6 +3798,11 @@ def main(argv) -> int:
         "library_note": "torch.matmul + mask + argmax on the same tensors",
         "synthetic_4096x11051": k2["synthetic_4096x11051"],
         "jp_main_path": k2_main,
+        "data_parallel_by_run": {
+            "jp": par["data_parallel"]["jp"]["k2_launches"],
+            "knn_topk_sharded": par["data_parallel"]["knn_sharded"][
+                "k2_launches"]},
+        "knn_topk_sharded_2x": par["data_parallel"]["knn_sharded"],
     }]
     summary = dict(card=card,
                    en={k: v for k, v in sl.items()
@@ -3075,6 +3810,7 @@ def main(argv) -> int:
                    jp={k: v for k, v in jp.items()
                        if k not in ("k1_main", "k2_main", "paths")},
                    other_paths=more, training=train, families=fam,
+                   data_parallel=par,
                    kernels=kernels, k1_sweep=k1_sweep,
                    total_s=time.perf_counter() - t_start)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

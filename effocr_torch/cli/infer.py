@@ -8,16 +8,22 @@ trained with a class head, ``num_classes`` in its model.json and a
 ``class_map.json``).  A recognizer_dir without ``ref.npz`` takes
 ``--build_index_from <char-folder tree>``: the renders of the tree are
 embedded into an ad-hoc index, saved there.  Adds ``--device`` (default
-cuda).
+cuda).  ``--data_parallel`` runs one engine replica per visible CUDA
+device (``EffOCRInference(devices=...)``), ``line_batch`` rounded up to
+a multiple of their number as in the JAX command; with one device it
+says so and runs unsharded.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
 from glob import glob
+
+import torch
 
 from effocr_torch.cli.common import render_rows
 from effocr_torch.core.config import (
@@ -26,6 +32,7 @@ from effocr_torch.core.config import (
     PipelineConfig,
 )
 from effocr_torch.core.device import resolve_device
+from effocr_torch.core.distributed import pad_batch_to_data_axis
 from effocr_torch.data.folder import CharFolderDataset, embed_items
 from effocr_torch.eval.textline import textline_evaluation
 from effocr_torch.interop.flax_bridge import flax_to_state_dict
@@ -35,7 +42,7 @@ from effocr_torch.models.factory import (
     create_encoder,
     create_localizer,
 )
-from effocr_torch.pipelines.infer import EffOCRInference, _not_ported
+from effocr_torch.pipelines.infer import EffOCRInference
 from effocr_torch.retrieval.index import PrototypeIndex
 
 
@@ -60,8 +67,6 @@ def build_adhoc_index(encoder, tree: str, font_name, imsize: int,
 
 def load_engine(args) -> EffOCRInference:
     device = resolve_device(args.device)   # fail before loading any weights
-    if getattr(args, "data_parallel", False):
-        raise _not_ported("--data_parallel")
 
     # localizer
     with open(os.path.join(args.localizer_dir, "model.json")) as f:
@@ -188,14 +193,27 @@ def load_engine(args) -> EffOCRInference:
         tile_min_content_h=args.tile_min_h,
         max_words_per_line=args.max_words,
     )
+    devices = None
+    if getattr(args, "data_parallel", False):
+        visible = ([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+                   if device.type == "cuda" else [device])
+        if len(visible) > 1:
+            devices = visible
+            cfg = dataclasses.replace(cfg, line_batch=pad_batch_to_data_axis(
+                cfg.line_batch, len(devices)))
+            print(f"data-parallel inference over {len(devices)} devices")
+        else:
+            print("--data_parallel: single device visible; running "
+                  "unsharded")
     return EffOCRInference(cfg, localizer, encoder, index,
-                           device=args.device, class_map=class_map)
+                           device=args.device, class_map=class_map,
+                           devices=devices)
 
 
 def add_engine_args(p: argparse.ArgumentParser) -> None:
     """Flags consumed by load_engine, shared by ``infer`` and ``serve``:
-    the JAX package's flag surface plus --device.  --data_parallel is
-    accepted and raises NotImplementedError when set (ROADMAP.md)."""
+    the JAX package's flag surface plus --device."""
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cuda unless cpu is asked for")
     p.add_argument("--recognizer_dir", type=str, required=True)

@@ -4,8 +4,9 @@ cli/serve.py, on the torch engine (``--device``, default cuda).
 
 Requests accumulate into line batches (continuous batching: a batch runs
 when line_batch requests are waiting OR the oldest request has waited
---max_latency_ms) and ride the same engine as ``infer``.  Each engine batch
-logs its size to stderr ("serve: batch of N").
+--max_latency_ms) and ride the same engine as ``infer``, over every
+visible card with --data_parallel (one engine replica a card).  Each
+engine batch logs its size to stderr ("serve: batch of N").
 
 Modes:
   --stdin       read one image path per line from stdin; emit one JSON

@@ -1,12 +1,17 @@
 """Localizer training CLI — ``python -m effocr_torch train-localizer``.
 
 Flag for flag the JAX package's ``train-localizer``, plus ``--device``
-(default cuda; one device: the JAX command's multi-chip mesh is not
-ported); every ``--arch`` of the registry trains (YOLO, FCOS, R-CNN).
-Writes the same run directory: args_log.json, model.json (with the
-fitted ``anchors``, null for FCOS and R-CNN, and the
-``trained_heights``), best_bbox_mAP.msgpack
-(Flax layout), metrics.jsonl, and last.msgpack (this package's
+(default cuda); every ``--arch`` of the registry trains (YOLO, FCOS,
+R-CNN).  As the JAX command trains on every visible chip, this one
+trains data-parallel (core/distributed.py) on every visible card without
+a flag: under ``torchrun`` each rank joins the group from the
+environment; started plainly with more than one visible CUDA device it
+starts one rank per device itself; with one device nothing changes.
+Every rank steps on its slice of each ``--batch_size`` global batch.
+Only the primary rank writes the run directory: args_log.json,
+model.json (with the fitted ``anchors``, null for FCOS and R-CNN, and
+the ``trained_heights``), best_bbox_mAP.msgpack (Flax layout),
+metrics.jsonl, and last.msgpack (this package's
 train-state layout).  As in the JAX command, ``--resume`` restores
 last.msgpack and then runs ``--num_epochs`` epochs from epoch 0.
 
@@ -20,11 +25,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 import numpy as np
 import torch
 
+from effocr_torch.core import distributed
 from effocr_torch.core.config import LocalizerConfig, LocalizerTrainConfig
 from effocr_torch.core.device import resolve_device
 from effocr_torch.data.coco import load_json
@@ -88,11 +95,23 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)   # fail before writing anything
+    rc = distributed.launch_if_multi_card(device, "train-localizer", argv)
+    if rc is not None:
+        sys.exit(rc)
+    distributed.initialize_multihost(device=device)
+    try:
+        train(args, distributed.rank_device(device))
+    finally:
+        distributed.shutdown()
 
+
+def train(args, device) -> None:
+    primary = distributed.is_primary()
     os.makedirs(args.run_name, exist_ok=True)
-    with open(os.path.join(args.run_name, "args_log.json"), "w") as f:
-        json.dump({k: v for k, v in vars(args).items() if k != "device"},
-                  f, indent=2)
+    if primary:
+        with open(os.path.join(args.run_name, "args_log.json"), "w") as f:
+            json.dump({k: v for k, v in vars(args).items()
+                       if k != "device"}, f, indent=2)
     # model identity for the inference loaders (cli/infer.py load_engine)
     if args.multi_height and args.input_height is None:
         args.input_height = max(
@@ -115,18 +134,21 @@ def main(argv=None):
             for i in range(3))
         print(f"fitted anchors (letterbox px, P3/P4/P5): {anchors}")
 
-    with open(os.path.join(args.run_name, "model.json"), "w") as f:
-        json.dump({"arch": args.arch, "num_classes": args.num_classes,
-                   "input_size": args.input_size,
-                   "input_height": args.input_height,
-                   "input_channels": args.input_channels,
-                   "anchors": ([list(a) for a in anchors]
-                               if anchors else None),
-                   "trained_heights": sorted(
-                       int(h) for h in (
-                           args.multi_height.split(",") if args.multi_height
-                           else [args.input_height or args.input_size]))},
-                  f)
+    if primary:
+        with open(os.path.join(args.run_name, "model.json"), "w") as f:
+            json.dump({"arch": args.arch, "num_classes": args.num_classes,
+                       "input_size": args.input_size,
+                       "input_height": args.input_height,
+                       "input_channels": args.input_channels,
+                       "anchors": ([list(a) for a in anchors]
+                                   if anchors else None),
+                       "trained_heights": sorted(
+                           int(h) for h in (
+                               args.multi_height.split(",")
+                               if args.multi_height
+                               else [args.input_height
+                                     or args.input_size]))},
+                      f)
 
     cfg = LocalizerTrainConfig(
         localizer=LocalizerConfig(
@@ -191,7 +213,10 @@ def main(argv=None):
                     args.batch_size, seed=cfg.seed + epoch))
         for loss, parts in losses:
             if step % 50 == 0:          # the only host sync of the loop
-                loss = float(loss)
+                # the global batch's loss: the mean over ranks
+                loss = float(distributed.mean_over_ranks(loss))
+                parts = {k: float(distributed.mean_over_ranks(v))
+                         for k, v in parts.items()}
                 trainer.metrics.log({"train/loss": loss, **parts},
                                     step=step)
                 print(f"epoch {epoch} step {step}: loss={loss:.4f}")
@@ -213,6 +238,8 @@ def main(argv=None):
     if cuda:
         peak = torch.cuda.max_memory_allocated(device) / 2**30
         trainer.metrics.log({"device/peak_gib": peak}, step=step)
+    if distributed.world_size() > 1:
+        distributed.check_in_sync(trainer.model.state_dict())
 
     if args.test_coco:
         test_ds = DetectionDataset(args.test_coco, args.image_dir,

@@ -1,8 +1,12 @@
 """Recognizer training CLI — ``python -m effocr_torch train-recognizer``.
 
 Flag for flag the JAX package's ``train-recognizer``, plus ``--device``
-(default cuda; one device: the JAX command's multi-chip mesh is not
-ported).  Writes the same run directory: args_log.json, model.json,
+(default cuda).  As the JAX command trains on every visible chip, this
+one trains data-parallel (core/distributed.py) on every visible card
+without a flag: under ``torchrun`` each rank joins the group from the
+environment; started plainly with more than one visible CUDA device it
+starts one rank per device itself; with one device nothing changes.
+Only the primary rank writes the run directory: args_log.json, model.json,
 enc_best.msgpack, ref.npz/ref.txt, hns.txt, class_map.json (classifier
 mode), metrics.jsonl, and last.msgpack/last_meta.json for --resume.
 ``--adjacent_font_path`` is refused (it needs a font renderer).
@@ -13,6 +17,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 
 from effocr_torch.cli.common import (
     ann_stems,
@@ -20,6 +25,7 @@ from effocr_torch.cli.common import (
     default_render_indices,
     hardneg_queries,
 )
+from effocr_torch.core import distributed
 from effocr_torch.core.config import EncoderConfig, RecognizerTrainConfig
 from effocr_torch.core.device import resolve_device
 from effocr_torch.data.folder import CharFolderDataset, split_indices
@@ -94,11 +100,23 @@ def main(argv=None):
         raise NotImplementedError(
             "--adjacent_font_path renders a glyph bank with a font library "
             "this package does not have (ROADMAP.md, queue 1 item 7)")
+    rc = distributed.launch_if_multi_card(device, "train-recognizer", argv)
+    if rc is not None:
+        sys.exit(rc)
+    distributed.initialize_multihost(device=device)
+    try:
+        train(args, distributed.rank_device(device))
+    finally:
+        distributed.shutdown()
 
+
+def train(args, device) -> None:
+    primary = distributed.is_primary()
     os.makedirs(args.run_name, exist_ok=True)
-    with open(os.path.join(args.run_name, "args_log.json"), "w") as f:
-        json.dump({k: v for k, v in vars(args).items() if k != "device"},
-                  f, indent=2)
+    if primary:
+        with open(os.path.join(args.run_name, "args_log.json"), "w") as f:
+            json.dump({k: v for k, v in vars(args).items()
+                       if k != "device"}, f, indent=2)
     # model identity for the inference loaders; crop_geometry from the
     # tree's dataset_meta.json (trees without one are "tight")
     crop_geometry = "tight"
@@ -106,11 +124,12 @@ def main(argv=None):
     if os.path.exists(meta_path):
         with open(meta_path) as f:
             crop_geometry = json.load(f).get("crop_geometry", "tight")
-    with open(os.path.join(args.run_name, "model.json"), "w") as f:
-        json.dump({"arch": args.auto_model, "image_size": args.imsize,
-                   "num_classes": args.N_classes,
-                   "input_channels": args.input_channels,
-                   "crop_geometry": crop_geometry}, f)
+    if primary:
+        with open(os.path.join(args.run_name, "model.json"), "w") as f:
+            json.dump({"arch": args.auto_model, "image_size": args.imsize,
+                       "num_classes": args.N_classes,
+                       "input_channels": args.input_channels,
+                       "crop_geometry": crop_geometry}, f)
 
     cfg = RecognizerTrainConfig(
         encoder=EncoderConfig(
@@ -157,7 +176,7 @@ def main(argv=None):
         dataset, args.lang, args.render_font_name
     )
 
-    if classifier_mode:
+    if classifier_mode and primary:
         idx_to_class = {
             v: chr(int(k)) for k, v in dataset.class_to_idx.items()
         }

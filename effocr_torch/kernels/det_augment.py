@@ -23,9 +23,15 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from effocr_torch.kernels.image_ops import letterbox_device
+
+
+def _reciprocal_f32(n: int) -> float:
+    """1 / n rounded to float32 (exact as a Python float)."""
+    return float(np.float32(1.0) / np.float32(n))
 
 
 def draw_detection_augment(generator: torch.Generator, b: int, h: int,
@@ -83,9 +89,12 @@ def apply_detection_augment(
     out = letterbox_device(images, src_rect, dst_params, h, w,
                            pad_val=pad_val)
 
-    # boxes: p' = p * (n / size) + offset, the pixels' own mapping
-    ry = (nh / h)[:, None]
-    rx = (nw / w)[:, None]
+    # boxes: p' = p * (n / size) + offset, the pixels' own mapping; the
+    # ratio is n times the float32 reciprocal of the size, as XLA divides
+    # by a constant and torch's CUDA kernel by a scalar (torch's CPU
+    # division rounds the quotient itself: 1 ulp apart for h = 96)
+    ry = (nh * _reciprocal_f32(h))[:, None]
+    rx = (nw * _reciprocal_f32(w))[:, None]
     cx = targets[:, :, 1] * rx + tx[:, None]
     cy = targets[:, :, 2] * ry + ty[:, None]
     bw = targets[:, :, 3] * rx

@@ -17,6 +17,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from effocr_torch.core import distributed
 from effocr_torch.models.layers import Conv, ConvBnAct
 from effocr_torch.models.yolo import CSPTrunk
 
@@ -113,7 +114,10 @@ def fcos_loss(
     (the first on ties; masked ground truths have area inf).
 
     targets [B, T, 5] = (cls, cx, cy, w, h) pixels; target_mask [B, T].
-    Returns (loss, {"loss/box", "loss/obj", "loss/cls"})."""
+    Returns (loss, {"loss/box", "loss/obj", "loss/cls"}).  Inside a
+    process group the batch sums are ``N * local_sum`` and the positive
+    count is global, so the mean over ranks is the global batch's loss
+    (core/distributed.py)."""
     targets = targets.float()
     b = targets.shape[0]
     gt_x0 = targets[..., 1] - targets[..., 3] / 2
@@ -186,6 +190,11 @@ def fcos_loss(
             / (gh * gw)
         total_pos = total_pos + pos.sum()
 
+    n_ranks = distributed.world_size()
+    if n_ranks > 1:
+        total_pos = distributed.global_count(total_pos)
+        total_cls, total_box, total_ctr = (
+            n_ranks * total_cls, n_ranks * total_box, n_ranks * total_ctr)
     npos = torch.clamp(torch.as_tensor(total_pos, dtype=torch.float32),
                        min=1.0)
     loss = (cls_gain * total_cls + ctr_gain * total_ctr) + \

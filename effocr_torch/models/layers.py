@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from effocr_torch.core import distributed
+
 
 def autopad(k: int, p: Optional[int] = None) -> int:
     return k // 2 if p is None else p
@@ -73,7 +75,11 @@ class BatchNorm(nn.Module):
     mode (``module.train()``) it takes the batch statistics in float32
     with Flax's fast variance ``max(E[x^2] - E[x]^2, 0)`` (biased) and
     updates the running statistics as Flax does,
-    ``ra = momentum * ra + (1 - momentum) * batch``, in place.
+    ``ra = momentum * ra + (1 - momentum) * batch``, in place.  Inside
+    a process group of more than one rank the batch statistics are those
+    of the global batch (one all-reduce of the local sums and count), so
+    N ranks normalise as one rank on the whole batch does;
+    ``nn.SyncBatchNorm`` is not used for the three reasons below.
     ``nn.BatchNorm2d`` differs in all three (momentum meaning, unbiased
     running variance, two-pass variance)."""
 
@@ -88,12 +94,15 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        x = x.float()
+        # float32 (float64 stays float64: the steps' float64 evaluations)
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             axes = [0] + list(range(2, x.dim()))
-            mean = x.mean(dim=axes)
-            var = torch.clamp(torch.square(x).mean(dim=axes)
-                              - torch.square(mean), min=0.0)
+            if distributed.world_size() > 1:
+                mean, mean2 = self._global_moments(x, axes)
+            else:
+                mean, mean2 = x.mean(dim=axes), torch.square(x).mean(dim=axes)
+            var = torch.clamp(mean2 - torch.square(mean), min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean
@@ -101,10 +110,23 @@ class BatchNorm(nn.Module):
                 self.running_var.copy_(m * self.running_var
                                        + (1 - m) * var.detach())
         else:
-            mean, var = self.running_mean.float(), self.running_var.float()
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        bias = self.bias.float().view(shape)
+            mean, var = (self.running_mean.to(x.dtype),
+                         self.running_var.to(x.dtype))
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(x.dtype)
+        bias = self.bias.to(x.dtype).view(shape)
         return (x - mean.view(shape)) * mul.view(shape) + bias
+
+    @staticmethod
+    def _global_moments(x: torch.Tensor, axes):
+        """E[x] and E[x^2] over the global batch of a process group: the
+        local sums and count in one all-reduce that autograd
+        differentiates (core/distributed.py)."""
+        c = x.shape[1]
+        count = torch.full((1,), x.numel() / c, dtype=x.dtype,
+                           device=x.device)
+        sums = distributed.all_reduce_sum(torch.cat(
+            [x.sum(dim=axes), torch.square(x).sum(dim=axes), count]))
+        return sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
 
 
 class LayerNorm(nn.Module):

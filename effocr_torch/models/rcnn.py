@@ -367,7 +367,10 @@ def rcnn_loss(
     best anchor, the first on ties; negative at IoU < 0.3) + smooth-L1
     deltas at positives.  ROI head: softmax CE with background over the
     valid proposals + smooth-L1 class-specific deltas at positives (IoU >
-    0.5).  Returns (loss, {"loss/box", "loss/obj", "loss/cls"})."""
+    0.5).  Returns (loss, {"loss/box", "loss/obj", "loss/cls"}).  Every
+    denominator is per image and the batch enters as a mean, so inside a
+    process group of equal slices the mean over ranks of the local loss
+    is the global batch's: no collective is needed."""
     targets = targets.float()
     gt_xyxy = torch.stack([
         targets[..., 1] - targets[..., 3] / 2,

@@ -25,6 +25,15 @@ Horizontal lines read left to right, vertical ones (``vertical``) top to
 bottom.  Wide-line tiling splits extreme-aspect lines into tiles that
 ride the fused path as ordinary lines and merges their decodes.
 
+Data parallel (``devices=[...]``, the JAX engine's ``mesh=``): each
+device holds a replica (its own copy of the weights) that runs the fused
+chunk program on its ``line_batch / n`` lines with a crop cap of
+``crop_batch // n``; the result is one packed segment per replica, read
+segment by segment, and the lines a segment could not hold are
+dispatched again.  No collectives.  The host issues the replicas one
+after another without waiting, so replicas on distinct cards run
+concurrently; replicas sharing a card run one after the other.
+
 ``crop_source original`` runs two programs per chunk instead: detect
 (detector + decode + NMS) on the letterboxed canvas, then host glue cuts
 each glyph's crop from the original image (the reference's crop
@@ -34,6 +43,8 @@ transform, the encoder and the retrieval on the device.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import logging
 import os
 from collections import deque
@@ -175,6 +186,33 @@ def _to_host_async(tensors: Sequence[torch.Tensor]):
     return host, event
 
 
+def _copy_to(model, device):
+    """A module's own copy on ``device``; any other callable as it is."""
+    if isinstance(model, torch.nn.Module):
+        return copy.deepcopy(model).to(device)
+    return model
+
+
+class _Replica:
+    """One device's copy of the engine's models and prototype arrays."""
+
+    __slots__ = ("device", "localizer", "encoder", "protos", "row_mask")
+
+    def __init__(self, device, localizer, encoder, protos, row_mask):
+        self.device = device
+        self.localizer = localizer
+        self.encoder = encoder
+        self.protos = protos
+        self.row_mask = row_mask
+
+    def context(self):
+        """The replica's device as the current CUDA device (the kernels
+        launch on its current stream)."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+
 # crop_source original: float32 elements of one batch of padded crop
 # squares on the device (1 GiB); a batch of large crops is split to fit
 _SQUARES_BUDGET = 1 << 28
@@ -190,12 +228,35 @@ class EffOCRInference:
     (models/factory.py ``Classifier``; pass ``class_map``, class index ->
     char, and no index).  ``device`` defaults to "cuda"; without a GPU
     pass device="cpu" (core/device.py).
+
+    ``devices``: a list of devices to run data-parallel over (the JAX
+    engine's ``mesh=``), one replica each, the same device more than once
+    included; ``line_batch`` and ``crop_batch`` must divide by their
+    number, and only the fused letterbox path shards.  The first is the
+    engine's ``device``.
     """
 
     def __init__(self, config: PipelineConfig, localizer, encoder,
                  index: Optional[PrototypeIndex] = None, device="cuda",
-                 class_map: Optional[Dict[int, str]] = None):
+                 class_map: Optional[Dict[int, str]] = None,
+                 devices: Optional[Sequence] = None):
         c = config
+        n_shards = len(devices) if devices else 1
+        if n_shards > 1:
+            # the JAX engine's assertions, with its messages
+            if c.line_batch % n_shards:
+                raise ValueError(
+                    f"line_batch {c.line_batch} must divide over the data "
+                    f"axis ({n_shards} shards)")
+            if c.crop_batch % n_shards:
+                raise ValueError(
+                    f"crop_batch {c.crop_batch} must divide over the data "
+                    f"axis ({n_shards} shards)")
+            if c.crop_source != "letterbox":
+                raise ValueError(
+                    "mesh inference supports the fused letterbox path only")
+        if devices:
+            device = devices[0]
         if c.crop_source not in ("letterbox", "original"):
             raise ValueError(f"crop_source {c.crop_source!r}")
         if c.transfer not in ("canvas", "bucket"):
@@ -244,6 +305,9 @@ class EffOCRInference:
 
         self.localizer = _prepare(localizer)
         self.encoder = _prepare(encoder)
+        # a shard's crop-slot capacity: the compaction, and so the encoder
+        # batch, is per shard
+        self._crop_cap = c.crop_batch // n_shards
         self.index = index
         self.class_map = class_map
         self.classifier_mode = class_map is not None
@@ -251,8 +315,14 @@ class EffOCRInference:
             hi = max(class_map, default=0) + 1
             raw = [class_map.get(i, "") for i in range(hi)]
         else:
-            self._protos, self._row_mask = index.device_arrays(self.device)
             raw = list(index.chars) or [""]
+        self._replicas = [_Replica(self.device, self.localizer, self.encoder,
+                                   *self._replica_index(self.device))]
+        for d in (devices or [])[1:]:
+            d = resolve_device(d)
+            self._replicas.append(_Replica(
+                d, _copy_to(self.localizer, d), _copy_to(self.encoder, d),
+                *self._replica_index(d)))
         # entries pre-reduced to their first character for the vectorised
         # decode in the consumer
         self._char_lookup = np.array([ch[0] if ch else "" for ch in raw],
@@ -269,34 +339,44 @@ class EffOCRInference:
         elif c.out_quant != "i32":
             raise ValueError(f"out_quant {c.out_quant!r}")
 
+    def _replica_index(self, device):
+        if self.classifier_mode:
+            return None, None
+        return self.index.device_arrays(device)
+
     def _cast_in(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(torch.bfloat16) if self.config.compute_dtype == "bf16" \
             else x
 
-    def _classify(self, emb: torch.Tensor) -> torch.Tensor:
+    def _classify(self, emb: torch.Tensor,
+                  rep: Optional[_Replica] = None) -> torch.Tensor:
         """Embeddings [N, D] float32 -> top-1 prototype index [N]: the
         fused top-1 kernel on the L2-normalized embeddings (CUDA tensors;
         its plain version on CPU tensors), else matmul + top-k.  In
         classifier mode ``emb`` holds logits and the index is their
-        argmax (the first maximal class)."""
+        argmax (the first maximal class).  ``rep``: the replica whose
+        prototypes to use (default the first)."""
+        rep = rep or self._replicas[0]
         if self.classifier_mode:
             return torch.argmax(emb, dim=1)
         if self._top1:
-            _, idx = cuda_top1.top1(l2_normalize(emb), self._protos,
-                                    self._row_mask)
+            _, idx = cuda_top1.top1(l2_normalize(emb), rep.protos,
+                                    rep.row_mask)
             return idx
-        _, idx = knn_topk(emb, self._protos, k=self.config.knn_k,
-                          row_mask=self._row_mask)
+        _, idx = knn_topk(emb, rep.protos, k=self.config.knn_k,
+                          row_mask=rep.row_mask)
         return idx[:, 0]
 
-    def _detections(self, imgs: torch.Tensor):
+    def _detections(self, imgs: torch.Tensor,
+                    rep: Optional[_Replica] = None):
         """Detector + decode + greedy NMS on float canvases [B, H, W, C]
         -> (boxes, scores, classes, valid), [B, max_det]."""
         c = self.config
+        rep = rep or self._replicas[0]
         # record_function ranges name the stages in a torch.profiler trace
         # (chip_smoke.py --profile); they cost ~1 us when no profiler runs
         with record_function("ocr/detector"):
-            decoded, _ = self.localizer(self._cast_in(imgs))
+            decoded, _ = rep.localizer(self._cast_in(imgs))
         with record_function("ocr/decode_nms"):
             return decode_and_nms(
                 decoded.float(),
@@ -310,16 +390,18 @@ class EffOCRInference:
 
     # ------------------------------------------------------ device program
     @torch.inference_mode()
-    def _ocr_from_canvas(self, imgs: torch.Tensor, content_meta: torch.Tensor
-                         ) -> torch.Tensor:
+    def _ocr_from_canvas(self, imgs: torch.Tensor, content_meta: torch.Tensor,
+                         rep: Optional[_Replica] = None) -> torch.Tensor:
         """Fused chunk body: canvas float images [B, H, W, C] -> one packed
         result buffer (n_chars | nn_idx | char boxes | word boxes | word
         validity), int16 carrying uint16 bits under out_quant "u16", int32
         under "i32".  content_meta [B, 4] int32: (top, left, new_h, new_w).
+        ``rep``: the replica that runs it (default the first).
         """
         c = self.config
         dev = imgs.device
-        boxes, scores, classes, valid = self._detections(imgs)
+        rep = rep or self._replicas[0]
+        boxes, scores, classes, valid = self._detections(imgs, rep)
         imgs = self._cast_in(imgs)
         b, m = valid.shape
         # reading-order key = left edge, or top edge for vertical lines
@@ -342,7 +424,7 @@ class EffOCRInference:
         boxes_sorted = torch.gather(boxes, 1,
                                     row_order[..., None].expand(b, m, 4))
         csum = torch.cumsum(n_chars, dim=0)
-        t = torch.arange(min(c.crop_batch, b * m), device=dev)
+        t = torch.arange(min(self._crop_cap, b * m), device=dev)
         b_t = torch.searchsorted(csum, t, right=True)
         flat_valid = b_t < b
         flat_b = torch.clamp(b_t, max=b - 1)
@@ -389,10 +471,10 @@ class EffOCRInference:
                 ))  # the ROI crop computes in f32; re-cast for bf16 convs
             with record_function("ocr/encoder"):
                 # float32 embeddings: exact retrieval margins
-                embs.append(self.encoder(crops).float())
+                embs.append(rep.encoder(crops).float())
         # one retrieval over every crop slot of the chunk
         with record_function("ocr/retrieval"):
-            nn_idx = self._classify(torch.cat(embs))
+            nn_idx = self._classify(torch.cat(embs), rep)
 
         if c.out_quant == "u16":
             def pack(x):   # 1/16-px fixed point
@@ -427,7 +509,8 @@ class EffOCRInference:
 
     @torch.inference_mode()
     def _ocr_chunk(self, canvas_u8: torch.Tensor,
-                   content_meta: torch.Tensor) -> torch.Tensor:
+                   content_meta: torch.Tensor,
+                   rep: Optional[_Replica] = None) -> torch.Tensor:
         """Canvas upload [B, H, W*bits/8, C] uint8 -> packed result.
         transfer_bits 4: two width-adjacent pixels per byte (hi nibble =
         even px), unpacked by nibble replication (v * 17); 2: four pixels
@@ -442,13 +525,14 @@ class EffOCRInference:
             pix = torch.stack([((canvas_u8 >> s) & 0x3) * 85
                                for s in (6, 4, 2, 0)], dim=3)
             canvas_u8 = pix.reshape(b, h, wp * 4, ch)
-        return self._ocr_from_canvas(canvas_u8.float() / 255.0, content_meta)
+        return self._ocr_from_canvas(canvas_u8.float() / 255.0, content_meta,
+                                     rep)
 
     @torch.inference_mode()
     def _ocr_chunk_bucket(self, buckets_u8: torch.Tensor,
                           src_rect: torch.Tensor, dst_params: torch.Tensor,
-                          content_meta: torch.Tensor,
-                          size_h: int) -> torch.Tensor:
+                          content_meta: torch.Tensor, size_h: int,
+                          rep: Optional[_Replica] = None) -> torch.Tensor:
         """Bucket transfer: raw-size lines [B, Hb, Wb, C] uint8 in a small
         padded bucket, letterboxed on the device onto the size_h x
         input_size canvas (kernels/image_ops.py letterbox_device), then
@@ -457,7 +541,7 @@ class EffOCRInference:
             canvas = letterbox_device(
                 buckets_u8.float() / 255.0, src_rect, dst_params, size_h,
                 self.config.localizer.input_size)
-        return self._ocr_from_canvas(canvas, content_meta)
+        return self._ocr_from_canvas(canvas, content_meta, rep)
 
     @torch.inference_mode()
     def _detect(self, canvas_u8: torch.Tensor):
@@ -762,12 +846,30 @@ class EffOCRInference:
         the result's copy back to pinned host memory."""
         metas, meta_arr = self._letterbox_metas(chunk, ratios, tops, lefts)
         with self.timer.stage("prep/h2d+dispatch"):
-            out = self._ocr_chunk(
-                torch.from_numpy(canvas).to(self.device),
-                torch.from_numpy(meta_arr).to(self.device))
-            (out,), event = _to_host_async([out])
+            outs = self._issue_shards(
+                len(chunk), (canvas, meta_arr),
+                lambda rep, cv, meta: self._ocr_chunk(cv, meta, rep))
         return dict(chunk=chunk, chunk_keys=chunk_keys, metas=metas,
-                    fused_out=out, event=event)
+                    fused_out=outs)
+
+    def _issue_shards(self, n_lines: int, arrays, program):
+        """Split the host arrays [line_batch, ...] into one slice of
+        line_batch / n rows per replica, upload each to its replica's
+        device and issue ``program(rep, *slices)`` there, without waiting,
+        for the replicas that hold real lines; start each result's copy
+        back to pinned host memory.  Returns [(host tensor, event)]."""
+        per = self.config.line_batch // len(self._replicas)
+        outs = []
+        for d, rep in enumerate(self._replicas):
+            if d and d * per >= n_lines:
+                break
+            with rep.context():
+                out = program(rep, *(
+                    torch.from_numpy(a[d * per:(d + 1) * per]).to(rep.device)
+                    for a in arrays))
+                (host,), event = _to_host_async([out])
+            outs.append((host, event))
+        return outs
 
     def _dispatch_bucket(self, chunk, chunk_keys, size_h, size_w):
         """Bucket transfer: each line goes into a bucket_hw bucket at its
@@ -799,13 +901,13 @@ class EffOCRInference:
                 metas.append(dict(h=h, w=w, r=r0 * r1, top=top, left=left,
                                   new_h=nh, new_w=nw))
         with self.timer.stage("prep/h2d+dispatch"):
-            dev = [torch.from_numpy(a).to(self.device)
-                   for a in (buckets, src_rect, dst_params)]
             # the content lands where dst_params places it
-            out = self._ocr_chunk_bucket(*dev, dev[2], size_h)
-            (out,), event = _to_host_async([out])
+            outs = self._issue_shards(
+                len(chunk), (buckets, src_rect, dst_params),
+                lambda rep, bk, sr, dp: self._ocr_chunk_bucket(
+                    bk, sr, dp, dp, size_h, rep))
         return dict(chunk=chunk, chunk_keys=chunk_keys, metas=metas,
-                    fused_out=out, event=event)
+                    fused_out=outs)
 
     def _dispatch_original(self, chunk, chunk_keys, size_h, size_w):
         """crop_source original: the 8-bit RGB canvas (transfer_bits does
@@ -831,22 +933,35 @@ class EffOCRInference:
 
     def _finish_fused(self, handle, results, coco_boxes, tile_ctx=None,
                       want_coco=True) -> None:
-        """Decode one chunk's packed buffer and re-dispatch the lines that
-        overflowed crop_batch."""
-        with self.timer.stage("main/device_get"):
-            if handle["event"] is not None:
-                handle["event"].synchronize()
-            buf = handle["fused_out"].numpy()
-            if buf.dtype == np.int16:
-                buf = buf.view(np.uint16)
-        with self.timer.stage("main/postprocess"):
-            leftover = self._finish_fused_segment(
-                buf, handle["chunk"], handle["chunk_keys"], handle["metas"],
-                self.config.line_batch, results, coco_boxes, tile_ctx,
-                want_coco=want_coco)
-        if leftover is not None:
-            self._finish_chunk(self._dispatch_chunk(*leftover), results,
-                               coco_boxes, tile_ctx, want_coco=want_coco)
+        """Decode one chunk's packed segments, one per replica's
+        line_batch / n lines (the JAX engine's [n_shards, out_len]
+        buffer), and re-dispatch the lines that overflowed a segment's
+        crop cap."""
+        chunk, keys, metas = (handle["chunk"], handle["chunk_keys"],
+                              handle["metas"])
+        ld = self.config.line_batch // len(self._replicas)
+        left_chunk: List = []
+        left_keys: List = []
+        for d, (out, event) in enumerate(handle["fused_out"]):
+            lo = d * ld
+            with self.timer.stage("main/device_get"):
+                if event is not None:
+                    event.synchronize()
+                buf = out.numpy()
+                if buf.dtype == np.int16:
+                    buf = buf.view(np.uint16)
+            with self.timer.stage("main/postprocess"):
+                leftover = self._finish_fused_segment(
+                    buf, chunk[lo:lo + ld], keys[lo:lo + ld],
+                    metas[lo:lo + ld], ld, results, coco_boxes, tile_ctx,
+                    want_coco=want_coco)
+            if leftover is not None:
+                left_chunk.extend(leftover[0])
+                left_keys.extend(leftover[1])
+        if left_chunk:
+            self._finish_chunk(self._dispatch_chunk(left_chunk, left_keys),
+                               results, coco_boxes, tile_ctx,
+                               want_coco=want_coco)
 
     def _finish_fused_segment(self, buf, chunk, chunk_keys, metas, nb,
                               results, coco_boxes, tile_ctx=None,
@@ -856,7 +971,7 @@ class EffOCRInference:
         overflow, else None."""
         c = self.config
         n = len(chunk)
-        cap = min(c.crop_batch, nb * c.localizer.max_det)
+        cap = min(self._crop_cap, nb * c.localizer.max_det)
         u16 = buf.dtype == np.uint16
 
         def _unpack_boxes(seg, *shape):

@@ -10,6 +10,10 @@ reader harvesting a live run never sees a torn file.
 layout: the optimizer state is this package's AdamW, not optax's.  It
 carries ``format`` = TRAIN_STATE_FORMAT, and a file without it (such as
 the JAX package's ``last.msgpack``) is refused.
+
+Inside a process group only the primary rank writes; every rank waits
+at a barrier until the file is in place, so a rank that reads it next
+(``--resume``) reads the whole file.
 """
 
 from __future__ import annotations
@@ -17,16 +21,19 @@ from __future__ import annotations
 import os
 from typing import Any, Dict
 
+from effocr_torch.core import distributed
 from effocr_torch.interop.flax_msgpack import read_variables, write_variables
 
 TRAIN_STATE_FORMAT = "effocr_torch.train_state.v1"
 
 
 def _atomic_write(tree: Dict[str, Any], path: str) -> None:
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
-    write_variables(tree, tmp)
-    os.replace(tmp, path)
+    if distributed.is_primary():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp"
+        write_variables(tree, tmp)
+        os.replace(tmp, path)
+    distributed.barrier()
 
 
 def save_variables(variables: Dict[str, Any], path: str) -> None:

@@ -1,5 +1,6 @@
 """Localizer (detector) training (the JAX package's train/localizer.py),
-every detector family, on one device.
+every detector family, on one device or data-parallel over the ranks of
+a process group (core/distributed.py).
 
 One step: uint8 canvases / 255 on the device -> (with ``cfg.augment``)
 kernels/det_augment.py ``apply_detection_augment`` on draws from a
@@ -22,6 +23,15 @@ masks in every step.  The best checkpoint on
 bbox/AP (``>=``) goes to ``best_bbox_mAP.msgpack`` in the Flax layout,
 which both packages' ``load_engine`` read; ``save``/``resume`` write and
 read ``last.msgpack`` in this package's train-state layout.
+
+Data parallel (the JAX trainer's ``mesh=`` path): the model runs in
+``DistributedDataParallel``; ``train_step`` / ``train_step_bank`` take
+the global batch (or its indices), every rank draws the augmentation of
+the whole batch and keeps its contiguous slice, BatchNorm statistics and
+the losses' denominators are global (models/layers.py, train/losses.py,
+models/fcos.py), and the clip + AdamW run on the averaged gradients.
+``evaluate`` runs on every rank and gives the one-rank AP; only the
+primary rank writes files.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from typing import Dict, Iterable, List, Tuple
 import numpy as np
 import torch
 
+from effocr_torch.core import distributed
 from effocr_torch.core.config import LocalizerTrainConfig
 from effocr_torch.core.device import resolve_device, upload, use_full_f32
 from effocr_torch.eval.coco_map import coco_map
@@ -98,7 +109,9 @@ def make_detector_train_step(model: torch.nn.Module,
     [B,T,5], mask [B,T], draws).  Bank mode: step(bank_imgs, bank_targets,
     bank_masks, idx [B], draws), gathered on the bank's device.  ``draws``
     (draw_detection_augment) is used only with ``cfg.augment``."""
-    two_stage = anchors is None and hasattr(model, "num_proposals")
+    # (the family is the wrapped module's when ``model`` is in DDP)
+    two_stage = anchors is None and hasattr(
+        getattr(model, "module", model), "num_proposals")
     nc = cfg.localizer.num_classes
 
     def loss_of(raw, targets, target_mask):
@@ -137,11 +150,12 @@ class LocalizerTrainer:
     def __init__(self, cfg: LocalizerTrainConfig, model: torch.nn.Module,
                  run_dir: str, total_steps: int, device="cuda",
                  use_wandb: bool = False):
-        self.device = resolve_device(device)
+        self.device = distributed.rank_device(resolve_device(device))
         use_full_f32()
         self.cfg = cfg
         self.anchors = getattr(model, "anchors", None)
         self.model = model.to(self.device)
+        net = distributed.wrap_ddp(self.model, self.device)
         self.run_dir = run_dir
         os.makedirs(run_dir, exist_ok=True)
         self.metrics = MetricsWriter(run_dir, use_wandb=use_wandb)
@@ -152,9 +166,9 @@ class LocalizerTrainer:
                                weight_decay=cfg.weight_decay,
                                max_grad_norm=10.0)
         self._step_fn = make_detector_train_step(
-            self.model, cfg, self.optimizer, self.anchors)
+            net, cfg, self.optimizer, self.anchors)
         self._step_bank_fn = make_detector_train_step(
-            self.model, cfg, self.optimizer, self.anchors, bank_mode=True)
+            net, cfg, self.optimizer, self.anchors, bank_mode=True)
         self._banks: Dict[int, Tuple[torch.Tensor, ...]] = {}
         self.nms_kernel = "cuda" if self.device.type == "cuda" else "plain"
         self.best_ap = -1.0
@@ -176,25 +190,28 @@ class LocalizerTrainer:
 
     # ----------------------------------------------------------------- step
     def _draws(self, b: int, h: int, w: int, c: int):
+        """This rank's rows of the draws of a global batch of ``b``."""
         if not self.cfg.augment:
             return None
         gen = torch.Generator(device=self.device)
         gen.manual_seed(aug_seed(self.cfg.seed, self._aug_step))
         self._aug_step += 1
-        return draw_detection_augment(
+        return distributed.local_rows(draw_detection_augment(
             gen, b, h, w, c, flip_p=self.cfg.aug_flip_p,
-            scale=self.cfg.aug_scale, translate=self.cfg.aug_translate)
+            scale=self.cfg.aug_scale, translate=self.cfg.aug_translate))
 
     def _upload(self, a) -> torch.Tensor:
         return upload(torch.as_tensor(a), self.device)
 
     def train_step(self, images, targets, target_mask):
-        """One step on a host batch; (loss, parts) stay on the device."""
-        images, targets, target_mask = (self._upload(a) for a in (
-            images, targets, target_mask))
+        """One step on a host batch (the global batch: this rank's slice
+        goes up); (loss, parts) stay on the device."""
         b, h, w, c = images.shape
-        return self._step_fn(images, targets, target_mask,
-                             self._draws(b, h, w, c))
+        draws = self._draws(b, h, w, c)
+        images, targets, target_mask = (
+            self._upload(distributed.local_rows(a))
+            for a in (images, targets, target_mask))
+        return self._step_fn(images, targets, target_mask, draws)
 
     # ------------------------------------------------------ resident bank
     def attach_bank(self, dataset) -> Tuple[torch.Tensor, ...]:
@@ -209,10 +226,11 @@ class LocalizerTrainer:
 
     def train_step_bank(self, dataset, indices):
         bi, bt, bm = self.attach_bank(dataset)
-        idx = self._upload(np.asarray(indices, np.int64))
         _, h, w, c = bi.shape
-        return self._step_bank_fn(bi, bt, bm, idx,
-                                  self._draws(len(indices), h, w, c))
+        draws = self._draws(len(indices), h, w, c)
+        idx = self._upload(distributed.local_rows(
+            np.asarray(indices, np.int64)))
+        return self._step_bank_fn(bi, bt, bm, idx, draws)
 
     # ----------------------------------------------------------------- eval
     @torch.no_grad()

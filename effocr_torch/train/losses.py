@@ -3,6 +3,12 @@ metric learning, the cosine-classifier proxy cross-entropy, plain
 cross-entropy for classifier mode, and the YOLOv5 detector loss.  All in
 float32; the similarity matmuls are full float32 (the JAX package asks
 for ``Precision.HIGHEST``), so TF32 must stay off (core/device.py).
+
+Inside a process group of N ranks, each holding its slice of the global
+batch, every loss is built so that its mean over ranks is the loss of
+the global batch (core/distributed.py): SupCon over the all-gathered
+batch, the same on every rank; a sum over the batch as ``N * local_sum
+/ global_count``; a mean over equal slices as the local mean.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from effocr_torch.core import distributed
 from effocr_torch.kernels.retrieval import l2_normalize
 
 
@@ -24,7 +31,15 @@ def supcon_loss(embeddings: torch.Tensor, labels: torch.Tensor,
     positives, averaged over the anchors that have positives.
 
     embeddings [B, D] (unnormalised), labels [B] int, valid [B] bool
-    (padding slots leave anchors, positives and denominators)."""
+    (padding slots leave anchors, positives and denominators).  Inside a
+    process group each rank passes its rows and the loss is that of the
+    all-gathered global batch, on every rank; the gather's backward pass
+    brings every term's gradient to the rank that holds the row."""
+    if distributed.world_size() > 1:
+        embeddings = distributed.gather_rows(embeddings.float())
+        labels = distributed.gather_rows(labels)
+        if valid is not None:
+            valid = distributed.gather_rows(valid)
     b = embeddings.shape[0]
     dev = embeddings.device
     if valid is None:
@@ -60,9 +75,12 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, 1, labels[:, None].long())[:, 0]
     if valid is None:
+        # equal slices: the mean over ranks of the local means is the
+        # global mean
         return nll.mean()
-    return torch.where(valid, nll, 0.0).sum() / torch.clamp(valid.sum(),
-                                                            min=1)
+    count = distributed.global_count(valid.sum())
+    return distributed.world_size() * torch.where(valid, nll, 0.0).sum() \
+        / torch.clamp(count, min=1)
 
 
 # ------------------------------------------------------------- yolo loss
@@ -139,8 +157,10 @@ def yolo_loss(
     CIoU over matched cells; objectness BCE against the detached CIoU
     clipped at 0, balanced (4.0, 1.0, 0.4) over the scales; class BCE
     over matched cells (none when ``num_classes`` is 1).  The loss is
-    returned times B."""
+    returned times B.  Inside a process group B is the global batch and
+    the matched-cell counts are global (sums over ranks)."""
     balance = (4.0, 1.0, 0.4)
+    n_ranks = distributed.world_size()
     b, t = targets.shape[:2]
     dev = targets.device
     total_box, total_obj, total_cls = 0.0, 0.0, 0.0
@@ -208,8 +228,10 @@ def yolo_loss(
         tbox = torch.cat([g_xy, g_wh], -1)
 
         iou = _ciou(pbox, tbox)
-        n_matched = torch.clamp(matched.sum(), min=1)
-        box_l = torch.where(matched, 1.0 - iou, 0.0).sum() / n_matched
+        n_matched = torch.clamp(distributed.global_count(matched.sum()),
+                                min=1)
+        box_l = n_ranks * torch.where(matched, 1.0 - iou, 0.0).sum() / \
+            n_matched
 
         obj_t = torch.where(matched, torch.clamp(iou.detach(), min=0.0), 0.0)
         obj_l = _bce(ps[..., 4], obj_t).mean() * balance[si]
@@ -219,7 +241,8 @@ def yolo_loss(
             one_hot = (g_cls[..., None] == torch.arange(
                 num_classes, device=dev)).float()
             cls_bce = _bce(ps[..., 5:], one_hot)
-            cls_l = torch.where(matched[..., None], cls_bce, 0.0).sum() / (
+            cls_l = n_ranks * torch.where(matched[..., None], cls_bce,
+                                          0.0).sum() / (
                 n_matched * num_classes)
         else:
             cls_l = 0.0
@@ -234,4 +257,4 @@ def yolo_loss(
         "loss/obj": obj_gain * total_obj,
         "loss/cls": cls_gain * total_cls,
     }
-    return loss * b, parts
+    return loss * (b * n_ranks), parts

@@ -1,7 +1,7 @@
 """Structured metrics logging (the JAX package's train/metrics.py): the
 metric names train/loss, val/accuracy, written as JSONL to
 ``<run_dir>/metrics.jsonl``; a wandb sink attaches when asked for and
-importable."""
+importable.  Inside a process group only the primary rank writes."""
 
 from __future__ import annotations
 
@@ -10,15 +10,20 @@ import os
 import time
 from typing import Dict, Optional
 
+from effocr_torch.core import distributed
+
 
 class MetricsWriter:
     def __init__(self, run_dir: str, use_wandb: bool = False,
                  project: str = "effocr_torch", name: Optional[str] = None):
         os.makedirs(run_dir, exist_ok=True)
         self.path = os.path.join(run_dir, "metrics.jsonl")
-        self._f = open(self.path, "a")
         self._step = 0
         self._wandb = None
+        self._f = None
+        if not distributed.is_primary():
+            return
+        self._f = open(self.path, "a")
         if use_wandb:
             try:
                 import wandb
@@ -32,6 +37,8 @@ class MetricsWriter:
         if step is None:
             step = self._step
             self._step += 1
+        if self._f is None:
+            return
         rec = {"step": step, "time": time.time()}
         rec.update({k: float(v) for k, v in metrics.items()})
         self._f.write(json.dumps(rec) + "\n")
@@ -40,6 +47,7 @@ class MetricsWriter:
             self._wandb.log(metrics, step=step)
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
         if self._wandb is not None:
             self._wandb.finish()

@@ -1,6 +1,7 @@
 """Recognizer training (the JAX package's train/recognizer.py): SupCon
 metric learning (kNN mode, optionally with the auxiliary cosine-classifier
-head) or cross-entropy (classifier mode), on one device.
+head) or cross-entropy (classifier mode), on one device or data-parallel
+over the ranks of a process group (core/distributed.py).
 
 One step: augmentation (data/transforms.py ``apply_augment`` on draws
 from the epoch's generator) -> forward in train mode (BatchNorm on batch
@@ -18,6 +19,16 @@ the JAX trainer) and draws its augmentation from a ``torch.Generator``
 seeded from (cfg.seed, e), so a run resumed after epoch e replays the
 epochs an uninterrupted run would.
 
+Data parallel (the JAX trainer's ``mesh=`` path): the model runs in
+``DistributedDataParallel``; every rank draws the same global sampler
+batch and the same augmentation draws and keeps its contiguous slice
+(bank mode: each rank's bank on its own device, gathered with its slice
+of the indices); SupCon is taken over the all-gathered batch and the
+BatchNorm statistics over the global batch, so the step is the one-rank
+step on the whole batch.  Evaluation, ``build_ref_index`` and
+``infer_hardneg`` run on every rank and give the one-rank result; only
+the primary rank writes files, the others wait at a barrier.
+
 Artifacts: ``enc_best.msgpack`` (Flax layout, readable by the JAX
 package), ``ref.npz``/``ref.txt``, ``hns.txt``, ``metrics.jsonl``, and
 ``last.msgpack`` + ``last_meta.json`` (this package's train-state layout,
@@ -34,6 +45,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from effocr_torch.core import distributed
 from effocr_torch.core.config import RecognizerTrainConfig
 from effocr_torch.core.device import resolve_device, upload, use_full_f32
 from effocr_torch.data.folder import CharFolderDataset, embed_items
@@ -78,7 +90,10 @@ def make_train_step(model: torch.nn.Module, cfg: RecognizerTrainConfig,
     ``optimizer.step()``; returns the loss (a device scalar).
 
     ``aux``: the cosine-classifier proxies [C, D] (a leaf tensor the
-    optimizer also steps), weighted by ``cfg.aux_ce_weight``.
+    optimizer also steps), weighted by ``cfg.aux_ce_weight``; inside a
+    process group its gradient is averaged over ranks (``model`` is then
+    the DistributedDataParallel module, which averages its own), and
+    every input is this rank's slice of the global batch.
     Stream mode: step(images_u8 [B,S,S,3], targets [B], is_paired [B],
     draws).  Bank mode: step(bank [N,S,S] uint8, bank_targets [N],
     bank_paired [N], idx [B], draws), gathered on the bank's device."""
@@ -105,6 +120,8 @@ def make_train_step(model: torch.nn.Module, cfg: RecognizerTrainConfig,
                 loss = loss + cfg.aux_ce_weight * cosine_classifier_loss(
                     out, aux, targets, cfg.aux_ce_temp)
         loss.backward()
+        if aux is not None:
+            distributed.average_gradients([aux])
         optimizer.step()
         return loss.detach()
 
@@ -127,10 +144,11 @@ class RecognizerTrainer:
                 "--adjacent_font_path renders a glyph bank with a font "
                 "library this package does not have (ROADMAP.md, queue 1 "
                 "item 7)")
-        self.device = resolve_device(device)
+        self.device = distributed.rank_device(resolve_device(device))
         use_full_f32()
         self.cfg = cfg
         self.model = model.to(self.device)
+        self._net = None            # the model, in DDP inside a group
         self.run_dir = run_dir
         self.classifier_mode = classifier_mode
         os.makedirs(run_dir, exist_ok=True)
@@ -178,8 +196,10 @@ class RecognizerTrainer:
             groups.append(([self.aux], scaled(lr, cfg.aux_lr_mult)))
         self.optimizer = AdamW(groups, b2=cfg.adam_b2,
                                weight_decay=cfg.weight_decay)
+        if self._net is None:
+            self._net = distributed.wrap_ddp(self.model, self.device)
         self._step_fn = make_train_step(
-            self.model, cfg, self.optimizer, self.classifier_mode,
+            self._net, cfg, self.optimizer, self.classifier_mode,
             aux=self.aux if self.use_aux else None,
             bank_mode=self.bank is not None)
 
@@ -381,6 +401,7 @@ class RecognizerTrainer:
 
         size = cfg.encoder.image_size
         cuda = self.device.type == "cuda"
+        distributed.rank_slice(cfg.batch_size)   # the batch must divide
         for epoch in range(start_epoch, cfg.num_epochs):
             sampler = make_sampler(epoch)
             gen = torch.Generator(device=self.device)
@@ -392,6 +413,9 @@ class RecognizerTrainer:
                     gen, len(global_idx), size, lang=cfg.lang,
                     high_blur=cfg.high_blur, crop_sim=cfg.crop_sim,
                     paired_jitter=cfg.paired_jitter)
+                # this rank's rows of the global batch and of its draws
+                global_idx = distributed.local_rows(global_idx)
+                draws = distributed.local_rows(draws)
                 if self.bank is not None:
                     idx = upload(torch.tensor(global_idx), self.device)
                     loss = self._step_fn(self.bank, self._bank_targets,
@@ -405,7 +429,8 @@ class RecognizerTrainer:
                                self.device),
                         upload(torch.from_numpy(paired), self.device), draws)
                 if step % 50 == 0:
-                    self.metrics.log({"train/loss": float(loss)}, step=step)
+                    self.metrics.log({"train/loss": float(
+                        distributed.mean_over_ranks(loss))}, step=step)
                 step += 1
                 n_steps += 1
             if cuda:
@@ -426,10 +451,15 @@ class RecognizerTrainer:
         if cuda:
             peak = torch.cuda.max_memory_allocated(self.device) / 2**30
             self.metrics.log({"device/peak_gib": peak}, step=step)
+        if distributed.world_size() > 1:
+            distributed.check_in_sync({**self.model.state_dict(), **(
+                {"aux": self.aux} if self.aux is not None else {})})
         return self.best_acc
 
     def _save_last(self, epoch_done: int, step: int, last_path: str,
                    meta_path: str) -> None:
+        """last.msgpack and last_meta.json, written by the primary rank
+        while the others wait."""
         state = {
             "model": {k: v.detach().cpu().numpy()
                       for k, v in self.model.state_dict().items()},
@@ -438,10 +468,12 @@ class RecognizerTrainer:
             "opt": self.optimizer.state_dict(),
         }
         ckpt.save_train_state(state, last_path)
-        with open(meta_path + ".tmp", "w") as f:
-            json.dump({"epoch": epoch_done + 1, "step": step,
-                       "best_acc": float(self.best_acc)}, f)
-        os.replace(meta_path + ".tmp", meta_path)
+        if distributed.is_primary():
+            with open(meta_path + ".tmp", "w") as f:
+                json.dump({"epoch": epoch_done + 1, "step": step,
+                           "best_acc": float(self.best_acc)}, f)
+            os.replace(meta_path + ".tmp", meta_path)
+        distributed.barrier()
 
     def _load_last(self, last_path: str) -> None:
         state = ckpt.load_train_state(last_path)
@@ -495,7 +527,9 @@ class RecognizerTrainer:
                 for i in render_idx
             ]) if render_idx else None
         index = PrototypeIndex(embs, chars, thumbnails=thumbs)
-        index.save(self.run_dir)
+        if distributed.is_primary():
+            index.save(self.run_dir)
+        distributed.barrier()
         return index
 
     def infer_hardneg(self, dataset: CharFolderDataset,
@@ -504,6 +538,8 @@ class RecognizerTrainer:
         """k-NN hard-negative strings, written to hns.txt."""
         q_emb, _ = self.embed_indices(dataset, query_idx)
         lines = index.decode(q_emb, k=k, device=self.device)
-        with open(os.path.join(self.run_dir, "hns.txt"), "w") as f:
-            f.write("\n".join(lines))
+        if distributed.is_primary():
+            with open(os.path.join(self.run_dir, "hns.txt"), "w") as f:
+                f.write("\n".join(lines))
+        distributed.barrier()
         return lines

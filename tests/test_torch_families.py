@@ -541,8 +541,8 @@ def test_rcnn_loss_and_gradients_match():
 # ----------------------------------------------------------- train steps
 def _f64_copy(model, variables):
     """The port model with float64 parameters, convolutions, Dense layers
-    (heads included) and ROIAlign; BatchNorm normalises in float32
-    (layers.BatchNorm casts), as both packages do."""
+    (heads included), ROIAlign and BatchNorm (layers.BatchNorm keeps
+    float64 input in float64)."""
     m = copy.deepcopy(_loaded(model, variables)).double()
     for mod in m.modules():
         if hasattr(mod, "dtype"):

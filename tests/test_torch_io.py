@@ -10,8 +10,9 @@
   CPU;
 - the modes that once raised build and run on the CPU: wide-line tiling,
   spell check, ``crop_source original`` (jp artifacts), classifier mode
-  from a JAX-written classifier directory; ``--data_parallel`` still
-  raises;
+  from a JAX-written classifier directory; ``--data_parallel`` with one
+  visible device (the CPU) prints the JAX command's message and runs
+  unsharded;
 - golden checks pin each copied module (config, batching, lang, tiling,
   textline, coco_map, image_ops, spell_check, native
   decode/letterbox/pack bytes) to the original's outputs.
@@ -193,12 +194,16 @@ def test_infer_cli_main_on_cpu(artifact_dirs, tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--data_parallel"],
                                   ["--data_parallel", "--build_index_from",
                                    "chars"]])
-def test_load_engine_refuses_unported_paths(artifact_dirs, flag):
-    """--data_parallel raises before any artifact is read (with the
-    ported --build_index_from beside it, before any index build)."""
+def test_load_engine_refuses_unported_paths(artifact_dirs, flag, capsys):
+    """--data_parallel is ported: with one visible device (here the CPU)
+    load_engine prints the JAX command's message and builds an unsharded
+    engine (with --build_index_from beside it too)."""
     loc_dir, rec_dir, _, _ = artifact_dirs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_engine(_args(loc_dir, rec_dir, *flag))
+    engine = load_engine(_args(loc_dir, rec_dir, *flag))
+    assert ("--data_parallel: single device visible; running unsharded"
+            in capsys.readouterr().out)
+    assert len(engine._replicas) == 1
+    assert engine._crop_cap == engine.config.crop_batch
 
 
 def _gray_pngs(tmp_path, sizes, seed):

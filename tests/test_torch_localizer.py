@@ -423,8 +423,8 @@ def _bank(rng, n, channels):
 
 def _f64_conv_step(variables, tcfg, channels, *batch):
     """Gradients of the port's bank step with float64 convolutions (and
-    detect head), BatchNorm in float32 as both packages compute it: the
-    step's float32 convolution rounding taken out."""
+    detect head) and BatchNorm (layers.BatchNorm keeps float64 input in
+    float64): the step's float32 rounding taken out."""
     m = create_localizer("yolov5n", 2, in_channels=channels,
                          dtype=torch.float64)
     m.load_state_dict(flax_to_state_dict(variables))
