@@ -83,8 +83,8 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    - train_localizer: ``python -m effocr_torch train-localizer --device
      cuda`` with the en localizer recipe of scripts/northstar_en.sh at
      full width (yolov5s, 1024 wide, heights 64 and 96, 1 channel,
-     fitted anchors, batch 16, resident bank; depth cut to 6 epochs,
-     ``--eval_period 3``, ``--test_coco``) on 2,000 synthetic lines of
+     fitted anchors, batch 16, resident bank; depth cut to 4 epochs,
+     ``--eval_period 2``, ``--test_coco``) on 2,000 synthetic lines of
      phase train's glyphs; prints steps/s and images/s of the epochs
      after each height's first, the logged losses, AP / AP50 / AP75 of
      each evaluation and the test split, peak device memory and the
@@ -171,7 +171,31 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      gradients held to twice the 1-rank float32 step's distance from the
      float64 step (2 vs 1, and 2 ranks vs float64); and a profiled step
      on the ranks: wall time and all-reduce time.
-10. a ``kernels`` JSON line (launches per path under
+10. Artifacts in and out (the importers, ``infer``'s auto-convert,
+   ``export``), with interop/reference_writers.py writing the original
+   EffOCR's formats:
+   - interop_jp: the jp artifacts as a timm ``enc_best.pth`` (with and
+     without DataParallel's ``module.``), a FAISS ``ref.index`` +
+     ref.txt, and an ultralytics state dict and full module pickle;
+     ``python -m effocr_torch import-reference`` (recognizer at 128 px),
+     its main on the pickle, the state dict (same bytes), infer's hook on
+     the second dir (same weights' bytes); every converted tree bit for
+     bit the original's; then the jp_v3 flags with ``--crop_geometry
+     tight`` on the imported dirs through ``checked_runs`` (600 lines):
+     text identical to the original engine's on every line;
+   - interop_en: the en recognizer (1 channel) as an ``enc_best.onnx``
+     dir, imported at 128 px; one chunk of 512 lines on BENCH_TRAINED's
+     flags, the en localizer as it is: text identical;
+   - export: ``export_encoder`` of the jp recognizer at batch 64 on the
+     card (reload parity, rtol/atol 0.05, its largest difference), the
+     eager model against the reloaded program (kernel time, wall and
+     host enqueue of a call);
+   - import_encoder: the jp convnext_atto as an HF ConvNeXt dir,
+     ``import-encoder`` (the tree bit for bit, equal to the trainer's
+     weights after ``set_variables``), then ``train-recognizer
+     --checkpoint`` at phase train's recipe (convnext_atto, 3 channels,
+     1 epoch) in process: finite losses.
+11. a ``kernels`` JSON line (launches per path under
    ``launches_by_path``; K1's ``train_localizer`` counts the evaluation's
    launches and the engine's; ``calls_by_iou`` splits the family paths'
    calls by site), then ``{"ok": true, "device": ...}`` last.
@@ -669,6 +693,12 @@ def scaled_detector(dev, loc, canvas, offsets_by_scale):
     return loc
 
 
+def raw_prototypes(n, d, seed):
+    """The random rows an index of ``n`` prototypes is made from
+    (PrototypeIndex normalizes them)."""
+    return np.random.default_rng(seed).normal(size=(n, d)).astype(np.float32)
+
+
 def make_artifacts(dev, sample_paths):
     """Seeded random-init artifact dirs in the JAX package's format; the
     detect heads scaled on ``sample_paths`` letterboxed at the trained
@@ -694,8 +724,8 @@ def make_artifacts(dev, sample_paths):
                     os.path.join(rec_dir, "enc_best.msgpack"))
     with open(os.path.join(R5, "rec2k_mn_hn", "ref.txt"), newline="") as f:
         chars = f.read().rstrip("\n").split("\n")
-    protos = np.random.default_rng(SEED + 2).normal(size=(len(chars), 1024))
-    PrototypeIndex(protos.astype(np.float32), chars).save(rec_dir)
+    PrototypeIndex(raw_prototypes(len(chars), 1024, SEED + 2),
+                   chars).save(rec_dir)
     shutil.copy(os.path.join(R5, "rec2k_mn_hn", "ref.txt"), rec_dir)
     return loc_dir, rec_dir
 
@@ -861,8 +891,8 @@ def make_jp_artifacts(dev, sample_paths):
                     os.path.join(rec_dir, "enc_best.msgpack"))
     with open(os.path.join(R5, "rec_knn6k3", "ref.txt"), newline="") as f:
         chars = f.read().split("\n")     # no trailing newline: 11,051 rows
-    protos = np.random.default_rng(SEED + 14).normal(size=(len(chars), 320))
-    PrototypeIndex(protos.astype(np.float32), chars).save(rec_dir)
+    PrototypeIndex(raw_prototypes(len(chars), 320, SEED + 14),
+                   chars).save(rec_dir)
     shutil.copy(os.path.join(R5, "rec_knn6k3", "ref.txt"), rec_dir)
     return loc_dir, rec_dir
 
@@ -1993,12 +2023,12 @@ def phase_build_index_from(dev, card, paths, loc_dir, run_dir, tree):
 # ------------------------------------------------- localizer training
 # the en localizer recipe of scripts/northstar_en.sh:52-56 at full width
 # (yolov5s, gray, 1024 wide, heights 64 and 96, fitted anchors, batch 16,
-# resident bank); depth cut to 6 epochs of 125, an evaluation every 3
+# resident bank); depth cut to 4 epochs of 125, an evaluation every 2
 LOC_TRAIN_FLAGS = ["--arch", "yolov5s", "--input_size", "1024",
                    "--multi_height", "64,96", "--input_channels", "1",
                    "--fit_anchors", "--batch_size", "16",
-                   "--data_device", "resident", "--num_epochs", "6",
-                   "--eval_period", "3"]
+                   "--data_device", "resident", "--num_epochs", "4",
+                   "--eval_period", "2"]
 LOC_SPLITS = {"train": 2000, "val": 128, "test": 128, "read": 256}
 
 
@@ -2091,7 +2121,7 @@ def _loc_trainer(dev, run_dir, model_json, augment=False):
 def phase_train_localizer(dev, card, tree, rec_dir, out_dir):
     """``python -m effocr_torch train-localizer --device cuda`` with the
     en recipe at full width on a synthetic line corpus of phase train's
-    glyphs (depth cut to 6 epochs), ``--test_coco`` included.  Then, in
+    glyphs (depth cut to 4 epochs), ``--test_coco`` included.  Then, in
     process, the best checkpoint on the val split twice: every K1 keep
     mask held bit for bit against nms_mask, and on plain NMS; the AP
     dictionaries must be equal.  Then the en engine with the new
@@ -3591,6 +3621,368 @@ def phase_ddp_steps(dev, card, train):
 
 
 # --------------------------------------------------------------- main
+# -------------------------------------------- artifacts in and out
+# the original EffOCR's formats, written from the jp and en artifacts by
+# interop/reference_writers.py and read back by the importers
+N_INTEROP_EN = 512      # one chunk of the en flags
+IMPORT_FLAGS = ["--imsize", "128"]      # rec_knn6k3's / rec2k_mn_hn's size
+
+
+def _read_chars(path):
+    with open(path, newline="") as f:
+        return f.read().rstrip("\n").split("\n")
+
+
+def _reference_rec_dir(d, write_encoder, chars, protos):
+    """A reference-format recognizer dir: the encoder file(s), a FAISS
+    IndexFlatIP of ``protos`` (the rows the original index was made from:
+    PrototypeIndex normalizes them on load in both packages, so the
+    imported index is the original's bit for bit; its normalized rows
+    would be normalized a second time, which moves 1 ulp) and ref.txt."""
+    from effocr_torch.interop import reference_writers as w
+
+    os.makedirs(d, exist_ok=True)
+    write_encoder(d)
+    w.write_faiss_flat(os.path.join(d, "ref.index"), protos)
+    with open(os.path.join(d, "ref.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(chars) + "\n")
+
+
+def _same_tree(tag, a, b, path=""):
+    if set(a) != set(b):
+        raise AssertionError(f"{tag}: keys differ at {path or '/'}: "
+                             f"{sorted(set(a) ^ set(b))[:6]}")
+    for k in a:
+        if isinstance(a[k], dict):
+            _same_tree(tag, a[k], b[k], f"{path}/{k}")
+        elif not (np.asarray(a[k]).dtype == np.asarray(b[k]).dtype
+                  and np.array_equal(a[k], b[k])):
+            raise AssertionError(f"{tag}: {path}/{k} differs")
+
+
+def _file_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _interop_run(tag, card, original, imported, paths, k2):
+    """The imported engine through ``checked_runs`` (no plain run: the
+    comparison is the original engine's text), the original engine once
+    on the same lines; the text must be identical line for line, and
+    both engines' prototype rows bit for bit."""
+    if not np.array_equal(original.index.embeddings,
+                          imported.index.embeddings) or \
+            original.index.chars != imported.index.chars:
+        raise AssertionError(f"{tag}: the imported index is not the "
+                             "original's")
+    ref = original.run(paths)
+    run = checked_runs(imported, paths, tag, k2=k2, plain=False)
+    differ = [p for p in paths if run["results"][p] != ref[p]]
+    if differ:
+        raise AssertionError(
+            f"{tag}: {len(differ)} of {len(paths)} lines read differently "
+            f"from the original artifacts, e.g. {differ[0]}: "
+            f"{run['results'][differ[0]]!r} vs {ref[differ[0]]!r}")
+    out = report(tag, run, card, "; text identical to the original "
+                 f"artifacts' on all {len(paths)} lines")
+    out["identical_lines"] = len(paths)
+    return out
+
+
+def phase_interop_jp(dev, card, jp):
+    """The jp artifacts in the reference's formats: convnext_atto as a
+    timm ``enc_best.pth`` with DataParallel's ``module.`` (dir A) and
+    without it (dir B), the 11,051 prototypes as a FAISS ``ref.index`` +
+    ref.txt, yolov5n as an ultralytics state dict and as a full module
+    pickle whose classes exist only while saving.  ``python -m
+    effocr_torch import-reference`` converts dir A (at 128 px) and the
+    pickle; the state dict converts to the same bytes; infer's hook
+    converts dir B on first use (at its default 224 px: the weights'
+    bytes are dir A's).  Then ``load_engine`` with the jp_v3 flags on dir
+    A (the hook reuses its tpu_converted) and the imported localizer,
+    ``--crop_geometry tight`` as the original model.json says (a
+    reference artifact implies line geometry), through ``checked_runs``
+    on the jp path's 600 lines: text identical to the original
+    artifacts'."""
+    from effocr_torch.cli import import_reference
+    from effocr_torch.interop import reference_writers as w
+    from effocr_torch.interop.flax_msgpack import read_variables
+    from effocr_torch.interop.yolo_import import import_ultralytics_localizer
+    from effocr_torch.models.import_weights import sorted_tree
+    from effocr_torch.models.yolo import DEFAULT_ANCHORS
+
+    d = os.path.join(WORK, "interop", "jp")
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    loc_vars = read_variables(os.path.join(jp["loc_dir"],
+                                           "best_bbox_mAP.msgpack"))
+    rec_vars = read_variables(os.path.join(jp["rec_dir"], "enc_best.msgpack"))
+    sd = w.ultralytics_yolov5_state_dict(loc_vars["params"],
+                                         loc_vars["batch_stats"],
+                                         DEFAULT_ANCHORS)
+    os.makedirs(d)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+               os.path.join(d, "loc_state_dict.pt"))
+    w.save_module_pickle(os.path.join(d, "best.pt"), sd, epoch=299)
+    timm = w.timm_convnext_state_dict(rec_vars["params"])
+    chars = _read_chars(os.path.join(jp["rec_dir"], "ref.txt"))
+    protos = raw_prototypes(len(chars), 320, SEED + 14)
+    for name, prefix in (("ref_a", "module."), ("ref_b", "")):
+        _reference_rec_dir(
+            os.path.join(d, name), lambda r, p=prefix: torch.save(
+                {p + k: torch.from_numpy(v) for k, v in timm.items()},
+                os.path.join(r, "enc_best.pth")), chars, protos)
+    write_s = time.perf_counter() - t0
+    ref_a, ref_b = os.path.join(d, "ref_a"), os.path.join(d, "ref_b")
+    loc_dir = os.path.join(d, "loc")
+    # two calls: with both flags the command writes both into --out, the
+    # localizer's model.json over the recognizer's (as the JAX command)
+    _, import_s = run_cli(["import-reference", "--recognizer_dir", ref_a,
+                           *IMPORT_FLAGS], "import_reference")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        import_reference.main(["--localizer_pt", os.path.join(d, "best.pt"),
+                               "--out", loc_dir, "--input_size", "96",
+                               "--input_height", "640"])
+    pickle_s = time.perf_counter() - t0
+    conv_a = os.path.join(ref_a, "tpu_converted")
+    _same_tree("interop_jp recognizer",
+               read_variables(os.path.join(conv_a, "enc_best.msgpack")),
+               sorted_tree(rec_vars))
+    _same_tree("interop_jp localizer",
+               read_variables(os.path.join(loc_dir,
+                                           "best_bbox_mAP.msgpack")),
+               sorted_tree(loc_vars))
+    t0 = time.perf_counter()
+    import_ultralytics_localizer(os.path.join(d, "loc_state_dict.pt"),
+                                 os.path.join(d, "loc_sd"), 96, 640)
+    sd_s = time.perf_counter() - t0
+    if _file_bytes(os.path.join(d, "loc_sd", "best_bbox_mAP.msgpack")) != \
+            _file_bytes(os.path.join(loc_dir, "best_bbox_mAP.msgpack")):
+        raise AssertionError("interop_jp: the state dict and the full "
+                             "pickle import to different bytes")
+    # infer's hook on dir B: converted on first use, then reused
+    log_buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log_buf):
+        hooked = load_engine(jp_engine_args(loc_dir, ref_b))
+    hook_s = time.perf_counter() - t0
+    conv_b = os.path.join(ref_b, "tpu_converted")
+    if "converting reference-format recognizer_dir" not in \
+            log_buf.getvalue() or hooked.config.encoder.image_size != 224:
+        raise AssertionError(f"interop_jp: infer's hook did not convert "
+                             f"{ref_b}: {log_buf.getvalue()!r}")
+    if _file_bytes(os.path.join(conv_b, "enc_best.msgpack")) != \
+            _file_bytes(os.path.join(conv_a, "enc_best.msgpack")):
+        raise AssertionError("interop_jp: the hook's conversion differs "
+                             "from import-reference's")
+    del hooked
+    log(f"interop_jp: reference-format artifacts written in {write_s:.2f} "
+        f"s; python -m effocr_torch import-reference (the recognizer) "
+        f"exited 0 in {import_s:.2f} s of process wall; the full-pickle "
+        f"localizer imported in {pickle_s:.2f} s (its main, in process), "
+        f"the state dict in {sd_s:.2f} s to the same bytes; infer's hook "
+        f"converted dir B in {hook_s:.2f} s (engine build included); trees "
+        "bit for bit the originals'")
+    original = load_engine(jp_engine_args(jp["loc_dir"], jp["rec_dir"],
+                                          "--nms_kernel", "pallas"))
+    log_buf = io.StringIO()
+    with contextlib.redirect_stdout(log_buf):
+        imported = load_engine(jp_engine_args(
+            loc_dir, ref_a, "--nms_kernel", "pallas", "--crop_geometry",
+            "tight"))
+    if "converting" in log_buf.getvalue():
+        raise AssertionError("interop_jp: the hook converted dir A again")
+    out = _interop_run("interop_jp", card, original, imported, jp["paths"],
+                       k2=True)
+    out.update(write_s=write_s, import_cli_s=import_s,
+               import_pickle_s=pickle_s, import_sd_s=sd_s, hook_s=hook_s)
+    return out
+
+
+def phase_interop_en(dev, card, sl):
+    """The en recognizer (mobilenetv3_small_050, 1 channel) as an
+    ``enc_best.onnx``-only reference dir (the protobuf writer) with its 90
+    prototypes as a FAISS index, converted by import-reference's main at
+    128 px; the en localizer is left as it is (1 channel; ultralytics
+    models are 3-channel).  ``load_engine`` with BENCH_TRAINED's flags and
+    ``--crop_geometry tight`` on one chunk of 512 lines through
+    ``checked_runs``: text identical to the original artifacts'."""
+    from effocr_torch.cli import import_reference
+    from effocr_torch.interop import reference_writers as w
+    from effocr_torch.interop.flax_msgpack import read_variables
+    from effocr_torch.models.import_weights import sorted_tree
+
+    d = os.path.join(WORK, "interop", "en")
+    shutil.rmtree(d, ignore_errors=True)
+    rec_vars = read_variables(os.path.join(sl["rec_dir"], "enc_best.msgpack"))
+    chars = _read_chars(os.path.join(sl["rec_dir"], "ref.txt"))
+    t0 = time.perf_counter()
+    _reference_rec_dir(d, lambda r: w.write_onnx(
+        os.path.join(r, "enc_best.onnx"), w.timm_mobilenetv3_state_dict(
+            rec_vars["params"], rec_vars["batch_stats"])), chars,
+        raw_prototypes(len(chars), 1024, SEED + 2))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        import_reference.main(["--recognizer_dir", d, *IMPORT_FLAGS])
+    import_s = time.perf_counter() - t0
+    _same_tree("interop_en recognizer", read_variables(os.path.join(
+        d, "tpu_converted", "enc_best.msgpack")), sorted_tree(rec_vars))
+    log(f"interop_en: enc_best.onnx ({os.path.getsize(os.path.join(d, 'enc_best.onnx'))} "
+        f"bytes) + ref.index written in {write_s:.2f} s, imported in "
+        f"{import_s:.2f} s (in process); the tree is the original's bit "
+        "for bit")
+    paths = sl["paths"][:N_INTEROP_EN]
+    original = load_engine(engine_args(sl["loc_dir"], sl["rec_dir"]))
+    imported = load_engine(engine_args(sl["loc_dir"], d, "--crop_geometry",
+                                       "tight"))
+    out = _interop_run("interop_en", card, original, imported, paths,
+                       k2=False)
+    out.update(write_s=write_s, import_s=import_s)
+    return out
+
+
+EXPORT_BATCH = 64
+
+
+def forward_times(fn, reps=20):
+    """A model call's times: its kernels' device time (torch.profiler,
+    the sum over every kernel it launches) and their count, the wall
+    time a call of ``reps`` back to back (CUDA events: host enqueue gaps
+    included where the host is the slower side), and the host's enqueue
+    time of a call.  (device_ms cannot time a forward whose enqueue
+    outlasts its kernels: it cannot queue the calls ahead.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    end.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    return dict(device_ms=sum(e.self_device_time_total for e in kernels)
+                / 1e3 / reps,
+                kernels=sum(e.count for e in kernels) // reps,
+                wall_ms=start.elapsed_time(end) / reps, host_ms=host_ms)
+
+
+def phase_export(dev, card, rec_dir):
+    """``export`` of the jp recognizer (convnext_atto, 3 x 128 x 128) on
+    the card at batch 64: the command's reload parity (2 random batches,
+    rtol/atol 0.05) and its largest difference, then the eager model and
+    the reloaded program timed by ``device_ms`` on one batch."""
+    from effocr_torch.cli.export import export_encoder
+    from effocr_torch.cli.infer import load_recognizer
+
+    path = os.path.join(WORK, "interop", "enc_best.pt2")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        export_encoder(rec_dir, path, batch=EXPORT_BATCH, device="cuda")
+    export_s = time.perf_counter() - t0
+    worst = float(buf.getvalue().rsplit("max |reloaded - eager| ", 1)[1]
+                  .split()[0])
+    model, meta = load_recognizer(rec_dir)
+    size, ch = meta["image_size"], meta["input_channels"]
+    model = model.to(dev)
+    program = torch.export.load(path).module()
+    x = torch.rand((EXPORT_BATCH, size, size, ch), device=dev)
+    with torch.no_grad():
+        if not torch.equal(program(x), model(x)):
+            gap = float((program(x) - model(x)).abs().max())
+            log(f"export: reloaded vs eager differ by up to {gap:.3g} on a "
+                "uniform batch")
+        times = {name: forward_times(fn) for name, fn in (
+            ("eager", lambda: model(x)), ("exported", lambda: program(x)))}
+    log(f"export: torch.export of {os.path.basename(rec_dir)}'s encoder at "
+        f"[{EXPORT_BATCH}, {size}, {size}, {ch}] on the card in "
+        f"{export_s:.2f} s (trace, save, reload and parity); parity passed, "
+        f"max |reloaded - eager| {worst:.3g}; {os.path.getsize(path)} "
+        f"bytes; a call ({card}): " + "; ".join(
+            f"{name} {t['device_ms']:.4f} ms of kernels in {t['kernels']} "
+            f"launches, {t['wall_ms']:.4f} ms a call back to back, "
+            f"{t['host_ms']:.4f} ms of host enqueue"
+            for name, t in times.items()))
+    return dict(export_s=export_s, max_abs_diff=worst,
+                bytes=os.path.getsize(path), **{
+                    f"{name}_{k}": v for name, t in times.items()
+                    for k, v in t.items()})
+
+
+def phase_import_encoder(dev, card, jp, train):
+    """The jp convnext_atto as an HF ``ConvNextModel`` dir (config.json +
+    model.safetensors, the port's writer), ``import-encoder`` (main, in
+    process) to a variables msgpack equal to the original tree bit for
+    bit, loaded by the recognizer trainer's own ``set_variables`` (the
+    weights after load equal it), then ``train-recognizer --checkpoint``
+    with phase train's recipe at 1 epoch (convnext_atto, 3 channels, no
+    test split or hard-negative mining) in process: finite losses."""
+    from types import SimpleNamespace
+
+    from effocr_torch.cli import import_encoder, train_recognizer
+    from effocr_torch.interop import reference_writers as w
+    from effocr_torch.interop.flax_msgpack import read_variables
+    from effocr_torch.models.import_weights import sorted_tree
+    from effocr_torch.train.recognizer import RecognizerTrainer
+
+    d = os.path.join(WORK, "interop", "hf")
+    shutil.rmtree(d, ignore_errors=True)
+    rec_vars = read_variables(os.path.join(jp["rec_dir"], "enc_best.msgpack"))
+    w.write_hf_convnext_dir(d, rec_vars["params"], 128)
+    out_path = os.path.join(d, "enc_init.msgpack")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        import_encoder.main(["--model_dir", d, "--out", out_path])
+    import_s = time.perf_counter() - t0
+    imported = read_variables(out_path)
+    _same_tree("import_encoder", imported, sorted_tree(rec_vars))
+    model = create_encoder("convnext_atto", in_channels=3, image_size=128)
+    RecognizerTrainer.set_variables(SimpleNamespace(model=model), imported)
+    _same_tree("import_encoder after load",
+               sorted_tree(state_dict_to_flax(model.state_dict())), imported)
+    tr = train["train"]
+    run_dir = os.path.join(WORK, "interop", "warm_start")
+    flags = _with(TRAIN_FLAGS, auto_model="convnext_atto",
+                  input_channels="3", num_epochs="1", infer_hardneg_k="0")
+    flags.remove("--test_at_end")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_recognizer.main(
+            ["--device", "cuda", "--root_dir_path", tr["tree"],
+             "--train_ann_path", tr["splits"]["train"], "--val_ann_path",
+             tr["splits"]["val"], "--test_ann_path", tr["splits"]["test"],
+             "--run_name", run_dir, "--checkpoint", out_path, *flags])
+    train_s = time.perf_counter() - t0
+    steps_s, recs = _epoch_rate(run_dir)
+    losses = [r["train/loss"] for r in recs if "train/loss" in r]
+    val = [r["val/accuracy"] for r in recs if "val/accuracy" in r]
+    if not losses or not all(np.isfinite(losses)):
+        raise AssertionError(f"import_encoder: losses {losses}")
+    log(f"import_encoder: HF dir -> variables in {import_s:.2f} s, equal to "
+        f"the original tree and to the trainer's weights after load; "
+        f"train-recognizer --checkpoint (1 epoch, in process) in "
+        f"{train_s:.1f} s: {steps_s:.2f} steps/s ({card}), losses {losses},"
+        f" val p@1 {val}")
+    return dict(import_s=import_s, train_s=train_s, steps_s=steps_s,
+                losses=losses, val_p1=val)
+
+
 def main(argv) -> int:
     import argparse
 
@@ -3744,7 +4136,23 @@ def main(argv) -> int:
         par[name]["phase_s"] = time.perf_counter() - t0
         log(f"phase {name}: {par[name]['phase_s']:.1f} s")
     log(f"the data-parallel phases: {time.perf_counter() - t_dp:.1f} s")
-    launched = {k: v for k, v in {**more, **train, **fam, **par}.items()
+    # artifacts in and out: the reference's formats, export, import-encoder
+    t_io = time.perf_counter()
+    interop = {}
+    for name, run_phase in (
+        ("interop_jp", lambda: phase_interop_jp(dev, card, jp)),
+        ("interop_en", lambda: phase_interop_en(dev, card, sl)),
+        ("export", lambda: phase_export(dev, card, jp["rec_dir"])),
+        ("import_encoder", lambda: phase_import_encoder(dev, card, jp,
+                                                        train)),
+    ):
+        t0 = time.perf_counter()
+        interop[name] = run_phase()
+        interop[name]["phase_s"] = time.perf_counter() - t0
+        log(f"phase {name}: {interop[name]['phase_s']:.1f} s")
+    log(f"the interop phases: {time.perf_counter() - t_io:.1f} s")
+    launched = {k: v for k, v in {**more, **train, **fam, **par,
+                                  **interop}.items()
                 if "k1_launches" in v}
     k1_by_path = {"en": sl["k1_launches"], "jp": jp["k1_launches"],
                   **{k: v["k1_launches"] for k, v in launched.items()}}
@@ -3810,7 +4218,7 @@ def main(argv) -> int:
                    jp={k: v for k, v in jp.items()
                        if k not in ("k1_main", "k2_main", "paths")},
                    other_paths=more, training=train, families=fam,
-                   data_parallel=par,
+                   data_parallel=par, interop=interop,
                    kernels=kernels, k1_sweep=k1_sweep,
                    total_s=time.perf_counter() - t_start)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

@@ -1,25 +1,46 @@
-"""``python -m effocr_torch <command>``; the ported commands are
-``infer``, ``serve``, ``train-recognizer``, ``train-localizer``,
-``build-index`` and ``build-freq-dict``."""
+"""``python -m effocr_torch <command>``.
+
+Ported commands: ``infer``, ``serve``, ``train-recognizer``,
+``train-localizer``, ``build-index``, ``build-freq-dict``,
+``build-homoglyphs``, ``import-reference``, ``import-encoder``,
+``export``, ``coco-split``, ``coco-combine`` and ``coco-subset``.
+``NOT_PORTED`` names the JAX package's commands still to port (ROADMAP.md
+queue 1).
+"""
 
 import sys
 
+COMMANDS = {
+    "infer": "effocr_torch.cli.infer",
+    "serve": "effocr_torch.cli.serve",
+    "train_recognizer": "effocr_torch.cli.train_recognizer",
+    "train_localizer": "effocr_torch.cli.train_localizer",
+    "build_index": "effocr_torch.cli.build_index",
+    "build_freq_dict": "effocr_torch.cli.build_freq_dict",
+    "build_homoglyphs": "effocr_torch.cli.build_homoglyphs",
+    "import_reference": "effocr_torch.cli.import_reference",
+    "import_encoder": "effocr_torch.cli.import_encoder",
+    "export": "effocr_torch.cli.export",
+    "coco_split": "effocr_torch.cli.coco_tools",
+    "coco_combine": "effocr_torch.cli.coco_tools",
+    "coco_subset": "effocr_torch.cli.coco_tools",
+}
+NOT_PORTED = ("make-corpus", "make-charset", "format-dataset",
+              "train-seq2seq", "import-trocr", "error-analysis", "viz")
+
 
 def main():
-    cmds = {"infer": "effocr_torch.cli.infer",
-            "serve": "effocr_torch.cli.serve",
-            "train_recognizer": "effocr_torch.cli.train_recognizer",
-            "train_localizer": "effocr_torch.cli.train_localizer",
-            "build_index": "effocr_torch.cli.build_index",
-            "build_freq_dict": "effocr_torch.cli.build_freq_dict"}
-    if len(sys.argv) < 2 or sys.argv[1].replace("-", "_") not in cmds:
-        names = ",".join(c.replace("_", "-") for c in cmds)
-        print(f"usage: python -m effocr_torch {{{names}}} ...; "
-              "ROADMAP.md lists the commands still to port")
+    if len(sys.argv) < 2 or sys.argv[1].replace("-", "_") not in COMMANDS:
+        names = ",".join(c.replace("_", "-") for c in COMMANDS)
+        print(f"usage: python -m effocr_torch {{{names}}} ...; not ported "
+              f"yet: {', '.join(NOT_PORTED)} (ROADMAP.md queue 1)")
         sys.exit(1)
-    mod = __import__(cmds[sys.argv.pop(1).replace("-", "_")],
-                     fromlist=["main"])
-    mod.main()
+    cmd = sys.argv.pop(1).replace("-", "_")
+    mod = __import__(COMMANDS[cmd], fromlist=["main"])
+    if cmd.startswith("coco_"):
+        mod.main(cmd)
+    else:
+        mod.main()
 
 
 if __name__ == "__main__":

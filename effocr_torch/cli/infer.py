@@ -7,7 +7,11 @@ same artifact directories: the localizer_dir holds ``model.json`` +
 trained with a class head, ``num_classes`` in its model.json and a
 ``class_map.json``).  A recognizer_dir without ``ref.npz`` takes
 ``--build_index_from <char-folder tree>``: the renders of the tree are
-embedded into an ad-hoc index, saved there.  Adds ``--device`` (default
+embedded into an ad-hoc index, saved there.  A reference-format
+recognizer_dir (the original EffOCR's enc_best.pth or enc_best.onnx +
+FAISS ref.index + ref.txt) is converted on first use into
+``<dir>/tpu_converted`` (interop/reference_artifacts.py), as the JAX
+command does.  Adds ``--device`` (default
 cuda).  ``--data_parallel`` runs one engine replica per visible CUDA
 device (``EffOCRInference(devices=...)``), ``line_batch`` rounded up to
 a multiple of their number as in the JAX command; with one device it
@@ -37,6 +41,9 @@ from effocr_torch.data.folder import CharFolderDataset, embed_items
 from effocr_torch.eval.textline import textline_evaluation
 from effocr_torch.interop.flax_bridge import flax_to_state_dict
 from effocr_torch.interop.flax_msgpack import read_variables
+from effocr_torch.interop.reference_artifacts import (
+    maybe_convert_reference_dir,
+)
 from effocr_torch.models.factory import (
     create_classifier,
     create_encoder,
@@ -50,6 +57,20 @@ def _load_model(model, path: str):
     model.load_state_dict(flax_to_state_dict(read_variables(path)),
                           strict=True)
     return model
+
+
+def load_recognizer(recognizer_dir: str):
+    """(encoder, or classifier when model.json has ``num_classes``, with
+    enc_best.msgpack's weights; model.json) of a recognizer dir."""
+    with open(os.path.join(recognizer_dir, "model.json")) as f:
+        meta = json.load(f)
+    arch = meta.get("arch", "convnext_tiny")
+    kw = dict(in_channels=meta.get("input_channels", 3),
+              image_size=meta.get("image_size", 224))
+    model = (create_classifier(arch, meta["num_classes"], **kw)
+             if meta.get("num_classes") else create_encoder(arch, **kw))
+    return _load_model(model, os.path.join(recognizer_dir,
+                                           "enc_best.msgpack")), meta
 
 
 def build_adhoc_index(encoder, tree: str, font_name, imsize: int,
@@ -86,9 +107,10 @@ def load_engine(args) -> EffOCRInference:
     if args.input_height is None:
         args.input_height = loc_meta.get("input_height")
 
-    # recognizer
-    with open(os.path.join(args.recognizer_dir, "model.json")) as f:
-        rec_meta = json.load(f)
+    # recognizer: a reference-format dir (enc_best.pth or enc_best.onnx +
+    # FAISS ref.index) is converted on first use
+    args.recognizer_dir = maybe_convert_reference_dir(args.recognizer_dir)
+    encoder, rec_meta = load_recognizer(args.recognizer_dir)
     imsize = rec_meta.get("image_size", 224)
     rec_ch = rec_meta.get("input_channels", 3)
     if rec_ch != loc_ch:
@@ -97,15 +119,6 @@ def load_engine(args) -> EffOCRInference:
             f"input_channels ({loc_ch}): the fused pipeline crops encoder "
             "inputs from the detector canvas, so both models must be "
             "trained with the same --input_channels")
-    arch = rec_meta.get("arch", "convnext_tiny")
-    if rec_meta.get("num_classes"):
-        encoder = create_classifier(arch, rec_meta["num_classes"],
-                                    in_channels=rec_ch, image_size=imsize)
-    else:
-        encoder = create_encoder(arch, in_channels=rec_ch,
-                                 image_size=imsize)
-    encoder = _load_model(encoder, os.path.join(args.recognizer_dir,
-                                                "enc_best.msgpack"))
 
     # classifier mode when the model has a class head and the dir holds
     # class_map.json (class index -> char); else the prototype index

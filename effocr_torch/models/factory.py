@@ -97,10 +97,13 @@ def _lookup(registry: Dict[str, Callable], kind: str, name: str) -> Callable:
 
 def create_encoder(name: str, in_channels: int = 3,
                    dtype: torch.dtype = torch.bfloat16,
-                   image_size: int = 224) -> nn.Module:
+                   image_size: int = 224, **kw) -> nn.Module:
     """``image_size`` sizes the token grid of the ViT / XCiT encoders
-    (SIZED_ENCODERS); the others ignore it."""
-    kw = {"image_size": image_size} if name in SIZED_ENCODERS else {}
+    (SIZED_ENCODERS); the others ignore it.  Other keywords go to the
+    constructor (``head_features`` of MobileNetV3), as in the JAX
+    factory."""
+    if name in SIZED_ENCODERS:
+        kw["image_size"] = image_size
     return _lookup(ENCODER_REGISTRY, "encoder", name)(
         in_channels=in_channels, dtype=dtype, **kw).eval()
 

@@ -58,6 +58,11 @@ from torch.profiler import record_function
 from effocr_torch import native
 from effocr_torch.core.config import PipelineConfig
 from effocr_torch.core.device import resolve_device, use_full_f32
+from effocr_torch.data.coco import (
+    COCO_JSON_SKELETON,
+    create_coco_anno_entry,
+    create_coco_image_entry,
+)
 from effocr_torch.data import png
 from effocr_torch.data.png import png_header as _png_header
 from effocr_torch.kernels import cuda_top1
@@ -139,27 +144,20 @@ def _materialize_batch(chunk: List) -> List[np.ndarray]:
 
 def build_inference_coco(coco_boxes: Dict) -> Dict:
     """COCO-format prediction output: per-line image entries (with decoded
-    text) and per-char box annotations in original-image coordinates."""
-    coco = {
-        "info": {}, "licenses": [], "images": [], "annotations": [],
-        "categories": [{"id": 0, "name": "char", "supercategory": ""},
-                       {"id": 1, "name": "word", "supercategory": ""}],
-    }
+    text; no ``text`` key for a line that reads None, as the JAX engine
+    writes it) and per-char box annotations in original-image
+    coordinates."""
+    coco = copy.deepcopy(COCO_JSON_SKELETON)
     anno_id = 0
     for image_id, (key, entry) in enumerate(coco_boxes.items()):
-        coco["images"].append({
-            "id": image_id, "file_name": os.path.basename(str(key)),
-            "height": entry["height"], "width": entry["width"],
-            "text": entry["text"],
-        })
+        coco["images"].append(create_coco_image_entry(
+            os.path.basename(str(key)), entry["height"], entry["width"],
+            image_id, text=entry["text"]))
         for cb in entry["chars"]:
             x, y, w, h = cb["bbox"]
-            coco["annotations"].append({
-                "id": anno_id, "image_id": image_id, "category_id": 0,
-                "bbox": [x, y, w, h], "area": w * h,
-                "segmentation": [[x, y, x + w, y, x + w, y + h, x, y + h]],
-                "iscrowd": 0, "text": cb["char"],
-            })
+            anno = create_coco_anno_entry(x, y, w, h, anno_id, image_id, 0)
+            anno["text"] = cb["char"]
+            coco["annotations"].append(anno)
             anno_id += 1
     return coco
 

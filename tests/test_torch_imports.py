@@ -1,9 +1,12 @@
 """effocr_torch stands alone: no JAX, no Flax, nothing of effocr_tpu.
 
 In a fresh interpreter where importing ``jax``, ``flax``, ``optax``,
-``msgpack``, ``PIL`` or ``cv2`` fails, every module of effocr_torch (the
-training slice's data, train and CLI modules included) and chip_smoke.py
-(imported, not run) must import, and no ``effocr_tpu`` module may get
+``msgpack``, ``PIL``, ``cv2``, ``safetensors``, ``transformers``,
+``timm``, ``onnx``, ``onnxruntime`` or ``faiss`` fails, every module of
+effocr_torch (the training slice's data, train and CLI modules included)
+and chip_smoke.py (imported, not run) must import, the artifact
+importers must read what the port's writers write (FAISS, ONNX,
+safetensors, a full module pickle), and no ``effocr_tpu`` module may get
 loaded.  Entry points with the
 default device (the engine, ``serve``'s engine loading) must raise when
 CUDA is absent instead of running on the CPU.
@@ -20,7 +23,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _GUARD = textwrap.dedent("""
     import importlib, importlib.util, pkgutil, sys
-    for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "cv2"):
+    for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "cv2",
+                 "safetensors", "transformers", "timm", "onnx",
+                 "onnxruntime", "faiss"):
         sys.modules[name] = None
     import effocr_torch
     # Python modules only: the built native libraries sit in the tree too
@@ -30,6 +35,36 @@ _GUARD = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     import chip_smoke
+    # the importers, on what the writers write
+    import os, tempfile
+    import numpy as np
+    from effocr_torch.interop import reference_artifacts as ref
+    from effocr_torch.interop import reference_writers as w
+    from effocr_torch.interop.flax_bridge import state_dict_to_flax
+    from effocr_torch.interop.yolo_import import import_ultralytics_localizer
+    from effocr_torch.models import factory, import_weights
+    d = tempfile.mkdtemp()
+    enc = factory.create_encoder("mobilenetv3_small_050")
+    v = state_dict_to_flax(enc.state_dict())
+    os.makedirs(d + "/rec")
+    w.write_onnx(d + "/rec/enc_best.onnx", w.timm_mobilenetv3_state_dict(
+        v["params"], v["batch_stats"]))
+    w.write_faiss_flat(d + "/rec/ref.index", np.eye(2, 1024, dtype="f4"))
+    open(d + "/rec/ref.txt", "w").write("a" + chr(10) + "b")
+    assert ref.maybe_convert_reference_dir(d + "/rec").endswith(
+        "tpu_converted")
+    cnx = state_dict_to_flax(factory.create_encoder(
+        "convnext_atto").state_dict())
+    w.write_hf_convnext_dir(d + "/hf", cnx["params"], 64)
+    assert import_weights.import_hf_encoder(d + "/hf")[1] == "convnext_atto"
+    loc = factory.create_localizer("yolov5n")
+    v = state_dict_to_flax(loc.state_dict())
+    w.save_module_pickle(d + "/best.pt", w.ultralytics_yolov5_state_dict(
+        v["params"], v["batch_stats"], loc.anchors))
+    import_ultralytics_localizer(d + "/best.pt", d + "/loc")
+    for name in ("safetensors", "transformers", "timm", "onnx",
+                 "onnxruntime", "faiss"):
+        assert sys.modules[name] is None, name
     leaked = sorted(k for k in sys.modules if k.startswith("effocr_tpu"))
     assert not leaked, leaked
     print(len(names))

@@ -24,6 +24,7 @@ import dataclasses
 import json
 import os
 import shutil
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -660,3 +661,173 @@ def test_stage_timer():
     assert timer.counts["a"] == 3 and "a" in timer.report()
     timer.reset()
     assert not timer.totals
+
+
+# ------------------------------------- the JAX-free data tools (copies)
+def _coco_corpus(rng, n_images=23):
+    from effocr_torch.data import coco
+
+    out = {"info": {}, "licenses": [], "categories": list(
+        coco.COCO_JSON_SKELETON["categories"]), "images": [],
+        "annotations": []}
+    anno_id = 0
+    for i in range(n_images):
+        out["images"].append(coco.create_coco_image_entry(
+            f"l{i}.png", 48, int(rng.integers(100, 900)), i,
+            text=None if i % 5 == 0 else "ab c"))
+        for k in range(int(rng.integers(0, 4))):
+            x, y, w, h = (float(v) for v in rng.uniform(0, 50, 4))
+            out["annotations"].append(coco.create_coco_anno_entry(
+                x, y, w, h, anno_id, i, k % 2))
+            anno_id += 1
+    return out
+
+
+def test_coco_copy_matches():
+    from effocr_tpu.data import coco as j_coco
+    from effocr_torch.data import coco
+
+    assert coco.COCO_JSON_SKELETON == j_coco.COCO_JSON_SKELETON
+    assert coco.create_coco_anno_entry(1.5, 2, 3, 4.25, 7, 9, 1) == \
+        j_coco.create_coco_anno_entry(1.5, 2, 3, 4.25, 7, 9, 1)
+    for text in (None, "x y"):
+        assert coco.create_coco_image_entry("a.png", 3, 4, 5, text) == \
+            j_coco.create_coco_image_entry("a.png", 3, 4, 5, text)
+    corpus = _coco_corpus(np.random.default_rng(0))
+    for seed in (0, 99):
+        assert coco.split_coco_json(corpus, 0.7, 0.2, seed) == \
+            j_coco.split_coco_json(corpus, 0.7, 0.2, seed)
+        assert coco.subset_coco_json(corpus, 9, seed) == \
+            j_coco.subset_coco_json(corpus, 9, seed)
+    other = _coco_corpus(np.random.default_rng(1), 6)
+    assert coco.combine_coco_jsons(corpus, other) == \
+        j_coco.combine_coco_jsons(corpus, other)
+    rng = np.random.default_rng(2)
+    a = np.sort(rng.uniform(0, 50, (6, 4)).reshape(6, 2, 2), 1).reshape(6, 4)
+    b = np.sort(rng.uniform(0, 50, (6, 4)).reshape(6, 2, 2), 1).reshape(6, 4)
+    np.testing.assert_array_equal(coco.box_iom(a, b), j_coco.box_iom(a, b))
+    anno = corpus["annotations"][0]
+    for vertical in (False, True):
+        assert coco.clip_to_top_and_bottom(anno, 48.0, vertical) == \
+            j_coco.clip_to_top_and_bottom(anno, 48.0, vertical)
+    with pytest.raises(NotImplementedError, match="queue 1"):
+        coco.extract_char_crops(corpus, "images", "crops")
+
+
+def test_coco_tools_write_the_jax_bytes(tmp_path, monkeypatch, capsys):
+    """coco-split / coco-combine / coco-subset: the JAX commands' files,
+    byte for byte, and their printed lines."""
+    from effocr_tpu.cli import coco_tools as j_tools
+    from effocr_torch.cli import coco_tools
+
+    src = tmp_path / "corpus.json"
+    src.write_text(json.dumps(_coco_corpus(np.random.default_rng(3))))
+    other = tmp_path / "other.json"
+    other.write_text(json.dumps(_coco_corpus(np.random.default_rng(4), 5)))
+    runs = {
+        "coco_split": lambda o: ["--coco_json", str(src), "--out_prefix",
+                                 str(o / "split"), "--seed", "7"],
+        "coco_combine": lambda o: ["--coco_json_a", str(src),
+                                   "--coco_json_b", str(other), "--out",
+                                   str(o / "merged.json")],
+        "coco_subset": lambda o: ["--coco_json", str(src), "--n", "8",
+                                  "--out", str(o / "sub.json"), "--seed",
+                                  "3"],
+    }
+    for cmd, argv in runs.items():
+        mine, theirs = tmp_path / f"p_{cmd}", tmp_path / f"j_{cmd}"
+        mine.mkdir()
+        theirs.mkdir()
+        coco_tools.main(cmd, argv(mine))
+        said = capsys.readouterr().out
+        monkeypatch.setattr(sys, "argv", [cmd] + argv(theirs))
+        j_tools.main(cmd)
+        assert said == capsys.readouterr().out.replace(str(theirs),
+                                                       str(mine))
+        names = sorted(os.listdir(theirs))
+        assert sorted(os.listdir(mine)) == names and names
+        for name in names:
+            assert (mine / name).read_bytes() == (theirs / name).read_bytes()
+
+
+def test_charsets_copies_match(tmp_path):
+    from effocr_tpu.data import builtin_charsets as j_builtin
+    from effocr_tpu.data import charsets as j_charsets
+    from effocr_torch.data import builtin_charsets, charsets
+
+    for name in ("JP_DIGITS", "JP_LATIN", "JP_EXTRA", "JP_REMOVE"):
+        assert getattr(charsets, name) == getattr(j_charsets, name)
+    assert builtin_charsets.english_charsets() == \
+        j_builtin.english_charsets()
+    for pkg, mod in (("p", builtin_charsets), ("j", j_builtin)):
+        mod.write_charset_dir(str(tmp_path / pkg))
+    for name in sorted(os.listdir(tmp_path / "j")):
+        assert (tmp_path / "p" / name).read_bytes() == \
+            (tmp_path / "j" / name).read_bytes()
+    with open(j_builtin.jp_charset_path(), "rb") as f, \
+            open(builtin_charsets.jp_charset_path(), "rb") as g:
+        assert f.read() == g.read()
+    for path in (str(tmp_path / "j"), os.path.dirname(
+            j_builtin.jp_charset_path())):
+        chars = charsets.load_charset_dir(path)
+        assert chars == j_charsets.load_charset_dir(path)
+        for lang in ("en", "jp"):
+            assert charsets.harmonize_charset(chars, lang) == \
+                j_charsets.harmonize_charset(chars, lang)
+    full = charsets.harmonize_charset(chars, "jp")
+    p = charsets.save_charset(full, str(tmp_path / "sp"), "jp")
+    q = j_charsets.save_charset(full, str(tmp_path / "sj"), "jp")
+    with open(p, "rb") as f, open(q, "rb") as g:
+        assert f.read() == g.read()
+    assert charsets.load_saved_charset(p) == j_charsets.load_saved_charset(q)
+    assert charsets.load_chars(p) == j_charsets.load_chars(q)
+
+
+def test_build_homoglyphs_writes_the_jax_bytes(tmp_path, monkeypatch,
+                                               capsys):
+    """build-homoglyphs on one index (clusters of near prototypes, two
+    rows for some chars): the JAX command's file, byte for byte."""
+    from effocr_tpu.cli import build_homoglyphs as j_homoglyphs
+    from effocr_torch.cli import build_homoglyphs
+
+    rng = np.random.default_rng(5)
+    centers = rng.normal(size=(6, 32))
+    chars = list("abcdefghijklmnopqrstuvwx") + list("abcd")
+    emb = centers[np.arange(len(chars)) % 6] + 0.3 * rng.normal(
+        size=(len(chars), 32))
+    JIndex(emb.astype(np.float32), chars).save(str(tmp_path))
+    for pkg, run in (("p", lambda a: build_homoglyphs.main(a)),
+                     ("j", lambda a: (monkeypatch.setattr(
+                         sys, "argv", ["build-homoglyphs"] + a),
+                         j_homoglyphs.main()))):
+        run(["--recognizer_dir", str(tmp_path), "--out",
+             str(tmp_path / f"{pkg}.txt"), "--sim_thresh", "0.6",
+             "--max_per_char", "3", "--block", "7"])
+    said = capsys.readouterr().out.splitlines()
+    mine = (tmp_path / "p.txt").read_bytes()
+    assert mine == (tmp_path / "j.txt").read_bytes()
+    assert len(mine.splitlines()) > 5
+    assert said[0].replace("p.txt", "j.txt") == said[1]
+
+
+def test_inference_coco_matches_jax_for_lines_without_text():
+    """``build_inference_coco``: a line that reads None has no ``text``
+    key in its image entry, as the JAX engine writes it (the port once
+    wrote ``"text": null``; ROADMAP queue 3)."""
+    from effocr_tpu.pipelines.infer import build_inference_coco as j_build
+    from effocr_torch.pipelines.infer import build_inference_coco
+
+    boxes = {"/a/l0.png": {"height": 40, "width": 300, "text": None,
+                           "chars": [{"bbox": [1.5, 2.0, 9.25, 30.0],
+                                      "char": "x"}]},
+             "/a/l1.png": {"height": 40, "width": 120, "text": "ab c",
+                           "chars": [{"bbox": [0.0, 0.0, 8.0, 20.0],
+                                      "char": "a"},
+                                     {"bbox": [9.0, 1.0, 7.0, 19.0],
+                                      "char": "b"}]},
+             "/a/l2.png": {"height": 40, "width": 60, "text": "",
+                           "chars": []}}
+    got = build_inference_coco(boxes)
+    assert got == j_build(boxes)
+    assert "text" not in got["images"][0] and got["images"][2]["text"] == ""
+    assert json.dumps(got) == json.dumps(j_build(boxes))
