@@ -27,7 +27,7 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
 4. English slice: a seeded random-init artifact directory (yolov5s with the
    loc2k model.json, mobilenetv3_small_050 with the rec2k_mn_hn
    model.json, 90 random unit prototypes with rec2k_mn_hn's ref.txt),
-   2048 synthetic gray line PNGs, and ``load_engine`` with
+   1024 synthetic gray line PNGs, and ``load_engine`` with
    BENCH_TRAINED.json's flags (paths swapped), through ``checked_runs``
    (below); K1 is then timed on the first NMS input of the path, and both
    models in float32 on the card are held against the CPU.
@@ -48,7 +48,7 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      the general 2-D ROI window; 512 lines, both kernels;
    - original: ``--crop_source original`` on the jp artifacts with the
      jp_v3 flags; 240 RGB vertical lines;
-   - tiling: BENCH_TRAINED.json's flags + ``--tile_min_h 24`` on 64 gray
+   - tiling: BENCH_TRAINED.json's flags + ``--tile_min_h 24`` on 32 gray
      lines 6,000-8,000 px wide;
    - bucket: the en engine with transfer "bucket", bucket_hw (64, 1024),
      on 512 lines, most of them larger than the bucket;
@@ -114,7 +114,8 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    - train_fcos / train_rcnn: ``train-localizer --arch fcos_s / rcnn_s``
      with the fcos_train recipe of scripts/chain_r5b.sh:21-27 (1024
      wide, heights 64 and 96, gray, batch 16, resident bank; depth cut to
-     3 epochs, one evaluation) on phase train_localizer's lines, run in
+     3 epochs of the first 1,000 of phase train_localizer's 2,000 train
+     lines, one evaluation) on its val and test splits, run in
      this process with every K1 call checked; steps/s, images/s, losses,
      AP and peak memory;
    - train_xcit: ``train-recognizer`` with the en recipe's flags and
@@ -124,6 +125,10 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      recognizer at batch 16, FCOS and R-CNN at batch 4 x 96 x 1024) from
      the weights trained above, on the card and on the CPU: loss 1e-5
      relative, gradients and batch_stats 1e-3 of the largest.  The
+     localizers' CPU step computes the stem in float64 (FAMILY_CPU_REF:
+     the CPU's float32 sum of the stem's weight gradient rounds far more
+     than the card's); the CPU's float32 step and a float64 one are
+     logged beside it, each step's distance from the float64 one.  The
      R-CNN's RPN selection (stable sort, K1, top-k) on one device's
      candidates must give the other device's proposals bit for bit; when
      its free steps differ by more than 1e-3, the proposal slots that
@@ -153,10 +158,10 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      K2 input against unsharded K2 (indices exact, scores 1e-5);
    - ddp_train: ``torchrun --nproc_per_node 2`` (``python -m
      torch.distributed.run --standalone``) of ``train-recognizer`` with
-     phase train's recipe (1 epoch of 56 steps, no test split or
-     hard-negative mining) and of
+     phase train's recipe (1 epoch of 28 steps, 10 passes; no test
+     split or hard-negative mining) and of
      ``train-localizer`` with phase train_localizer's (1 epoch, one
-     evaluation; the first 640 lines of its train split), both ranks on
+     evaluation; the first 320 lines of its train split), both ranks on
      cuda:0 over gloo; the ranks' log must
      name the backend and end with the trainer's check that both ranks'
      parameters are bit-identical; the localizer's best checkpoint is
@@ -169,8 +174,11 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      largest for yolov5s); the recognizer also in float64 on 2 ranks and
      on 1 (loss 1e-5, gradients and batch_stats 1e-4), its float32
      gradients held to twice the 1-rank float32 step's distance from the
-     float64 step (2 vs 1, and 2 ranks vs float64); and a profiled step
-     on the ranks: wall time and all-reduce time.
+     float64 step (2 vs 1, and 2 ranks vs float64); yolov5s also in
+     float64 on 2 ranks and on 1 (the same tolerances; the detect head's
+     input and the loss stay float32 in the model's code), with each
+     float32 step's distance from it logged; and a profiled step on the
+     ranks: wall time and all-reduce time.
 10. Artifacts in and out (the importers, ``infer``'s auto-convert,
    ``export``), with interop/reference_writers.py writing the original
    EffOCR's formats:
@@ -195,7 +203,32 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      weights after ``set_variables``), then ``train-recognizer
      --checkpoint`` at phase train's recipe (convnext_atto, 3 channels,
      1 epoch) in process: finite losses.
-11. a ``kernels`` JSON line (launches per path under
+11. The tools and the seq2seq baseline:
+   - tools: ``python -m effocr_torch infer`` (BENCH_TRAINED's flags,
+     ``--nms_kernel pallas``) on phase train_localizer's 256 read lines
+     with phase train's recognizer, in a subprocess with
+     ``--output_localizer_results --compare_ocr --save_output``: every
+     overlay equal to ``draw_boxes`` at inference_coco.json's boxes, the
+     text equal to the same engine's in process (``checked_runs``, K1
+     held), ``tesseract``'s presence logged; ``error-analysis`` on its
+     results (the edits of the CER infer printed, category shares
+     summing to 1);
+     ``viz --k 5`` on 50 test crops of phase train's tree (each file's
+     neighbours equal ``PrototypeIndex.search`` in process; p@1);
+     ``device_trace`` around one en chunk of 512 lines (the Chrome trace
+     names K1's two kernels; K1's launches counted from 0, each held bit
+     for bit);
+   - seq2seq: ``train-seq2seq --data_device resident`` at full width
+     (the JAX command's defaults: dim 256, 6 + 4 blocks, 64 x 512
+     canvas, max_len 64, batch 16, float32; depth cut to 2 epochs) on
+     phase train_localizer's 2,000 train and 128 val lines: steps/s and
+     images/s from the second epoch, epoch losses (falling), val CER and
+     greedy lines/s by epoch; the best checkpoint's greedy and beam-4
+     decode in process (lines/s, CER); one float32 step on the card
+     against the CPU (loss 1e-5 relative, gradients 1e-3 of the
+     largest); greedy tokens of 16 val lines on the card and the CPU
+     identical but after a step whose CPU top-2 margin is under 1e-4.
+12. a ``kernels`` JSON line (launches per path under
    ``launches_by_path``; K1's ``train_localizer`` counts the evaluation's
    launches and the engine's; ``calls_by_iou`` splits the family paths'
    calls by site), then ``{"ok": true, "device": ...}`` last.
@@ -254,7 +287,7 @@ from effocr_torch.retrieval.index import PrototypeIndex
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 R5 = os.path.join(ROOT, "bench_results", "r5", "runs")
-N_LINES = 2048
+N_LINES = 1024
 N_JP_LINES = 600     # the size of the jp_v3 benchmark's eval split
 SEED = 0
 # detect-head bias offsets per scale, by output channel (4 = obj, 5 =
@@ -742,17 +775,22 @@ def make_lines():
     return paths
 
 
-def engine_args(loc_dir, rec_dir, *extra):
-    import argparse
-
+def engine_flags(loc_dir, rec_dir):
+    """BENCH_TRAINED.json's infer flags with the artifact dirs swapped."""
     with open(os.path.join(ROOT, "BENCH_TRAINED.json")) as f:
         flags = json.load(f)["flags"]
     swap = {"--localizer_dir": loc_dir, "--recognizer_dir": rec_dir}
-    flags = [swap.get(flags[i - 1], f) if i else f
-             for i, f in enumerate(flags)]
+    return [swap.get(flags[i - 1], f) if i else f
+            for i, f in enumerate(flags)]
+
+
+def engine_args(loc_dir, rec_dir, *extra):
+    import argparse
+
     p = argparse.ArgumentParser()
     add_engine_args(p)
-    return p.parse_args(flags + list(extra))   # --device: cuda by default
+    # --device: cuda by default
+    return p.parse_args(engine_flags(loc_dir, rec_dir) + list(extra))
 
 
 def timed_run(engine, paths, res0, tag):
@@ -1207,7 +1245,7 @@ def phase_original(dev, card, vpaths, loc_dir, rec_dir):
                   f"{time.perf_counter() - t0:.1f} s")
 
 
-N_WIDE = 64
+N_WIDE = 32
 
 
 def make_wide_lines():
@@ -2413,7 +2451,8 @@ XCIT_ARCH = "xcit_small_12_p8_224"
 CHARS_TARGET, WORDS_TARGET = 26.0, 5.0
 # the fcos_train recipe of scripts/chain_r5b.sh:21-27 at full width (1024
 # wide, heights 64 and 96, gray, batch 16, resident bank); depth cut to 3
-# epochs of 60, one evaluation
+# epochs of N_FAMILY_TRAIN_LINES lines, one evaluation
+N_FAMILY_TRAIN_LINES = 1000
 FAMILY_TRAIN_FLAGS = ["--input_size", "1024", "--multi_height", "64,96",
                       "--input_channels", "1", "--batch_size", "16",
                       "--data_device", "resident", "--num_epochs", "3",
@@ -2607,13 +2646,30 @@ def _metrics(run_dir):
         return [json.loads(ln) for ln in f]
 
 
+def _coco_head(src, n, dst):
+    """Writes the first ``n`` images of COCO file ``src`` and their
+    annotations to ``dst``; returns ``dst``."""
+    with open(src) as f:
+        coco = json.load(f)
+    keep = {im["id"] for im in coco["images"][:n]}
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    with open(dst, "w") as f:
+        json.dump({"images": [im for im in coco["images"]
+                              if im["id"] in keep],
+                   "annotations": [a for a in coco["annotations"]
+                                   if a["image_id"] in keep],
+                   "categories": coco.get("categories", [])}, f)
+    return dst
+
+
 def phase_train_family(dev, card, arch, img_dir, splits):
     """``train-localizer --device cuda --arch <arch>`` with the fcos_train
-    recipe at full width on phase train_localizer's lines, run in this
-    process with every K1 call (the evaluations'; the R-CNN's RPN in every
-    step too) held bit for bit against nms_mask once the run has returned
-    (``NmsCheck`` with ``defer``: the timed epochs hold no check and no
-    host sync of it); prints steps/s and images/s of the third epoch
+    recipe at full width on the first N_FAMILY_TRAIN_LINES of phase
+    train_localizer's train lines, run in this process with every K1
+    call (the evaluations'; the R-CNN's RPN in every step too) held bit
+    for bit against nms_mask once the run has returned (``NmsCheck``
+    with ``defer``: the timed epochs hold no check and no host sync of
+    it); prints steps/s and images/s of the third epoch
     (the first at height 64 after its first), the logged losses, AP of
     the evaluation and the test split, and peak device memory."""
     import io
@@ -2623,6 +2679,8 @@ def phase_train_family(dev, card, arch, img_dir, splits):
     tag = f"train_{arch.split('_')[0]}"
     run_dir = os.path.join(WORK, tag, "loc")
     shutil.rmtree(run_dir, ignore_errors=True)
+    train = _coco_head(splits["train"], N_FAMILY_TRAIN_LINES,
+                       os.path.join(WORK, tag, "train.json"))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     out = io.StringIO()
@@ -2632,7 +2690,7 @@ def phase_train_family(dev, card, arch, img_dir, splits):
             contextlib.redirect_stdout(out):
         train_localizer.main([
             "--device", "cuda", "--image_dir", img_dir, "--train_coco",
-            splits["train"], "--val_coco", splits["val"], "--test_coco",
+            train, "--val_coco", splits["val"], "--test_coco",
             splits["test"], "--run_name", run_dir, "--arch", arch,
             *FAMILY_TRAIN_FLAGS])
     k1_launches = cuda_nms.nms_kernel.launches
@@ -2736,6 +2794,14 @@ def phase_train_xcit(dev, card, tree):
                 epoch_seconds=[r["epoch/seconds"] for r in epochs])
 
 
+# the localizers' CPU reference computes these parts in float64: the stem
+# convolution's weight gradient sums a near-constant page background
+# against an upstream gradient that train-mode BatchNorm's backward makes
+# sum to ~0; at trained weights the CPU's float32 sum of it rounds past
+# 1e-3 of the largest |g| on some batches, while the card's float32 step
+# stays near a float64 one (the witnesses ``_card_vs_cpu`` logs; the
+# recognizer's case: REC_F32_GRAD_TOL)
+FAMILY_CPU_REF = ("stem",)
 # an R-CNN step's discrete decisions (proposal choice, box-head ReLU
 # gates) that differ between the card and the CPU must be rounding ties:
 # within this share of the largest |score| / |pre-activation|
@@ -2857,11 +2923,15 @@ def _rcnn_ties(tag, base, seen, gerr, rerun):
     return out
 
 
-def _card_vs_cpu(tag, base, step_of, batch):
+def _card_vs_cpu(tag, base, step_of, batch, cpu_ref=None):
     """One float32 step of ``base`` (a CPU module) on the card and on the
     CPU on the same batch: loss within 1e-5 relative, gradients within
     1e-3 of the largest |g|, new batch_stats within 1e-3 of the largest.
-    An R-CNN's discrete decisions are checked across devices
+    ``cpu_ref``: the module the CPU's step runs instead of ``base`` (a
+    localizer with its stem in float64, FAMILY_CPU_REF); the CPU's
+    float32 step of ``base`` and a float64 one are then run too, and the
+    distances of the three steps from the float64 one logged.  An
+    R-CNN's discrete decisions are checked across devices
     (``_rcnn_ties``)."""
     import copy
 
@@ -2872,8 +2942,10 @@ def _card_vs_cpu(tag, base, step_of, batch):
             return {k: v.to(where) for k, v in a.items()}
         return a.to(where) if torch.is_tensor(a) else a
 
-    def run(where, seen=None, pins=None):
-        model = copy.deepcopy(base).to(where)
+    def run(where, seen=None, pins=None, src=None):
+        if src is None:
+            src = base if where == "cuda" or cpu_ref is None else cpu_ref
+        model = copy.deepcopy(src).to(where)
         rec = GradRecorder(dict(model.named_parameters()))
         t0 = time.perf_counter()
         with (_rcnn_probe(model, seen, pins) if rcnn
@@ -2896,12 +2968,29 @@ def _card_vs_cpu(tag, base, step_of, batch):
     serr = max([float((sg[k] - sc[k]).abs().max()) for k in sc] or [0.0]
                ) / smax
     lerr = abs(lg - lc) / abs(lc)
-    log(f"family_steps_vs_cpu: {tag}: loss card {lg:.6f} CPU {lc:.6f} "
+    ref = "CPU" if cpu_ref is None else "CPU (stem in float64)"
+    log(f"family_steps_vs_cpu: {tag}: loss card {lg:.6f} {ref} {lc:.6f} "
         f"(rel {lerr:.3g}, tolerance 1e-5); max |grad diff| / max|g| "
         f"{gerr:.3g} over {len(gc)} tensors, max |batch_stats diff| / "
         f"max|stat| {serr:.3g} (tolerance 1e-3); CPU step {cpu_s:.1f} s")
     out = dict(loss_rel_err=lerr, grad_rel_err=gerr, stats_rel_err=serr,
                cpu_step_s=cpu_s)
+    if cpu_ref is not None:
+        # the witnesses (logged, not held): the CPU's float32 step of
+        # ``base`` and a float64 one
+        gf = run("cpu", {}, src=base)[1]
+        g64 = run("cpu", {}, src=_f64_copy(base))[1]
+        worst = max(gc, key=lambda k: float((gf[k] - gc[k]).abs().max()))
+        out.update(cpu_f32_vs_card=grad_err(gf, gg), cpu_f32_worst=worst,
+                   **{f"{k}_vs_f64": grad_err(g, g64) for k, g in (
+                       ("card", gg), ("cpu_f32", gf), ("reference", gc))})
+        log(f"family_steps_vs_cpu: {tag}: the CPU's float32 step is "
+            f"{out['cpu_f32_vs_card']:.3g} of the largest |g| from the "
+            f"card's (from the reference most in {worst}); from a float64 "
+            f"step: card "
+            f"{out['card_vs_f64']:.3g}, CPU float32 "
+            f"{out['cpu_f32_vs_f64']:.3g}, the reference "
+            f"{out['reference_vs_f64']:.3g} (logged, not held)")
     if rcnn:
         out.update(_rcnn_ties(tag, base, seen, gerr, lambda into, pins:
                               grad_err(gg, run("cpu", into, pins)[1])))
@@ -2978,7 +3067,7 @@ def phase_family_steps(dev, card, tree, loc_runs, xcit_run, img_dir,
         out[arch] = _card_vs_cpu(
             f"{arch} localizer, batch 4 x 96 x 1024", model,
             lambda m, rec: make_detector_train_step(m, lcfg, rec, None),
-            (*batch, None))
+            (*batch, None), cpu_ref=_f64_stem(model, FAMILY_CPU_REF))
     return out
 
 
@@ -3095,7 +3184,8 @@ def _f32_copy(model, device):
 # ------------------------------------------------------- data parallelism
 N_DP_EN = 512
 N_DP_JP = 240
-N_DDP_LOC_LINES = 640       # 40 steps of 16 for the localizer's DDP epoch
+N_DDP_LOC_LINES = 320       # 20 steps of 16 for the localizer's DDP epoch
+DDP_REC_PASSES = "10"       # 28 steps of 128 for the recognizer's (20: 56)
 DP_STEP_TOL = 1e-4          # gradients and batch_stats, of the largest
 # the recognizer's float32 gradients, of the largest (2 ranks vs 1, and
 # each against its float64 step): the stem convolution's weight
@@ -3137,15 +3227,16 @@ def _f64_copy(model):
     return m
 
 
-def _f64_stem(model):
-    """A mobilenetv3 ``model`` whose stem and first two blocks compute in
-    float64 (parameters float32): the rounding REC_F32_GRAD_TOL names
-    taken out of its float32 step."""
+def _f64_stem(model, parts=("stem", "block0", "block1")):
+    """``model`` whose ``parts`` (by default a mobilenetv3's stem and
+    first two blocks) compute in float64, parameters float32: the
+    rounding REC_F32_GRAD_TOL names taken out of its float32 step (and,
+    for a CSPTrunk localizer's ``stem``, FAMILY_CPU_REF's)."""
     import copy
 
     m = copy.deepcopy(model)
-    for part in (m.stem, m.block0, m.block1):
-        for mod in part.modules():
+    for name in parts:
+        for mod in getattr(m, name).modules():
             if hasattr(mod, "dtype"):
                 mod.dtype = torch.float64
     return m
@@ -3398,8 +3489,8 @@ def _epoch_rate(run_dir):
 
 def phase_ddp_train(dev, card, train):
     """``torchrun --nproc_per_node 2`` of ``train-recognizer`` (phase
-    train's en recipe, 1 epoch of 56 steps) and of ``train-localizer``
-    (phase train_localizer's recipe on 640 lines, 1 epoch of 40 steps,
+    train's en recipe, 1 epoch of 28 steps) and of ``train-localizer``
+    (phase train_localizer's recipe on 320 lines, 1 epoch of 20 steps,
     one evaluation), both ranks
     on cuda:0 over gloo; each run must end with the trainer's check that
     both ranks' parameters are bit-identical.  The localizer run's best
@@ -3416,7 +3507,8 @@ def phase_ddp_train(dev, card, train):
     first_rate = first["epoch/steps"] / first["epoch/seconds"]
     # the recipe at 1 epoch, without the test split and the hard-negative
     # mining (phase train runs both)
-    flags = _with(TRAIN_FLAGS, num_epochs="1", infer_hardneg_k="0")
+    flags = _with(TRAIN_FLAGS, num_epochs="1", infer_hardneg_k="0",
+                  num_passes=DDP_REC_PASSES)
     flags.remove("--test_at_end")
     rec_args = ["train-recognizer", "--device", "cuda", "--root_dir_path",
                 tr["tree"], "--train_ann_path", tr["splits"]["train"],
@@ -3445,16 +3537,8 @@ def phase_ddp_train(dev, card, train):
 
     tl = train["train_localizer"]
     run_dir = os.path.join(WORK, "ddp", "ddp_localizer")
-    with open(tl["splits"]["train"]) as f:
-        coco = json.load(f)
-    keep = {im["id"] for im in coco["images"][:N_DDP_LOC_LINES]}
-    sub = os.path.join(WORK, "ddp", "loc_train.json")
-    with open(sub, "w") as f:
-        json.dump({"images": [im for im in coco["images"]
-                              if im["id"] in keep],
-                   "annotations": [a for a in coco["annotations"]
-                                   if a["image_id"] in keep],
-                   "categories": coco.get("categories", [])}, f)
+    sub = _coco_head(tl["splits"]["train"], N_DDP_LOC_LINES,
+                     os.path.join(WORK, "ddp", "loc_train.json"))
     loc_args = ["train-localizer", "--device", "cuda", "--image_dir",
                 tl["img_dir"], "--train_coco", sub,
                 "--val_coco", tl["splits"]["val"], "--run_name", run_dir,
@@ -3557,9 +3641,10 @@ def phase_ddp_steps(dev, card, train):
     rec64 = dict(rec, model=_f64_copy(base), aux=rec["aux"].double(),
                  profile=False)
     rec_st = dict(rec, model=_f64_stem(base), profile=False)
+    loc64 = dict(loc, model=_f64_copy(loc["model"]), profile=False)
     t0 = time.perf_counter()
-    ranks = dryrun.run_ranks([rec, loc, rec64, rec_st], 2, device="cuda",
-                             timeout_s=600)
+    ranks = dryrun.run_ranks([rec, loc, rec64, rec_st, loc64], 2,
+                             device="cuda", timeout_s=600)
     ranks_s = time.perf_counter() - t0
     out = {}
     for i, (tag, spec) in enumerate((("recognizer", rec), ("yolov5s", loc))):
@@ -3600,6 +3685,31 @@ def phase_ddp_steps(dev, card, train):
                     and w["f32_two_vs_f64"] <= gtol):
                 raise AssertionError(f"ddp_step_vs_single {tag}: the float64 "
                                      f"witnesses fail{witness}")
+        if tag == "yolov5s":
+            # the float64 witness (ROADMAP queue 3): is the float32 gap of
+            # 2 ranks against 1 the rounding of the gradient sums?  (the
+            # detect head's input and the loss stay float32 in the model's
+            # code: models/yolo.py, train/losses.py)
+            one64 = dryrun.run_step(loc64, device="cuda")
+            two64 = [r[4] for r in ranks]
+            w = dict(f64=_two_vs_one(one64, two64[0]),
+                     f32_one_vs_f64=_step_errors(one64, one)[0],
+                     f32_two_vs_f64=_step_errors(one64, got[0])[0])
+            same = same and all(torch.equal(two64[1]["grads"][k],
+                                            two64[0]["grads"][k])
+                                for k in one64["grads"])
+            witness = (
+                "; float64: 2 ranks vs 1 (loss rel, grads, batch_stats; "
+                "tolerance 1e-5 / 1e-4 / 1e-4) "
+                + ", ".join(f"{v:.3g}" for v in w["f64"])
+                + f"; float32 gradients against the float64 step: 1 rank "
+                f"{w['f32_one_vs_f64']:.3g}, 2 ranks "
+                f"{w['f32_two_vs_f64']:.3g}")
+            lr64, g64, st64 = w["f64"]
+            if not (lr64 <= 1e-5 and g64 <= DP_STEP_TOL
+                    and st64 <= DP_STEP_TOL):
+                raise AssertionError(f"ddp_step_vs_single {tag}: the float64 "
+                                     f"witness fails{witness}")
         prof = {k: got[0][k] for k in ("step_ms", "collective_host_ms",
                                        "collective_device_ms",
                                        "collective_events")}
@@ -3983,6 +4093,366 @@ def phase_import_encoder(dev, card, jp, train):
                 losses=losses, val_p1=val)
 
 
+# ------------------------------------------------------------ the tools
+N_VIZ = 50              # query crops of the viz phase (viz's --num)
+TOOLS_CHUNK = 512       # device_trace's en chunk (BENCH_TRAINED's line_batch)
+
+
+def phase_tools(dev, card, sl, train):
+    """The tools on phase train's recognizer and phase train_localizer's
+    localizer and 256-line read split:
+
+    - ``python -m effocr_torch infer`` (BENCH_TRAINED's flags, ``--nms_kernel
+      pallas``) in a subprocess with ``--output_localizer_results D
+      --compare_ocr --save_output S``: one overlay a line, read back through
+      data/png.py, equal pixel for pixel to ``draw_boxes`` of the page at
+      the boxes of S/inference_coco.json (so the outline lies at them);
+      its text equal to the same engine's in process (``checked_runs``: K1
+      held bit for bit on every call); whether ``tesseract`` is present;
+    - ``error-analysis`` on S/inference_results.json against the read
+      split: its edits are those of the CER infer printed (error-analysis
+      divides by the cleaned and stripped ground-truth length, infer by
+      the raw one, in both packages), its category shares sum to 1;
+    - ``viz --k 5`` on 50 of the tree's test crops: each file's neighbour
+      code points equal an in-process ``PrototypeIndex.search`` of the
+      same embeddings; p@1 logged;
+    - ``device_trace`` around one en chunk (512 lines, every K1 mask held
+      bit for bit): the Chrome trace names K1's kernels, and K1's
+      launches are counted from 0 there."""
+    from effocr_torch.cli.viz import true_char
+    from effocr_torch.data import png
+    from effocr_torch.eval.textline import string_cleaner
+    from effocr_torch.interop.flax_msgpack import read_variables
+    from effocr_torch.kernels.image_ops import paired_transform_host
+    from effocr_torch.utils.profiling import device_trace
+    from effocr_torch.utils.viz import draw_boxes
+
+    tl, tr = train["train_localizer"], train["train"]
+    loc_dir, rec_dir = tl["run_dir"], tr["run_dir"]
+    d = os.path.join(WORK, "tools")
+    shutil.rmtree(d, ignore_errors=True)
+    over, save = os.path.join(d, "overlays"), os.path.join(d, "out")
+    read_json = tl["splits"]["read"]
+    stdout, infer_wall = run_cli(
+        ["infer", *engine_flags(loc_dir, rec_dir), "--nms_kernel", "pallas",
+         "--image_dir", tl["img_dir"], "--coco_json", read_json,
+         "--output_localizer_results", over, "--compare_ocr",
+         "--save_output", save, "--device", "cuda"], "tools_infer")
+    infer_cer = float([ln for ln in stdout.splitlines() if ln.startswith(
+        "EffOCR | ")][-1].rsplit("| CER = ", 1)[1])
+    tesseract = shutil.which("tesseract")
+    comparators = [ln for ln in stdout.splitlines()
+                   if ln.startswith(("tesseract |", "gcv |", "baidu |"))]
+    if bool(tesseract) != any(ln.startswith("tesseract") for ln in
+                              comparators):
+        raise AssertionError(f"tools: tesseract at {tesseract}, comparator "
+                             f"lines {comparators}")
+    with open(os.path.join(save, "inference_coco.json")) as f:
+        icoco = json.load(f)
+    with open(os.path.join(save, "inference_results.json")) as f:
+        text = json.load(f)
+    with open(read_json) as f:
+        read = json.load(f)["images"]
+    boxes_by_id = {}
+    for a in icoco["annotations"]:
+        x, y, w, h = a["bbox"]
+        boxes_by_id.setdefault(a["image_id"], []).append([x, y, x + w,
+                                                          y + h])
+    n_boxes = 0
+    for im in icoco["images"]:
+        got = png.read_png(os.path.join(over, im["file_name"]), 3)
+        want = draw_boxes(png.read_png(os.path.join(
+            tl["img_dir"], im["file_name"]), 3),
+            boxes_by_id.get(im["id"], []))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"tools: overlay {im['file_name']} differs "
+                                 "from its boxes outlined")
+        n_boxes += len(boxes_by_id.get(im["id"], []))
+    if sorted(os.listdir(over)) != sorted(im["file_name"] for im in read):
+        raise AssertionError("tools: not one overlay a line")
+    engine = load_engine(engine_args(loc_dir, rec_dir))
+    paths = [os.path.join(tl["img_dir"], im["file_name"]) for im in read]
+    run = checked_runs(engine, paths, "tools", plain=False)
+    inproc = {os.path.basename(p): v for p, v in run["results"].items()}
+    if inproc != text:
+        raise AssertionError("tools: infer's text differs from the same "
+                             "engine's in process")
+    log(f"tools: infer --output_localizer_results --compare_ocr exited 0 "
+        f"in {infer_wall:.1f} s (process wall): {len(read)} overlays "
+        f"({n_boxes} boxes) equal to draw_boxes at inference_coco.json's "
+        f"boxes; text equal to the engine's in process; CER {infer_cer}; "
+        f"tesseract {'at ' + tesseract if tesseract else 'absent (skipped)'}"
+        f"; comparator lines {comparators}")
+
+    ea_json = os.path.join(d, "error_analysis.json")
+    _, ea_wall = run_cli(["error-analysis", "--results",
+                          os.path.join(save, "inference_results.json"),
+                          "--coco_json", read_json, "--save_json", ea_json],
+                         "tools_error_analysis")
+    with open(ea_json) as f:
+        ea = json.load(f)
+    shares = sum(v[1] for v in ea["by_category"].values())
+    # the same edits as infer's CER; the denominators differ in both
+    # packages: textline_evaluation divides by the raw ground-truth
+    # length, error-analysis by the cleaned and stripped one
+    raw = sum(len(im["text"]) for im in read)
+    clean = sum(len(string_cleaner(im["text"]).strip()) for im in read)
+    if (abs(infer_cer * raw - ea["edits"]) > 1e-6
+            or ea["cer"] != ea["edits"] / clean
+            or (ea["edits"] and abs(shares - 1) > 1e-9)):
+        raise AssertionError(f"tools: error-analysis {ea['edits']} edits / "
+                             f"{clean} chars vs infer's CER {infer_cer} of "
+                             f"{raw} chars; shares sum to {shares}")
+    log(f"tools: error-analysis in {ea_wall:.1f} s: {ea['edits']} edits, "
+        f"infer's (CER {infer_cer} of {raw} raw chars = {ea['cer']} of "
+        f"{clean} cleaned ones), shares sum to {shares:.12f}: "
+        + ", ".join(f"{k} {v[0]}" for k, v in ea["by_category"].items()))
+
+    test_crops = tuple(f"PAIRED_{s}_" for s in SPLIT_STEMS["test"])
+    queries = sorted(os.path.join(r, f) for r, _, fs in os.walk(tr["tree"])
+                     for f in fs if f.startswith(test_crops))
+    qtxt = os.path.join(d, "queries.txt")
+    with open(qtxt, "w") as f:
+        f.write("\n".join(queries))
+    vdir = os.path.join(d, "viz")
+    _, viz_wall = run_cli(["viz", "--recognizer_dir", rec_dir, "--query_txt",
+                           qtxt, "--out_dir", vdir, "--k", "5", "--num",
+                           str(N_VIZ), "--device", "cuda"], "tools_viz")
+    with open(os.path.join(rec_dir, "model.json")) as f:
+        meta = json.load(f)
+    enc = create_encoder(meta["arch"], in_channels=meta["input_channels"],
+                         image_size=meta["image_size"])
+    enc.load_state_dict(flax_to_state_dict(read_variables(os.path.join(
+        rec_dir, "enc_best.msgpack"))))
+    enc = enc.to(dev).eval()
+    index = PrototypeIndex.load(rec_dir)
+    picked = list(queries)
+    np.random.default_rng(111).shuffle(picked)
+    names, hits = set(), 0
+    for qp in picked[:N_VIZ]:
+        x = paired_transform_host(png.read_png(qp, 3), meta["image_size"])
+        if meta["input_channels"] == 1:
+            x = x.mean(axis=-1, keepdims=True)
+        with torch.no_grad():
+            emb = enc(torch.from_numpy(x[None]).to(dev)).float()
+        _, idx = index.search(emb.cpu().numpy(), k=5, device=dev)
+        chars = [index.chars[i] for i in idx[0]]
+        stem = os.path.splitext(os.path.basename(qp))[0]
+        correct = true_char(stem) == chars[0]
+        hits += correct
+        names.add(f"{stem}_{correct}_nn_"
+                  f"{'-'.join(hex(ord(c)) for c in chars)}_"
+                  f"{'correct' if correct else 'incorrect'}.png")
+    if set(os.listdir(vdir)) != names:
+        raise AssertionError("tools: viz's files name other neighbours than "
+                             "PrototypeIndex.search in process: "
+                             f"{sorted(set(os.listdir(vdir)) ^ names)[:4]}")
+    log(f"tools: viz --k 5 on {N_VIZ} of {len(queries)} test crops in "
+        f"{viz_wall:.1f} s (process wall): every file's neighbours equal "
+        f"PrototypeIndex.search in process; p@1 {hits / N_VIZ:.2f}")
+
+    en = load_engine(engine_args(sl["loc_dir"], sl["rec_dir"]))
+    chunk = sl["paths"][:TOOLS_CHUNK]
+    en.run(chunk)                        # warm
+    torch.cuda.synchronize()
+    cuda_nms.nms_kernel.launches = 0
+    with kernels_checked("tools device_trace") as (k1c, _):
+        t0 = time.perf_counter()
+        with device_trace(os.path.join(d, "trace")) as prof:
+            en.run(chunk)
+            torch.cuda.synchronize()
+        trace_wall = time.perf_counter() - t0
+    trace_launches = cuda_nms.nms_kernel.launches
+    with open(prof.trace_path) as f:
+        names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
+    k1_names = sorted(n for n in names if "nms_build_kernel" in n
+                      or "nms_scan_kernel" in n)
+    if trace_launches == 0 or k1c.calls != trace_launches or len(
+            k1_names) < 2:
+        raise AssertionError(f"tools: device_trace launches {trace_launches},"
+                             f" checked {k1c.calls}, K1 names {k1_names}")
+    log(f"tools: device_trace around one en chunk of {len(chunk)} lines: "
+        f"{os.path.getsize(prof.trace_path)} bytes of Chrome trace in "
+        f"{trace_wall:.2f} s (profiled), K1's kernels {k1_names} named; K1 "
+        f"launches {trace_launches}, each held bit for bit")
+    return dict(k1_launches=run["k1_launches"] + trace_launches,
+                k2_launches=run["k2_launches"], infer_wall_s=infer_wall,
+                infer_cer=infer_cer, overlays=len(read), boxes=n_boxes,
+                tesseract=tesseract, comparators=comparators,
+                error_analysis=ea, viz_p1=hits / N_VIZ, viz_wall_s=viz_wall,
+                trace_bytes=os.path.getsize(prof.trace_path),
+                trace_launches=trace_launches, lines_s=run["lines_s"])
+
+
+# --------------------------------------------------- the seq2seq baseline
+# train-seq2seq at the JAX command's defaults (full width: dim 256, 6 + 4
+# blocks, 8 heads, patch 8, a 64 x 512 canvas, max_len 64, batch 16, lr
+# 3e-4, float32), resident bank, greedy evaluation; depth cut to 2
+# epochs (of 20) on the loc corpus's 2,000 train lines (125 steps each)
+S2S_EPOCHS = 2
+S2S_FLAGS = ["--num_epochs", str(S2S_EPOCHS), "--data_device", "resident"]
+S2S_BATCH = 16
+S2S_MARGIN = 1e-4       # a CPU top-2 logit margin below it is a near-tie
+
+
+def _s2s_margins(model, images, tokens):
+    """CPU top-2 logit margin of every greedy step [B, T - 1] of ``tokens``
+    (the decode's own input: BOS + its output)."""
+    from effocr_torch.baselines.seq2seq import BOS
+
+    full = torch.cat([torch.full((tokens.shape[0], 1), BOS), tokens], 1)
+    with torch.no_grad():
+        logits = model.decode_logits(model.encode(images), full)
+    top = torch.topk(logits[:, :-1], 2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).numpy()
+
+
+def phase_seq2seq(dev, card, tl):
+    """``python -m effocr_torch train-seq2seq --data_device resident`` at
+    full width on phase train_localizer's corpus (train 2,000 lines, val
+    128): steps/s and images/s from the second epoch on, the mean loss of
+    each epoch (it must fall), val CER and greedy lines/s each epoch.
+    Then, in process, seq2seq_best.msgpack on the val split: greedy and
+    beam-4 decode (lines/s, CER; greedy's CER equals the best epoch's);
+    ``seq2seq_step_vs_cpu``: one float32 step on the card and on the CPU
+    from those weights on the same batch (loss 1e-5 relative, gradients
+    1e-3 of the largest); greedy tokens of 16 val lines on the card and
+    on the CPU identical except after a step whose CPU top-2 logit margin
+    is under S2S_MARGIN (counted)."""
+    from effocr_torch.baselines.data import Seq2SeqDataset
+    from effocr_torch.baselines.seq2seq import (
+        CharTokenizer,
+        Seq2SeqOCR,
+        beam_decode,
+        greedy_decode,
+        make_seq2seq_train_step,
+    )
+    from effocr_torch.eval.textline import textline_evaluation
+    from effocr_torch.interop.flax_msgpack import read_variables
+
+    run_dir = os.path.join(WORK, "seq2seq")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    _, wall = run_cli(
+        ["train-seq2seq", "--device", "cuda", "--image_dir", tl["img_dir"],
+         "--train_coco", tl["splits"]["train"], "--val_coco",
+         tl["splits"]["val"], "--run_name", run_dir, *S2S_FLAGS],
+        "train_seq2seq")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f]
+    epochs = [r for r in recs if "epoch/steps" in r]
+    evals = [r for r in recs if "val/cer" in r]
+    timed = epochs[1:]
+    steps_s = sum(r["epoch/steps"] for r in timed) / sum(
+        r["epoch/seconds"] for r in timed)
+    images_s = sum(r["epoch/images"] for r in timed) / sum(
+        r["epoch/seconds"] for r in timed)
+    losses = [r["epoch/loss"] for r in epochs]
+    cers = [r["val/cer"] for r in evals]
+    with open(tl["splits"]["val"]) as f:
+        n_val = len(json.load(f)["images"])
+    greedy_cli = [n_val / r["val/seconds"] for r in evals]
+    if len(epochs) != S2S_EPOCHS or not all(np.isfinite(losses + cers)):
+        raise AssertionError(f"seq2seq: epochs {epochs}, evals {evals}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"seq2seq: epoch losses {losses} do not fall")
+    log(f"seq2seq: train-seq2seq exited 0 in {wall:.1f} s (process wall, "
+        f"corpus decode and evaluation included); epochs "
+        f"{[round(r['epoch/seconds'], 3) for r in epochs]} s of "
+        f"{[int(r['epoch/steps']) for r in epochs]} steps of {S2S_BATCH}; "
+        f"epochs 2-{len(epochs)}: {steps_s:.2f} steps/s = {images_s:.1f} "
+        f"images/s ({card}); mean loss by epoch {losses}; val CER by epoch "
+        f"{cers}; greedy decode in the CLI {[round(v, 1) for v in greedy_cli]}"
+        f" lines/s")
+
+    with open(os.path.join(run_dir, "charset.json")) as f:
+        tok = CharTokenizer(json.load(f))
+    variables = read_variables(os.path.join(run_dir, "seq2seq_best.msgpack"))
+
+    def model_on(device):
+        m = Seq2SeqOCR(vocab_size=tok.vocab_size)
+        m.load_state_dict(flax_to_state_dict(variables), strict=True)
+        return m.to(device).eval()
+
+    card_model = model_on(dev)
+    val_ds = Seq2SeqDataset(tl["splits"]["val"], tl["img_dir"], tok)
+    val_imgs = torch.from_numpy(val_ds.materialize()[0])
+    texts = [t for _, t in val_ds.entries]
+    decoded = {}
+    for name, fn in (("greedy", lambda x: greedy_decode(card_model, x)),
+                     ("beam4", lambda x: beam_decode(card_model, x,
+                                                     beam_size=4))):
+        fn(val_imgs[:S2S_BATCH].to(dev))          # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = [fn(val_imgs[s:s + S2S_BATCH].to(dev)).cpu()
+                for s in range(0, len(texts), S2S_BATCH)]
+        secs = time.perf_counter() - t0
+        out = torch.cat(rows).numpy()
+        cer = textline_evaluation([(gt, tok.decode(r))
+                                   for gt, r in zip(texts, out)])[1]
+        decoded[name] = dict(lines_s=len(texts) / secs, cer=cer, tokens=out)
+    log(f"seq2seq: seq2seq_best.msgpack on {len(texts)} val lines in batches"
+        f" of {S2S_BATCH} ({card}): greedy {decoded['greedy']['lines_s']:.1f}"
+        f" lines/s, CER {decoded['greedy']['cer']:.4f} (the CLI's best epoch:"
+        f" {min(cers):.4f}); "
+        f"beam 4 {decoded['beam4']['lines_s']:.1f} lines/s, CER "
+        f"{decoded['beam4']['cer']:.4f}")
+    for gt, r in list(zip(texts, decoded["greedy"]["tokens"]))[:3]:
+        log(f"seq2seq: {gt!r} -> greedy {tok.decode(r)!r}")
+
+    # one float32 step at full width, card and CPU, same weights and batch
+    train_ds = Seq2SeqDataset(tl["splits"]["train"], tl["img_dir"], tok)
+    batch = [torch.from_numpy(np.stack(a)) for a in zip(
+        *(train_ds.load(i)[:3] for i in range(S2S_BATCH)))]
+    steps = []
+    for device in (dev, torch.device("cpu")):
+        m = model_on(device).train()
+        rec = GradRecorder(dict(m.named_parameters()))
+        loss = make_seq2seq_train_step(m, rec)(*(t.to(device)
+                                                 for t in batch))
+        steps.append((float(loss), rec.grads))
+    (lc, gc), (lp, gp) = steps
+    gmax = max(float(g.abs().max()) for g in gp.values())
+    gerr = max(float((gc[k] - g).abs().max()) for k, g in gp.items()) / gmax
+    lrel = abs(lc - lp) / abs(lp)
+    log(f"seq2seq_step_vs_cpu: one float32 step at full width, batch "
+        f"{S2S_BATCH}: loss {lc:.7f} (card) vs {lp:.7f} (CPU), rel "
+        f"{lrel:.3g} (tolerance 1e-5); max |grad diff| / max|g| {gerr:.3g} "
+        f"(tolerance 1e-3; {card})")
+    if not (lrel <= 1e-5 and gerr <= 1e-3):
+        raise AssertionError("seq2seq_step_vs_cpu: card and CPU disagree")
+
+    cpu_model = model_on(torch.device("cpu"))
+    x = val_imgs[:S2S_BATCH]
+    t_cpu = greedy_decode(cpu_model, x)
+    t_card = greedy_decode(card_model, x.to(dev)).cpu()
+    margins = _s2s_margins(cpu_model, x, t_cpu)
+    near, bad = 0, []
+    for r in range(len(x)):
+        diff = np.flatnonzero((t_cpu[r] != t_card[r]).numpy())
+        if len(diff):
+            if margins[r, diff[0]] < S2S_MARGIN:
+                near += 1
+            else:
+                bad.append((r, int(diff[0]), float(margins[r, diff[0]])))
+    log(f"seq2seq: greedy tokens of {len(x)} val lines, card vs CPU: "
+        f"{len(x) - near - len(bad)} identical, {near} part after a step "
+        f"whose CPU top-2 margin is < {S2S_MARGIN}, {len(bad)} otherwise "
+        f"(smallest CPU margin on the path {float(margins.min()):.3g})")
+    if bad:
+        raise AssertionError(f"seq2seq: greedy tokens differ at clear "
+                             f"margins: {bad}")
+    return dict(k1_launches=0, k2_launches=0, steps_s=steps_s,
+                images_s=images_s, epoch_losses=losses, val_cer=cers,
+                greedy_cli_lines_s=greedy_cli, train_wall_s=wall,
+                epoch_seconds=[r["epoch/seconds"] for r in epochs],
+                greedy_lines_s=decoded["greedy"]["lines_s"],
+                greedy_cer=decoded["greedy"]["cer"],
+                beam4_lines_s=decoded["beam4"]["lines_s"],
+                beam4_cer=decoded["beam4"]["cer"], step_loss_rel=lrel,
+                step_grad_err=gerr, greedy_near_ties=near)
+
+
 def main(argv) -> int:
     import argparse
 
@@ -4151,8 +4621,23 @@ def main(argv) -> int:
         interop[name]["phase_s"] = time.perf_counter() - t0
         log(f"phase {name}: {interop[name]['phase_s']:.1f} s")
     log(f"the interop phases: {time.perf_counter() - t_io:.1f} s")
+    # the tools (infer's overlays and comparators, error-analysis, viz,
+    # device_trace) and the seq2seq baseline trained here
+    t_tools = time.perf_counter()
+    tools = {}
+    for name, run_phase in (
+        ("tools", lambda: phase_tools(dev, card, sl, train)),
+        ("seq2seq", lambda: phase_seq2seq(dev, card,
+                                          train["train_localizer"])),
+    ):
+        t0 = time.perf_counter()
+        tools[name] = run_phase()
+        tools[name]["phase_s"] = time.perf_counter() - t0
+        log(f"phase {name}: {tools[name]['phase_s']:.1f} s")
+    log(f"the tools and seq2seq phases: {time.perf_counter() - t_tools:.1f} "
+        "s")
     launched = {k: v for k, v in {**more, **train, **fam, **par,
-                                  **interop}.items()
+                                  **interop, **tools}.items()
                 if "k1_launches" in v}
     k1_by_path = {"en": sl["k1_launches"], "jp": jp["k1_launches"],
                   **{k: v["k1_launches"] for k, v in launched.items()}}
@@ -4218,7 +4703,7 @@ def main(argv) -> int:
                    jp={k: v for k, v in jp.items()
                        if k not in ("k1_main", "k2_main", "paths")},
                    other_paths=more, training=train, families=fam,
-                   data_parallel=par, interop=interop,
+                   data_parallel=par, interop=interop, tools=tools,
                    kernels=kernels, k1_sweep=k1_sweep,
                    total_s=time.perf_counter() - t_start)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

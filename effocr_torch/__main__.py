@@ -3,9 +3,15 @@
 Ported commands: ``infer``, ``serve``, ``train-recognizer``,
 ``train-localizer``, ``build-index``, ``build-freq-dict``,
 ``build-homoglyphs``, ``import-reference``, ``import-encoder``,
-``export``, ``coco-split``, ``coco-combine`` and ``coco-subset``.
-``NOT_PORTED`` names the JAX package's commands still to port (ROADMAP.md
-queue 1).
+``export``, ``coco-split``, ``coco-combine``, ``coco-subset``,
+``error-analysis``, ``viz`` and ``train-seq2seq``.  ``NOT_PORTED`` names
+the JAX package's commands still to port (ROADMAP.md queue 1).
+
+The JAX package's core/cache.py has no counterpart: it points JAX's
+persistent compilation cache at a directory, and this package compiles
+no XLA program.  Its one build step, the nvcc and g++ libraries, is
+cached by kernels/cuda_build.py and native/ (rebuilt only when a source
+is newer).
 """
 
 import sys
@@ -24,9 +30,12 @@ COMMANDS = {
     "coco_split": "effocr_torch.cli.coco_tools",
     "coco_combine": "effocr_torch.cli.coco_tools",
     "coco_subset": "effocr_torch.cli.coco_tools",
+    "error_analysis": "effocr_torch.cli.error_analysis",
+    "viz": "effocr_torch.cli.viz",
+    "train_seq2seq": "effocr_torch.cli.train_seq2seq",
 }
 NOT_PORTED = ("make-corpus", "make-charset", "format-dataset",
-              "train-seq2seq", "import-trocr", "error-analysis", "viz")
+              "import-trocr")
 
 
 def main():

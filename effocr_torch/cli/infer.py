@@ -15,7 +15,11 @@ command does.  Adds ``--device`` (default
 cuda).  ``--data_parallel`` runs one engine replica per visible CUDA
 device (``EffOCRInference(devices=...)``), ``line_batch`` rounded up to
 a multiple of their number as in the JAX command; with one device it
-says so and runs unsharded.
+says so and runs unsharded.  ``--output_localizer_results DIR`` writes
+each page with its boxes outlined (utils/viz.py ``draw_boxes``);
+``--compare_ocr`` scores Tesseract (when its binary is present) and, with
+credentials, Google Cloud Vision and Baidu on the same lines
+(utils/comparators.py).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from effocr_torch.core.config import (
 )
 from effocr_torch.core.device import resolve_device
 from effocr_torch.core.distributed import pad_batch_to_data_axis
+from effocr_torch.data import png
 from effocr_torch.data.folder import CharFolderDataset, embed_items
 from effocr_torch.eval.textline import textline_evaluation
 from effocr_torch.interop.flax_bridge import flax_to_state_dict
@@ -51,6 +56,8 @@ from effocr_torch.models.factory import (
 )
 from effocr_torch.pipelines.infer import EffOCRInference
 from effocr_torch.retrieval.index import PrototypeIndex
+from effocr_torch.utils.comparators import baidu_access_token, compare_ocr
+from effocr_torch.utils.viz import draw_boxes
 
 
 def _load_model(model, path: str):
@@ -296,6 +303,48 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
                         "multiple); default from model.json, else square")
 
 
+def write_overlays(out_dir: str, results, inference_coco) -> None:
+    """One PNG a page under ``out_dir`` (its file name): the page in RGB
+    with each detected box of ``inference_coco`` outlined in red."""
+    os.makedirs(out_dir, exist_ok=True)
+    annos_by_img = {}
+    for a in inference_coco["annotations"]:
+        annos_by_img.setdefault(a["image_id"], []).append(a)
+    paths = {}
+    for k in results:
+        paths.setdefault(os.path.basename(str(k)), k)
+    for im_entry in inference_coco["images"]:
+        path = paths.get(im_entry["file_name"])
+        if not isinstance(path, str):
+            continue
+        boxes = [
+            [a["bbox"][0], a["bbox"][1],
+             a["bbox"][0] + a["bbox"][2], a["bbox"][1] + a["bbox"][3]]
+            for a in annos_by_img.get(im_entry["id"], [])
+        ]
+        draw_boxes(png.read_png(path, 3), boxes,
+                   os.path.join(out_dir, im_entry["file_name"]))
+
+
+def compare_external(args, coco) -> None:
+    """Tesseract / GCV / Baidu on the COCO file's pages (Pillow's L
+    conversion): each comparator's textline accuracy and CER printed."""
+    baidu_token = None
+    if args.baidu_api_key and args.baidu_secret_key:
+        baidu_token = baidu_access_token(args.baidu_api_key,
+                                         args.baidu_secret_key)
+    imgs, gts = [], []
+    for x in coco["images"]:
+        imgs.append(png.read_png_l(os.path.join(args.image_dir,
+                                                x["file_name"])))
+        gts.append(x["text"])
+    comp = compare_ocr(imgs, gts, lang="jpn" if args.lang == "jp" else "eng",
+                       gcv_api_key=args.gcv_api_key,
+                       baidu_access_token=baidu_token)
+    for name, (c_acc, c_cer) in comp.items():
+        print(f"{name} | Textline accuracy = {c_acc} | CER = {c_cer}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m effocr_torch infer")
     add_engine_args(p)
@@ -309,6 +358,22 @@ def main(argv=None):
     p.add_argument("--n_repeats", type=int, default=1)
     p.add_argument("--profile_stages", action="store_true", default=False,
                    help="print the per-stage host wall-clock split")
+    p.add_argument("--output_localizer_results", type=str, default=None,
+                   help="directory for detection-overlay images")
+    p.add_argument("--compare_ocr", action="store_true", default=False,
+                   help="also evaluate external comparators on the same "
+                        "lines: Tesseract when installed; GCV/Baidu when "
+                        "credentials are given")
+    p.add_argument("--gcv_api_key", type=str,
+                   default=os.environ.get("GCV_API_KEY"),
+                   help="Google Cloud Vision API key (or $GCV_API_KEY); "
+                        "enables the GCV comparator")
+    p.add_argument("--baidu_api_key", type=str,
+                   default=os.environ.get("BAIDU_API_KEY"))
+    p.add_argument("--baidu_secret_key", type=str,
+                   default=os.environ.get("BAIDU_SECRET_KEY"),
+                   help="Baidu OCR credentials (or $BAIDU_API_KEY/"
+                        "$BAIDU_SECRET_KEY); enables the Baidu comparator")
     args = p.parse_args(argv)
 
     if args.infer_over_img_dir:
@@ -349,6 +414,10 @@ def main(argv=None):
                                "inference_coco.json"), "w") as f:
             json.dump(inference_coco, f, indent=2, ensure_ascii=False)
 
+    if args.output_localizer_results:
+        write_overlays(args.output_localizer_results, results,
+                       inference_coco)
+
     if coco is not None:
         by_name = {os.path.basename(str(k)): v for k, v in results.items()}
         pairs = [(x["text"], by_name.get(x["file_name"]) or "")
@@ -371,6 +440,8 @@ def main(argv=None):
                     "cer": cer,
                     "device": str(engine.device),
                 }, f, indent=2)
+        if args.compare_ocr:
+            compare_external(args, coco)
 
 
 if __name__ == "__main__":

@@ -11,7 +11,7 @@ Every rank steps on its slice of each ``--batch_size`` global batch.
 Only the primary rank writes the run directory: args_log.json,
 model.json (with the fitted ``anchors``, null for FCOS and R-CNN, and
 the ``trained_heights``), best_bbox_mAP.msgpack (Flax layout),
-metrics.jsonl, and last.msgpack (this package's
+metrics.jsonl, and last.msgpack (the JAX package's
 train-state layout).  As in the JAX command, ``--resume`` restores
 last.msgpack and then runs ``--num_epochs`` epochs from epoch 0.
 
@@ -72,7 +72,7 @@ def main(argv=None):
     p.add_argument("--eval_period", type=int, default=1,
                    help="epochs between evals")
     p.add_argument("--resume", action="store_true", default=False,
-                   help="restore <run_name>/last.msgpack (written by this "
+                   help="restore <run_name>/last.msgpack (written by either "
                         "package), then train --num_epochs epochs")
     p.add_argument("--init_ckpt", type=str, default=None,
                    help="warm-start model weights from a variables "

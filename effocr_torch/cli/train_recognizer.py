@@ -56,7 +56,7 @@ def main(argv=None):
     p.add_argument("--checkpoint", type=str, default=None)
     p.add_argument("--resume", action="store_true", default=False,
                    help="continue from <run_name>/last.msgpack (written by "
-                        "this package)")
+                        "either package)")
     p.add_argument("--lang", type=str, default="jp", choices=["jp", "en"])
     p.add_argument("--finetune", action="store_true", default=False)
     p.add_argument("--pretrain", action="store_true", default=False)

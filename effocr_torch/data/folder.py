@@ -7,7 +7,8 @@ comes from the line-stem prefixes of the per-split COCO files, with the
 same leakage asserts.  Each item is decoded once into a white-padded
 uint8 square resized to the encoder's input size (``load_square``): the
 decode is ``png.read`` (Pillow's RGB conversion), the resize
-``pil_bilinear_resize``, a numpy copy of Pillow's ``Image.BILINEAR``.
+``pil_bilinear_resize``, a numpy copy of Pillow's ``Image.BILINEAR``
+(``pil_bicubic_resize`` copies ``Image.BICUBIC`` the same way).
 """
 
 from __future__ import annotations
@@ -30,51 +31,97 @@ from effocr_torch.kernels.image_ops import (
 _PRECISION_BITS = 32 - 8 - 2
 
 
+def _bilinear(x: np.ndarray) -> np.ndarray:
+    return np.maximum(1.0 - np.abs(x), 0.0)
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's cubic convolution, a = -0.5."""
+    a, x = -0.5, np.abs(x)
+    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    far = (((x - 5) * x + 8) * x - 4) * a
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+# Pillow's filters: (kernel, support) by name
+_FILTERS = {"bilinear": (_bilinear, 1.0), "bicubic": (_bicubic, 2.0)}
+
+
 @functools.lru_cache(maxsize=64)
-def _pil_coeffs(in_size: int, out_size: int) -> np.ndarray:
-    """[out_size, in_size] integer weights of Pillow's bilinear resample
-    along one axis: the triangle filter widened by the scale on a
-    downscale, normalised per output in float64, then rounded half away
-    from zero to 22-bit fixed point."""
+def _pil_coeffs(in_size: int, out_size: int, kind: str = "bilinear"
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Pillow's resample weights along one axis (libImaging/Resample.c
+    precompute_coeffs + normalize_coeffs_8bpc): output xx reads inputs
+    ``start[xx] + j`` with integer weight ``weights[xx, j]``, j < ksize.
+    The filter is widened by the scale on a downscale, each output's
+    weights are summed in input order and normalised in float64, then
+    rounded half away from zero to 22-bit fixed point."""
+    kernel, support = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
-    w = np.zeros((out_size, in_size), np.float64)
-    for xx in range(out_size):
-        center = (xx + 0.5) * scale
-        xmin = max(int(center - support + 0.5), 0)
-        xmax = min(int(center + support + 0.5), in_size)
-        x = np.arange(xmin, xmax)
-        k = np.maximum(1.0 - np.abs((x - center + 0.5) / filterscale), 0.0)
-        total = k.sum()
-        if total != 0.0:
-            k = k / total
-        w[xx, xmin:xmax] = k
-    return np.trunc(w * (1 << _PRECISION_BITS) + 0.5)
+    support = support * filterscale
+    ss = 1.0 / filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    # C's (int) truncates toward zero; the clamp at 0 makes it a floor
+    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
+    xmax = np.minimum(np.trunc(center + support + 0.5), in_size).astype(
+        np.int64)
+    x = xmin[:, None] + np.arange(ksize)
+    k = np.where(x < xmax[:, None],
+                 kernel((x - center[:, None] + 0.5) * ss), 0.0)
+    total = k[:, 0].copy()
+    for j in range(1, ksize):           # Pillow's order: ww += w
+        total += k[:, j]
+    k = np.where(total[:, None] != 0.0,
+                 k / np.where(total == 0.0, 1.0, total)[:, None], k)
+    w = k * (1 << _PRECISION_BITS)
+    return xmin, np.where(w < 0, np.trunc(w - 0.5), np.trunc(w + 0.5))
 
 
-def _pil_pass(x: np.ndarray, coeffs: np.ndarray, axis: int) -> np.ndarray:
-    """One 8-bit pass along ``axis`` of [H, W, C]: integer sums (exact in
-    float64), rounded at half and clipped to uint8, as Pillow does
-    between and after its passes."""
-    acc = np.tensordot(x.astype(np.float64), coeffs, axes=([axis], [1]))
-    acc = np.moveaxis(acc, -1, axis).astype(np.int64)
-    acc = (acc + (1 << (_PRECISION_BITS - 1))) >> _PRECISION_BITS
+def _pil_pass(x: np.ndarray, coeffs: Tuple[np.ndarray, np.ndarray],
+              axis: int) -> np.ndarray:
+    """One 8-bit pass along ``axis`` of [H, W, C]: Pillow's 32-bit integer
+    sums, rounded at half and clipped to uint8, as Pillow does between
+    and after its passes."""
+    start, weights = coeffs
+    src = np.ascontiguousarray(np.moveaxis(x, axis, 0), dtype=np.int32)
+    last = src.shape[0] - 1
+    shape = (-1,) + (1,) * (src.ndim - 1)
+    acc = np.full((len(start),) + src.shape[1:], 1 << (_PRECISION_BITS - 1),
+                  np.int32)
+    for j in range(weights.shape[1]):
+        acc += src[np.minimum(start + j, last)] * weights[:, j].astype(
+            np.int32).reshape(shape)
+    acc = np.moveaxis(acc >> _PRECISION_BITS, 0, axis)
     return np.clip(acc, 0, 255).astype(np.uint8)
+
+
+def pil_resize(img: np.ndarray, out_w: int, out_h: int,
+               kind: str = "bilinear") -> np.ndarray:
+    """uint8 [H, W, C] -> [out_h, out_w, C], bit for bit
+    ``Image.fromarray(img).resize((out_w, out_h), Image.BILINEAR)`` (or
+    ``BICUBIC``): horizontal pass first, then vertical, each only when
+    its size changes, clipped to uint8 between and after them."""
+    h, w = img.shape[:2]
+    if w != out_w:
+        img = _pil_pass(img, _pil_coeffs(w, out_w, kind), 1)
+    if h != out_h:
+        img = _pil_pass(img, _pil_coeffs(h, out_h, kind), 0)
+    return img
 
 
 def pil_bilinear_resize(img: np.ndarray, out_w: int, out_h: int
                         ) -> np.ndarray:
-    """uint8 [H, W, C] -> [out_h, out_w, C], bit for bit
-    ``Image.fromarray(img).resize((out_w, out_h), Image.BILINEAR)``:
-    horizontal pass first, then vertical, each only when its size
-    changes."""
-    h, w = img.shape[:2]
-    if w != out_w:
-        img = _pil_pass(img, _pil_coeffs(w, out_w), 1)
-    if h != out_h:
-        img = _pil_pass(img, _pil_coeffs(h, out_h), 0)
-    return img
+    """``Image.resize(..., BILINEAR)`` (``pil_resize``)."""
+    return pil_resize(img, out_w, out_h, "bilinear")
+
+
+def pil_bicubic_resize(img: np.ndarray, out_w: int, out_h: int
+                       ) -> np.ndarray:
+    """``Image.resize(..., BICUBIC)``, the default filter of
+    ``Image.resize`` (``pil_resize``)."""
+    return pil_resize(img, out_w, out_h, "bicubic")
 
 
 def _stem(p: str) -> str:

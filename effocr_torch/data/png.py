@@ -17,12 +17,19 @@ one image: ``channels`` 1 keeps an 8-bit gray PNG as it is and reduces
 anything else to the truncating channel mean of its RGB conversion.
 ``read(paths, channels)`` is the one place that picks the decoder: the
 native one for the files it takes, this module for the rest.
+``read_png_l(path)`` is Pillow's ``convert("L")`` (``to_l``: ITU-R 601-2
+luma in Pillow's integer form), which is not the channel mean.
+
+``encode(img)`` / ``write(path, img)`` write gray, RGB and RGBA uint8
+arrays as 8-bit PNGs (filter None, zlib level 6): the pixels decode to
+the array, in Pillow too; the bytes are not Pillow's.
 
 Files that are not PNG raise ``NotImplementedError`` naming their format.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 from typing import List, Optional, Sequence, Tuple
@@ -266,3 +273,63 @@ def read(paths: Sequence[str], channels: Sequence[int]) -> List[np.ndarray]:
             out[i] = arr
     return [arr if arr is not None else read_png(p, ch)
             for arr, p, ch in zip(out, paths, channels)]
+
+
+def to_l(rgb: np.ndarray) -> np.ndarray:
+    """uint8 [H, W, 3] -> [H, W], Pillow's RGB -> L conversion:
+    ``(R * 19595 + G * 38470 + B * 7471 + 0x8000) >> 16``.  A gray,
+    palette or 16-bit PNG converts through its RGB pixels (``to_rgb``) to
+    the value Pillow's direct conversion gives."""
+    r, g, b = (rgb[..., i].astype(np.uint32) for i in range(3))
+    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(
+        np.uint8)
+
+
+def read_png_l(path: str) -> np.ndarray:
+    """uint8 [H, W]: ``PIL.Image.open(path).convert("L")``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(PNG_MAGIC):
+        raise not_png_error(path, data[:16])
+    px, hdr = decode(data)
+    if hdr["color_type"] == 0 and hdr["bit_depth"] == 8:
+        return px[..., 0]
+    return to_l(to_rgb(px, hdr))
+
+
+# colour type by channel count of the array written
+_COLOR_TYPE = {1: 0, 3: 2, 4: 6}
+
+
+def encode(img: np.ndarray) -> bytes:
+    """uint8 [H, W] or [H, W, 1 | 3 | 4] -> PNG bytes (8-bit gray, RGB or
+    RGBA; every row filter None)."""
+    a = np.asarray(img)
+    if a.dtype != np.uint8:
+        raise ValueError(f"PNG writer takes uint8, not {a.dtype}")
+    if a.ndim == 2:
+        a = a[..., None]
+    if a.ndim != 3 or a.shape[2] not in _COLOR_TYPE or 0 in a.shape[:2]:
+        raise ValueError(f"PNG writer takes [H, W] or [H, W, 1|3|4], not "
+                         f"{list(np.shape(img))}")
+    h, w, c = a.shape
+    rows = np.zeros((h, w * c + 1), np.uint8)
+    rows[:, 1:] = a.reshape(h, w * c)
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body)))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
+    return (PNG_MAGIC + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def write(path: str, img: np.ndarray) -> str:
+    """``encode(img)`` into ``path`` (parent directories made); returns
+    the path."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(encode(img))
+    return path

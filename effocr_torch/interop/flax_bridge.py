@@ -18,7 +18,9 @@ and relayouts it:
 - parameters that are neither kernel nor norm keep their name and
   layout: ConvNeXt's LayerScale ``gamma``, the transformers' ``pos``
   (1, n, dim) and ``cls`` (1, 1, dim), XCA's ``temperature`` (heads, 1,
-  1) and XCiT's layer scales ``gamma1``, ``gamma2``, ``gamma3``.
+  1), XCiT's layer scales ``gamma1``, ``gamma2``, ``gamma3``, and the
+  seq2seq baseline's ``enc_pos`` / ``dec_pos`` and ``nn.Embed``'s
+  ``embedding`` [vocab, dim].
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 
 # leaves that keep their name and layout both ways
 _SAME_NAMES = ("bias", "gamma", "gamma1", "gamma2", "gamma3", "pos", "cls",
-               "temperature")
+               "temperature", "enc_pos", "dec_pos", "embedding")
 _PARAM_NAMES = {"scale": "weight", **{k: k for k in _SAME_NAMES}}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 

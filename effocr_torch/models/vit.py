@@ -32,9 +32,10 @@ from effocr_torch.models.layers import BatchNorm, Conv, Dense, LayerNorm
 
 def _inv_sqrt_scale(hd: int, dtype: torch.dtype, device) -> torch.Tensor:
     """sqrt(hd) rounded to float32, then to ``dtype`` (JAX's
-    ``jnp.sqrt(hd).astype(x.dtype)``)."""
-    return torch.tensor(math.sqrt(hd), dtype=torch.float32,
-                        device=device).to(dtype)
+    ``jnp.sqrt(hd).astype(x.dtype)``), made on the device (a fill, not a
+    host-to-device copy, which would wait for the device)."""
+    return torch.full((), math.sqrt(hd), dtype=torch.float32,
+                      device=device).to(dtype)
 
 
 def _softmax(attn: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

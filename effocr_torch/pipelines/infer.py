@@ -162,12 +162,6 @@ def build_inference_coco(coco_boxes: Dict) -> Dict:
     return coco
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to effocr_torch yet (ROADMAP.md lists it "
-        "among the open items)")
-
-
 def _to_host_async(tensors: Sequence[torch.Tensor]):
     """Start copying device tensors back to pinned host memory.  Returns
     (host tensors, event to wait on); CPU tensors come back as they are,

@@ -22,7 +22,8 @@ from the CUDA kernel (kernels/cuda_nms.py), as do the R-CNN's RPN keep
 masks in every step.  The best checkpoint on
 bbox/AP (``>=``) goes to ``best_bbox_mAP.msgpack`` in the Flax layout,
 which both packages' ``load_engine`` read; ``save``/``resume`` write and
-read ``last.msgpack`` in this package's train-state layout.
+read ``last.msgpack`` in the JAX package's train-state layout
+(train/checkpoint.py: either package resumes the other's run).
 
 Data parallel (the JAX trainer's ``mesh=`` path): the model runs in
 ``DistributedDataParallel``; ``train_step`` / ``train_step_bank`` take
@@ -278,19 +279,18 @@ class LocalizerTrainer:
 
     # ------------------------------------------------------------ state
     def save(self, name: str = "last") -> None:
-        state = {"model": {k: v.detach().cpu().numpy()
-                           for k, v in self.model.state_dict().items()},
-                 "opt": self.optimizer.state_dict()}
-        ckpt.save_train_state(state, os.path.join(self.run_dir,
-                                                  f"{name}.msgpack"))
+        """``<run_dir>/<name>.msgpack`` in the JAX package's train-state
+        layout (its ``chain(clip_by_global_norm, adamw)``)."""
+        ckpt.save_train_state(
+            ckpt.train_state(self.model, self.optimizer, clip=True),
+            os.path.join(self.run_dir, f"{name}.msgpack"))
 
     def resume(self, name: str = "last") -> bool:
+        """Restore ``<run_dir>/<name>.msgpack`` (either package's, or this
+        package's earlier layout); False when there is none."""
         path = os.path.join(self.run_dir, f"{name}.msgpack")
         if not os.path.exists(path):
             return False
-        state = ckpt.load_train_state(path)
-        self.model.load_state_dict(
-            {k: torch.from_numpy(np.asarray(v))
-             for k, v in state["model"].items()}, strict=True)
-        self.optimizer.load_state_dict(state["opt"])
+        ckpt.restore_train_state(ckpt.load_train_state(path), self.model,
+                                 self.optimizer, clip=True)
         return True

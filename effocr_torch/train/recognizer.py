@@ -31,8 +31,8 @@ the primary rank writes files, the others wait at a barrier.
 
 Artifacts: ``enc_best.msgpack`` (Flax layout, readable by the JAX
 package), ``ref.npz``/``ref.txt``, ``hns.txt``, ``metrics.jsonl``, and
-``last.msgpack`` + ``last_meta.json`` (this package's train-state layout,
-train/checkpoint.py).
+``last.msgpack`` + ``last_meta.json`` (the JAX package's train-state
+layout, train/checkpoint.py: either package resumes the other's run).
 """
 
 from __future__ import annotations
@@ -456,18 +456,19 @@ class RecognizerTrainer:
                 {"aux": self.aux} if self.aux is not None else {})})
         return self.best_acc
 
+    def _state_layout(self) -> Dict:
+        """The optax layout of this run's optimizer (checkpoint.py): the
+        aux head at its own rate is a multi_transform."""
+        return dict(aux=self.aux if self.use_aux else None,
+                    multi=self.use_aux and self.cfg.aux_lr_mult != 1.0)
+
     def _save_last(self, epoch_done: int, step: int, last_path: str,
                    meta_path: str) -> None:
-        """last.msgpack and last_meta.json, written by the primary rank
-        while the others wait."""
-        state = {
-            "model": {k: v.detach().cpu().numpy()
-                      for k, v in self.model.state_dict().items()},
-            "aux": (self.aux.detach().cpu().numpy()
-                    if self.aux is not None else None),
-            "opt": self.optimizer.state_dict(),
-        }
-        ckpt.save_train_state(state, last_path)
+        """last.msgpack (the JAX package's train-state layout) and
+        last_meta.json, written by the primary rank while the others
+        wait."""
+        ckpt.save_train_state(ckpt.train_state(
+            self.model, self.optimizer, **self._state_layout()), last_path)
         if distributed.is_primary():
             with open(meta_path + ".tmp", "w") as f:
                 json.dump({"epoch": epoch_done + 1, "step": step,
@@ -476,14 +477,9 @@ class RecognizerTrainer:
         distributed.barrier()
 
     def _load_last(self, last_path: str) -> None:
-        state = ckpt.load_train_state(last_path)
-        self.model.load_state_dict(
-            {k: torch.from_numpy(v) for k, v in state["model"].items()},
-            strict=True)
-        if self.aux is not None:
-            with torch.no_grad():
-                self.aux.copy_(torch.from_numpy(state["aux"]))
-        self.optimizer.load_state_dict(state["opt"])
+        ckpt.restore_train_state(ckpt.load_train_state(last_path),
+                                 self.model, self.optimizer,
+                                 **self._state_layout())
 
     def _save_best(self) -> None:
         ckpt.save_variables(self.variables,

@@ -1,14 +1,37 @@
-"""Per-stage wall-clock timers (the JAX package's utils/profiling.py
-StageTimer).  Device time per stage comes from torch.profiler over the
-record_function ranges of pipelines/infer.py (chip_smoke.py --profile)."""
+"""Per-stage wall-clock timers and a device trace (the JAX package's
+utils/profiling.py ``StageTimer`` and ``device_trace``).  Device time
+per stage comes from torch.profiler over the record_function ranges of
+pipelines/infer.py (chip_smoke.py --profile)."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import defaultdict
 from typing import Dict
+
+import torch
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """torch.profiler trace of the enclosed block (host, and CUDA when a
+    card is present), written into ``log_dir`` as a Chrome trace
+    (``trace_<pid>_<ns>.json``, for Perfetto or chrome://tracing).
+    Yields the profiler; its ``trace_path`` is set once the block ends."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.trace_path = os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(prof.trace_path)
 
 
 class StageTimer:

@@ -369,14 +369,21 @@ def _flat(tree, prefix=""):
 
 
 def _compare_runs(single, ranks, ptol=2e-4, mtol=1e-4):
+    """last.msgpack (the JAX package's train-state layout) of a 1-rank
+    and a 2-rank run: the model's variables within ``ptol``, Adam's first
+    moments within ``mtol`` of their largest."""
     a = ckpt.load_train_state(os.path.join(single, "last.msgpack"))
     b = ckpt.load_train_state(os.path.join(ranks, "last.msgpack"))
-    pa, pb = _flat(a["model"]), _flat(b["model"])
+    pa, pb = ({k: v.numpy() for k, v in flax_to_state_dict(
+        {k: s[k] for k in ("params", "batch_stats")}).items()}
+        for s in (a, b))
     assert pa.keys() == pb.keys()
     for k in pa:
         np.testing.assert_allclose(pb[k], pa[k], rtol=0, atol=ptol,
                                    err_msg=k)
-    ma, mb = _flat(a["opt"]["mu"]), _flat(b["opt"]["mu"])
+    ma, mb = ({k: v for k, v in _flat(s["opt_state"]).items()
+               if "/mu/" in k} for s in (a, b))
+    assert ma and ma.keys() == mb.keys()
     big = max(float(np.abs(v).max()) for v in ma.values())
     for k in ma:
         np.testing.assert_allclose(mb[k], ma[k], rtol=0, atol=mtol * big,

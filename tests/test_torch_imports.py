@@ -1,8 +1,8 @@
 """effocr_torch stands alone: no JAX, no Flax, nothing of effocr_tpu.
 
 In a fresh interpreter where importing ``jax``, ``flax``, ``optax``,
-``msgpack``, ``PIL``, ``cv2``, ``safetensors``, ``transformers``,
-``timm``, ``onnx``, ``onnxruntime`` or ``faiss`` fails, every module of
+``msgpack``, ``PIL``, ``pytesseract``, ``cv2``, ``safetensors``,
+``transformers``, ``timm``, ``onnx``, ``onnxruntime`` or ``faiss`` fails, every module of
 effocr_torch (the training slice's data, train and CLI modules included)
 and chip_smoke.py (imported, not run) must import, the artifact
 importers must read what the port's writers write (FAISS, ONNX,
@@ -23,9 +23,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _GUARD = textwrap.dedent("""
     import importlib, importlib.util, pkgutil, sys
-    for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "cv2",
-                 "safetensors", "transformers", "timm", "onnx",
-                 "onnxruntime", "faiss"):
+    for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL",
+                 "pytesseract", "cv2", "safetensors", "transformers", "timm",
+                 "onnx", "onnxruntime", "faiss"):
         sys.modules[name] = None
     import effocr_torch
     # Python modules only: the built native libraries sit in the tree too

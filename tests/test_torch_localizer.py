@@ -28,7 +28,10 @@ same inputs and weights (bridged with interop/flax_bridge.py):
   (a control whose optimizer never steps misses by more than 3e-2), the
   update's cosine with JAX's >= 0.95 and its norm within 1%; ``evaluate``'s
   AP dictionary equal to JAX's on the same weights, best_bbox_mAP.msgpack
-  written; ``save``/``resume`` bit for bit;
+  written; ``save``/``resume`` bit for bit; ``--resume`` across packages
+  both ways (the JAX trainer's last.msgpack written back bit for bit, a
+  resumed step held to the other package's at the trainer test's
+  tolerances);
 - the CLI: ``train-localizer --device cpu`` (fit_anchors, multi_height,
   resident and stream, augment, test_coco, init_ckpt): model.json equal
   to the JAX command's, the best checkpoint loaded by both packages'
@@ -55,6 +58,7 @@ from effocr_tpu.kernels.det_augment import augment_detection_batch
 from effocr_tpu.kernels.image_ops import letterbox_host as j_letterbox
 from effocr_tpu.models import create_localizer as j_localizer
 from effocr_tpu.train import losses as j_losses
+from effocr_tpu.train import checkpoint as j_ckpt
 from effocr_tpu.train.localizer import LocalizerTrainer as JTrainer
 from effocr_tpu.train.localizer import fit_anchors as j_fit_anchors
 from effocr_tpu.train.localizer import make_detector_train_step as j_step
@@ -84,6 +88,7 @@ from effocr_torch.train.optim import AdamW, warmup_cosine_decay_schedule
 from test_torch_train import (  # noqa: F401
     _capture_grads,
     _engine_args,
+    _flat,
     _FlaxInitProxy,
     _GradRecorder,
     _np,
@@ -584,6 +589,89 @@ def test_trainer_steps_evaluate_resume(corpus, tmp_path):
     a, b = tt.model.state_dict(), resumed.model.state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert resumed.optimizer.count == tt.optimizer.count == 6
+
+
+def test_resume_crosses_packages(corpus, tmp_path):
+    """A run started by either package resumes in the other: the JAX
+    trainer's last.msgpack after two bank steps (clip + AdamW, warmup 1)
+    loads into the port's trainer, which writes it back bit for bit for
+    the JAX loader; one step of the port from it against the JAX step
+    from its own state, then one JAX step from the port's last.msgpack
+    against the port's step from its own state: loss 2e-3 relative, Adam's
+    new moments 2e-3 of their largest |value| and the update's cosine
+    with JAX's >= 0.95 and its norm within 1% (the tolerances of
+    test_trainer_steps_evaluate_resume and of the step test's 2e-3
+    against JAX's coarser float32 convolutions), the count equal."""
+    root, image_dir, coco = corpus
+    jcfg, tcfg = _cfgs(1, lr=2e-3, warmup_steps=1, augment=False)
+    jm, _, variables = _models(1, seed=4)
+    ds_kw = dict(input_size=W, input_height=H, channels=1)
+    jds, tds = JDataset(coco, image_dir, **ds_kw), DetectionDataset(
+        coco, image_dir, **ds_kw)
+    jt = JTrainer(jcfg, jm, str(tmp_path / "jax"), 8)
+    jt.state = {"params": variables["params"],
+                "batch_stats": variables["batch_stats"],
+                "opt_state": jt.tx.init(variables["params"])}
+    batches = [[0, 2, 4, 6], [1, 3, 5, 7], [8, 9, 0, 1], [2, 3, 8, 9]]
+    for b in batches[:2]:
+        jt.train_step_bank(jds, b)
+    jt.save("last")
+    tt = LocalizerTrainer(tcfg, create_localizer(
+        "yolov5n", 2, in_channels=1, dtype=F32), str(tmp_path / "jax"), 8,
+        device="cpu")
+    tt.init_state(123)                       # overwritten by the resume
+    assert tt.resume() and tt.optimizer.count == 2
+    tt.run_dir = str(tmp_path / "torch")
+    tt.save("last")
+    port_last = str(tmp_path / "torch" / "last.msgpack")
+    back = _flat(_np(j_ckpt.load_train_state(jt.state, port_last)))
+    orig = _flat(_np(jt.state))
+    assert back.keys() == orig.keys()
+    for k, v in orig.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+        assert back[k].dtype == v.dtype, k
+
+    def check(jold, told, jloss, tloss):
+        assert abs(float(tloss) / jloss - 1) <= 2e-3
+        got = _flat(ckpt.train_state(tt.model, tt.optimizer, clip=True))
+        want = _flat(_np(jt.state))
+        assert got.keys() == want.keys()
+        for part in ("/mu/", "/nu/"):
+            keys = [k for k in want if part in k]
+            vmax = max(float(np.abs(want[k]).max()) for k in keys)
+            for k in keys:
+                np.testing.assert_allclose(got[k], want[k], rtol=0,
+                                           atol=2e-3 * vmax, err_msg=k)
+        assert {int(v) for k, v in want.items() if k.endswith("count")} \
+            == {tt.optimizer.count}
+        keys = [k for k in want if k.startswith("params/")]
+        dj = np.concatenate([(want[k] - jold[k]).ravel() for k in keys])
+        dt = np.concatenate([(got[k] - told[k]).ravel() for k in keys])
+        assert np.abs(dj).max() > 1e-4
+        assert dj @ dt / (np.linalg.norm(dj) * np.linalg.norm(dt)) >= 0.95
+        assert abs(np.linalg.norm(dt) / np.linalg.norm(dj) - 1) <= 1e-2
+
+    # the port resumed JAX's file; JAX steps from its own state
+    jold = _flat(jt.state)
+    told = _flat(ckpt.train_state(tt.model, tt.optimizer, clip=True))
+    jloss = jt.train_step_bank(jds, batches[2])[0]
+    check(jold, told, jloss, tt.train_step_bank(tds, batches[2])[0])
+    # JAX resumes the port's file; the port steps from its own state
+    tt.save("last")
+    assert _jax_resume(jt, port_last)
+    jold = _flat(jt.state)
+    told = _flat(ckpt.train_state(tt.model, tt.optimizer, clip=True))
+    jloss = jt.train_step_bank(jds, batches[3])[0]
+    check(jold, told, jloss, tt.train_step_bank(tds, batches[3])[0])
+
+
+def _jax_resume(jt, path):
+    """The JAX trainer's ``resume`` on a file outside its run dir."""
+    run_dir, jt.run_dir = jt.run_dir, os.path.dirname(path)
+    try:
+        return jt.resume(os.path.splitext(os.path.basename(path))[0])
+    finally:
+        jt.run_dir = run_dir
 
 
 def test_trainer_refuses_other_families(tmp_path):

@@ -15,6 +15,11 @@ block a stage, 32 px, float32 compute), with the same inputs and weights
   per-step lr those of JAX's opt_state, ref.txt identical, ref.npz
   within 1e-4; a run resumed after epoch 1 ends with the parameters of
   an uninterrupted run, bit for bit;
+- ``--resume`` across packages: the JAX trainer's last.msgpack (aux head
+  under optax.multi_transform) loads into the port's trainer and is
+  written back bit for bit; a step resumed from the other package's file
+  is held to the same package's step (loss 1e-5, moments 1e-4 of the
+  largest, the update's direction and norm); the earlier layout loads;
 - the CLIs: ``train-recognizer`` then ``build-index --test
   --mine_hardneg 2`` on ``--device cpu``, the run dir loaded by both
   packages' ``load_engine`` (a classifier-mode run too, with its
@@ -52,6 +57,7 @@ from effocr_torch.interop.flax_bridge import (
     flax_to_state_dict,
     state_dict_to_flax,
 )
+from effocr_torch.interop.flax_msgpack import write_variables
 from effocr_torch.models.factory import (
     create_encoder,
     create_localizer,
@@ -785,3 +791,146 @@ def test_training_clis_raise_without_cuda(tmp_path):
             "--train_ann_path", "a", "--val_ann_path", "b",
             "--test_ann_path", "c", "--run_name", str(tmp_path / "never"),
             "--adjacent_font_path", "font.ttf"])
+
+
+# ------------------------------------------------ resume across packages
+def _flat(tree):
+    """{"a/b/0/mu/...": leaf} of a state tree: optax's own objects (tuple
+    indices, namedtuple fields) named as flax.serialization names them."""
+    def name(k):
+        for attr in ("key", "name", "idx"):
+            if hasattr(k, attr):
+                return str(getattr(k, attr))
+        raise TypeError(k)
+
+    return {"/".join(map(name, path)): np.array(v)
+            for path, v in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def _assert_resumed_steps_agree(jold, jnew, jloss, tt, tloss, told):
+    """One step from the same resumed state: loss 1e-5 relative, the
+    optimizer's count equal, Adam's new moments 1e-4 of their largest
+    |value|, the parameter update's cosine with JAX's >= 0.999 and its
+    norm within 1% (a BatchNorm bias ahead of another train-mode
+    BatchNorm has a gradient of rounding noise, which Adam turns into
+    +-lr steps of either sign, so weights are not compared one by one)."""
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+    got = _flat(ckpt.train_state(tt.model, tt.optimizer,
+                                 **tt._state_layout()))
+    want = _flat(_np(jnew))
+    assert got.keys() == want.keys()
+    for part in ("/mu/", "/nu/"):
+        keys = [k for k in want if part in k]
+        vmax = max(float(np.abs(want[k]).max()) for k in keys)
+        for k in keys:
+            np.testing.assert_allclose(got[k], want[k], rtol=0,
+                                       atol=1e-4 * vmax, err_msg=k)
+    counts = {int(v) for k, v in want.items() if k.endswith("count")}
+    assert counts == {tt.optimizer.count}
+    keys = [k for k in want if k.startswith(("params/", "aux/"))]
+    dj = np.concatenate([(want[k] - jold[k]).ravel() for k in keys])
+    dt = np.concatenate([(got[k] - told[k]).ravel() for k in keys])
+    assert np.abs(dj).max() > 1e-4
+    assert dj @ dt / (np.linalg.norm(dj) * np.linalg.norm(dt)) >= 0.999
+    assert abs(np.linalg.norm(dt) / np.linalg.norm(dj) - 1) <= 1e-2
+
+
+def test_resume_crosses_packages(cut_mobilenet, tmp_path):
+    """A run started by either package resumes in the other.  The JAX
+    trainer's last.msgpack after two steps (cosine schedule, aux head at
+    3x the rate: optax.multi_transform) loads into the port's trainer,
+    which writes it back bit for bit for the JAX loader; the port's step
+    from it is held to the JAX step from its own state
+    (``_assert_resumed_steps_agree``); then the JAX trainer resumes the
+    port's last.msgpack and steps, held to the port's step from its own
+    state.  A file of this package's earlier layout (format
+    effocr_torch.train_state.v1) still loads, to the same state."""
+    rng = np.random.default_rng(5)
+    b, size, n_cls = 8, 32, 4
+    kw = dict(batch_size=b, lang="en", no_aug=True, aux_ce_weight=1.0,
+              aux_lr_mult=3.0, lr=1e-3, lr_schedule="cosine",
+              warmup_frac=0.25)
+    enc = dict(arch="mobilenetv3_small_050", image_size=size,
+               input_channels=1)
+    jt = JTrainer(JTrainConfig(encoder=JEncoderConfig(**enc), **kw),
+                  j_encoder("mobilenetv3_small_050", dtype=jnp.float32),
+                  str(tmp_path / "jax"))
+    variables, dim = _seeded_vars("mobilenetv3_small_050", 1, 3)
+    jt.state = {"params": variables["params"],
+                "batch_stats": variables["batch_stats"],
+                "aux": {"w": jnp.asarray(rng.normal(
+                    size=(n_cls, dim)).astype(np.float32))}}
+    jt._build_optimizer(8)
+    batches = []
+    for _ in range(4):
+        imgs = rng.integers(0, 256, (b, size, size, 3), np.uint8)
+        imgs[:, :, :6] = 255
+        batches.append((imgs, rng.integers(0, n_cls, b).astype(np.int32),
+                        rng.uniform(size=b) < 0.4))
+    key = jax.random.PRNGKey(0)
+    for batch in batches[:2]:
+        jt.state, _ = jt._step_fn(jt.state, *map(jnp.asarray, batch), key)
+    jax_last = str(tmp_path / "jax" / "last.msgpack")
+    j_ckpt.save_train_state(jt.state, jax_last)
+
+    tt = RecognizerTrainer(
+        _fit_cfg(RecognizerTrainConfig, EncoderConfig, **kw),
+        create_encoder("mobilenetv3_small_050", in_channels=1, dtype=F32),
+        str(tmp_path / "torch"), device="cpu")
+    tt.init_state(123)                       # overwritten by the resume
+    tt._init_aux(n_cls)
+    tt._build_optimizer(8)
+    tt._load_last(jax_last)
+    assert tt.optimizer.count == 2
+    port_last = str(tmp_path / "torch" / "last.msgpack")
+    tt._save_last(0, 2, port_last, port_last + ".meta")
+    back = _flat(_np(j_ckpt.load_train_state(jt.state, port_last)))
+    orig = _flat(_np(jt.state))
+    assert back.keys() == orig.keys()
+    for k, v in orig.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+        assert back[k].dtype == v.dtype, k
+
+    # a train state of this package's own earlier layout still loads
+    v1_path = str(tmp_path / "v1" / "last.msgpack")
+    os.makedirs(os.path.dirname(v1_path))
+    write_variables({"format": ckpt.TRAIN_STATE_FORMAT_V1,
+                     "model": {k: v.numpy() for k, v in
+                               tt.model.state_dict().items()},
+                     "aux": tt.aux.detach().numpy(),
+                     "opt": tt.optimizer.state_dict()}, v1_path)
+    t1 = RecognizerTrainer(
+        _fit_cfg(RecognizerTrainConfig, EncoderConfig, **kw),
+        create_encoder("mobilenetv3_small_050", in_channels=1, dtype=F32),
+        str(tmp_path / "v1"), device="cpu")
+    t1.init_state(7)
+    t1._init_aux(n_cls)
+    t1._build_optimizer(8)
+    t1._load_last(v1_path)
+    a, b = (_flat(ckpt.train_state(t.model, t.optimizer,
+                                   **t._state_layout())) for t in (tt, t1))
+    assert a.keys() == b.keys()
+    for k, v in a.items():
+        np.testing.assert_array_equal(b[k], v, err_msg=k)
+
+    def t_batch(batch):
+        imgs, targets, paired = batch
+        return (torch.from_numpy(imgs), torch.from_numpy(targets).long(),
+                torch.from_numpy(paired), None)
+
+    # the port resumes JAX's file; JAX steps from its own state
+    told = _flat(ckpt.train_state(tt.model, tt.optimizer,
+                                  **tt._state_layout()))
+    jold = _flat(jt.state)            # the step donates its state
+    jnew, jloss = jt._step_fn(jt.state, *map(jnp.asarray, batches[2]), key)
+    tloss = tt._step_fn(*t_batch(batches[2]))
+    _assert_resumed_steps_agree(jold, jnew, jloss, tt, tloss, told)
+    # JAX resumes the port's file; the port steps from its own state
+    tt._save_last(1, 3, port_last, port_last + ".meta")
+    jstate = j_ckpt.load_train_state(jt.state, port_last)
+    told = _flat(ckpt.train_state(tt.model, tt.optimizer,
+                                  **tt._state_layout()))
+    jold = _flat(jstate)
+    jnew, jloss = jt._step_fn(jstate, *map(jnp.asarray, batches[3]), key)
+    tloss = tt._step_fn(*t_batch(batches[3]))
+    _assert_resumed_steps_agree(jold, jnew, jloss, tt, tloss, told)
