@@ -228,6 +228,23 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      against the CPU (loss 1e-5 relative, gradients 1e-3 of the
      largest); greedy tokens of 16 val lines on the card and the CPU
      identical but after a step whose CPU top-2 margin is under 1e-4.
+   - trocr: ``import-trocr`` at the published trocr-base widths (ViT-base
+     encoder, 384 px, 577 tokens; TrOCR decoder d_model 1024, 12 layers,
+     vocab 50265; ~385M float32 parameters, the output projection a
+     copy of the token embedding) from seeded weights written as
+     model.safetensors + config.json + a byte-level BPE vocab.json +
+     merges.txt counted from phase train_localizer's texts; ``--check``
+     (against the float64 HF-layout reference), fine-tuning for 2 epochs
+     of 256 train lines (batch 8, greedy val CER on 16 lines each epoch),
+     then beam 4 on 32 read lines: the check's gap, steps/s and images/s
+     of the second epoch, epoch losses (falling), CER, greedy and beam-4
+     lines/s; from the fine-tuned npz, one float32 step at batch 2 on the
+     card against the CPU (loss 1e-5 relative, gradients 1e-3 of the
+     largest), teacher-forced logits of 4 val lines within 2e-3, and the
+     card's greedy tokens where the CPU's argmax would first leave them
+     only at a CPU top-2 margin under 2e-3 (counted); then the step at
+     batch 8 timed and profiled (GEMM kernels against the rest, busy
+     share, TFLOP/s of its matmuls from the shapes).
 12. a ``kernels`` JSON line (launches per path under
    ``launches_by_path``; K1's ``train_localizer`` counts the evaluation's
    launches and the engine's; ``calls_by_iou`` splits the family paths'
@@ -4453,6 +4470,444 @@ def phase_seq2seq(dev, card, tl):
                 step_grad_err=gerr, greedy_near_ties=near)
 
 
+# the ViT-encoder TrOCR base model at the widths of
+# microsoft/trocr-base-handwritten's config.json (ViT-base encoder: 768
+# wide, 12 layers, 12 heads, MLP 3072, 384 px, patch 16; TrOCR decoder:
+# d_model 1024, 12 layers, 16 heads, FFN 4096, vocab 50265, 512 learned
+# positions, embedding LayerNorm, cross attention from 768), weights
+# drawn from SEED; depth cut to 2 epochs of 256 train lines, 16 val
+# lines, 32 read lines at beam 4 (the JAX command: 10 epochs, and
+# phase train_localizer's 2,000 / 128 / 256)
+TROCR_BASE = dict(enc_hidden=768, enc_layers=12, enc_heads=12, enc_mlp=3072,
+                  image_size=384, patch=16, dec_hidden=1024, dec_layers=12,
+                  dec_heads=16, dec_ffn=4096, vocab=50265, max_positions=512)
+TROCR_SPLITS = {"train": 256, "val": 16, "read": 32}
+TROCR_EPOCHS = 2
+TROCR_MERGES = 300      # byte-level BPE merges counted from the corpus
+TROCR_STEP_BATCH = 2    # the card-vs-CPU step
+TROCR_CHECK_LINES = 4   # val lines of the card-vs-CPU logits and greedy
+TROCR_LOGIT_TOL = 2e-3  # the --check tolerance, for card vs CPU logits
+TROCR_MARGIN = 2e-3     # a CPU top-2 logit margin below it is a near-tie
+
+
+def trocr_hf_state_dict(w, seed):
+    """An HF VisionEncoderDecoder (ViT + TrOCR) state dict under HF's
+    names, numpy float32: weights N(0, 0.02) (the configs'
+    initializer_range / init_std), biases 0, LayerNorms at identity, the
+    pooler's keys included, the output projection a copy of the token
+    embedding (the published checkpoints tie them)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    f32 = np.float32
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=f32) * f32(0.02)
+
+    def linear(name, n_out, n_in):
+        sd[f"{name}.weight"] = normal(n_out, n_in)
+        sd[f"{name}.bias"] = np.zeros(n_out, f32)
+
+    def norm(name, n):
+        sd[f"{name}.weight"] = np.ones(n, f32)
+        sd[f"{name}.bias"] = np.zeros(n, f32)
+
+    e, d, p = w["enc_hidden"], w["dec_hidden"], w["patch"]
+    grid = (w["image_size"] // p) ** 2
+    E = "encoder.embeddings"
+    sd[f"{E}.cls_token"] = normal(1, 1, e)
+    sd[f"{E}.position_embeddings"] = normal(1, grid + 1, e)
+    sd[f"{E}.patch_embeddings.projection.weight"] = normal(e, 3, p, p)
+    sd[f"{E}.patch_embeddings.projection.bias"] = np.zeros(e, f32)
+    for i in range(w["enc_layers"]):
+        L = f"encoder.encoder.layer.{i}"
+        for name in ("query", "key", "value"):
+            linear(f"{L}.attention.attention.{name}", e, e)
+        linear(f"{L}.attention.output.dense", e, e)
+        norm(f"{L}.layernorm_before", e)
+        norm(f"{L}.layernorm_after", e)
+        linear(f"{L}.intermediate.dense", w["enc_mlp"], e)
+        linear(f"{L}.output.dense", e, w["enc_mlp"])
+    norm("encoder.layernorm", e)
+    linear("encoder.pooler.dense", e, e)
+    D = "decoder.model.decoder"
+    tok = normal(w["vocab"], d)
+    tok[1] = 0.0                                    # padding_idx 1
+    sd[f"{D}.embed_tokens.weight"] = tok
+    sd[f"{D}.embed_positions.weight"] = normal(w["max_positions"] + 2, d)
+    norm(f"{D}.layernorm_embedding", d)
+    for i in range(w["dec_layers"]):
+        L = f"{D}.layers.{i}"
+        for blk, kv in (("self_attn", d), ("encoder_attn", e)):
+            linear(f"{L}.{blk}.q_proj", d, d)
+            linear(f"{L}.{blk}.k_proj", d, kv)
+            linear(f"{L}.{blk}.v_proj", d, kv)
+            linear(f"{L}.{blk}.out_proj", d, d)
+            norm(f"{L}.{blk}_layer_norm", d)
+        linear(f"{L}.fc1", w["dec_ffn"], d)
+        linear(f"{L}.fc2", d, w["dec_ffn"])
+        norm(f"{L}.final_layer_norm", d)
+    sd["decoder.output_projection.weight"] = tok.copy()
+    return sd
+
+
+def trocr_config(w):
+    """config.json as HF writes it for trocr-base-handwritten: the
+    default-valued decoder_start_token_id left out (diff-serialized)."""
+    return {
+        "architectures": ["VisionEncoderDecoderModel"],
+        "model_type": "vision-encoder-decoder", "is_encoder_decoder": True,
+        "pad_token_id": 1, "eos_token_id": 2, "tie_word_embeddings": False,
+        "encoder": {
+            "model_type": "vit", "hidden_size": w["enc_hidden"],
+            "num_hidden_layers": w["enc_layers"],
+            "num_attention_heads": w["enc_heads"],
+            "intermediate_size": w["enc_mlp"], "hidden_act": "gelu",
+            "layer_norm_eps": 1e-12, "image_size": w["image_size"],
+            "patch_size": w["patch"], "num_channels": 3, "qkv_bias": True,
+            "initializer_range": 0.02},
+        "decoder": {
+            "model_type": "trocr", "d_model": w["dec_hidden"],
+            "decoder_layers": w["dec_layers"],
+            "decoder_attention_heads": w["dec_heads"],
+            "decoder_ffn_dim": w["dec_ffn"], "activation_function": "gelu",
+            "vocab_size": w["vocab"],
+            "max_position_embeddings": w["max_positions"],
+            "layernorm_embedding": True, "scale_embedding": False,
+            "use_learned_position_embeddings": True,
+            "cross_attention_hidden_size": w["enc_hidden"],
+            "init_std": 0.02, "bos_token_id": 0, "eos_token_id": 2,
+            "pad_token_id": 1},
+    }
+
+
+def train_byte_bpe(texts, n_merges):
+    """A byte-level BPE in RoBERTa's layout: vocab (<s> 0, <pad> 1, </s>
+    2, <unk> 3, the 256 byte characters, the merged tokens, <mask> last)
+    and ``n_merges`` merges, each the most frequent adjacent pair over the
+    texts' GPT-2 pieces (ties to the smaller pair)."""
+    from collections import Counter
+
+    from effocr_torch.baselines.tokenizer import BYTE_CHAR, gpt2_split
+
+    words = Counter(tuple(BYTE_CHAR[b] for b in piece.encode("utf-8"))
+                    for t in texts for piece in gpt2_split(t))
+    merges = []
+    for _ in range(n_merges):
+        pairs = Counter()
+        for wd, c in words.items():
+            for pair in zip(wd, wd[1:]):
+                pairs[pair] += c
+        if not pairs:
+            break
+        best = min(pairs, key=lambda q: (-pairs[q], q))
+        merges.append(best)
+        joined = Counter()
+        for wd, c in words.items():
+            out, i = [], 0
+            while i < len(wd):
+                if i + 1 < len(wd) and (wd[i], wd[i + 1]) == best:
+                    out.append(wd[i] + wd[i + 1])
+                    i += 2
+                else:
+                    out.append(wd[i])
+                    i += 1
+            joined[tuple(out)] += c
+        words = joined
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    for b in range(256):
+        vocab[BYTE_CHAR[b]] = len(vocab)
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    vocab["<mask>"] = len(vocab)
+    return vocab, merges
+
+
+def write_trocr_dir(d, w, texts, seed):
+    """config.json, model.safetensors (the port's writer) and vocab.json +
+    merges.txt (the tokenizer files of the ViT-encoder TrOCR
+    checkpoints)."""
+    from effocr_torch.interop.safetensors import save_file
+
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(trocr_config(w), f, indent=1)
+    sd = trocr_hf_state_dict(w, seed)
+    save_file(sd, os.path.join(d, "model.safetensors"))
+    vocab, merges = train_byte_bpe(texts, TROCR_MERGES)
+    with open(os.path.join(d, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(d, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    return sum(v.size for v in sd.values()), len(vocab), len(merges)
+
+
+def trocr_fwd_flops(spec, mlp, ffn, t):
+    """Matmul FLOPs (2 a multiply-add) of one image's teacher-forced
+    forward over ``t`` tokens: the patch embedding, each encoder layer's
+    q / k / v / o, scores, weighted sum and MLP over N + 1 tokens, each
+    decoder layer's self attention, cross attention (k / v of the N + 1
+    memory tokens from ``cross_hidden``) and FFN, and the output
+    projection."""
+    n = spec.n_patches + 1
+    e, d, c, v = (spec.enc_hidden, spec.dec_hidden, spec.cross_hidden,
+                  spec.vocab_size)
+    enc = spec.n_patches * spec.patch ** 2 * 3 * e + spec.enc_layers * (
+        4 * n * e * e + 2 * n * n * e + 2 * n * e * mlp)
+    dec = spec.dec_layers * (
+        4 * t * d * d + 2 * t * t * d + 2 * t * d * d + 2 * n * c * d
+        + 2 * t * n * d + 2 * t * d * ffn) + t * d * v
+    return 2 * enc, 2 * dec
+
+
+def _trocr_batch(tok, coco_json, img_dir, n, size, max_len, pad):
+    """uint8 pixels [n, size, size, 3], labels and masks of the first
+    ``n`` lines of a COCO file, as the command builds them."""
+    from effocr_torch.cli.import_trocr import load_line
+
+    with open(coco_json) as f:
+        ims = [im for im in json.load(f)["images"] if im.get("text")][:n]
+    pix = np.stack([load_line(os.path.join(img_dir, im["file_name"]), size)
+                    for im in ims])
+    labels = np.full((n, max_len), pad, np.int64)
+    for i, im in enumerate(ims):
+        ids = tok(im["text"], truncation=True, max_length=max_len).input_ids
+        labels[i, :len(ids)] = ids
+    return pix, labels, labels != pad
+
+
+def _float(text, pattern):
+    return [float(x) for x in re.findall(pattern, text)]
+
+
+def phase_trocr(dev, card, tl):
+    """``python -m effocr_torch import-trocr`` on the card at the
+    published trocr-base widths from seeded weights: the checkpoint
+    directory (model.safetensors with the output projection, config.json
+    without decoder_start_token_id, a byte-level BPE vocab.json +
+    merges.txt of TROCR_MERGES merges counted from phase
+    train_localizer's train texts), then the command with ``--check
+    --train_coco_json --val_coco_json --coco_json --num_beams 4`` on
+    TROCR_SPLITS of phase train_localizer's splits: the check's largest
+    gap, steps/s and images/s from the second epoch, the mean loss by
+    epoch (it must fall), zero-shot and per-epoch CER, greedy and beam-4
+    lines/s.  Then, in process, from the fine-tuned npz: one float32
+    fine-tune step at batch TROCR_STEP_BATCH on the card and on the CPU
+    (loss 1e-5 relative, gradients 1e-3 of the largest); the card's greedy
+    tokens of TROCR_CHECK_LINES val lines, the teacher-forced logits of
+    start + those tokens on the card and the CPU (within
+    TROCR_LOGIT_TOL), and the CPU's argmax at every step up to the EOS:
+    where it first differs from the card's token (where a CPU greedy
+    decode would leave the card's), the CPU top-2 margin must be under
+    TROCR_MARGIN (counted).  Last, where the time of the command's step
+    (batch 8, AdamW) goes: its wall time, its kernels under
+    torch.profiler (GEMM and the rest, busy share) and the TFLOP/s of
+    its matmuls (``trocr_fwd_flops``), and greedy decode's."""
+    from effocr_torch.baselines.tokenizer import load_tokenizer
+    from effocr_torch.baselines.trocr_import import (
+        TrOCR,
+        load_trocr_npz,
+        make_trocr_finetune_step,
+        trocr_greedy_decode,
+    )
+    from torch.profiler import ProfilerActivity, profile
+
+    from effocr_torch.cli.import_trocr import _special_ids
+    from effocr_torch.train.optim import AdamW
+
+    w = TROCR_BASE
+    root = os.path.join(WORK, "trocr")
+    model_dir = os.path.join(root, "hf_ckpt")
+    splits = {k: _coco_head(tl["splits"][k], n,
+                            os.path.join(root, f"{k}.json"))
+              for k, n in TROCR_SPLITS.items()}
+    with open(tl["splits"]["train"]) as f:
+        texts = [im["text"] for im in json.load(f)["images"]]
+    t0 = time.perf_counter()
+    n_params, n_vocab, n_merges = write_trocr_dir(model_dir, w, texts, SEED)
+    tok = load_tokenizer(model_dir)
+    for t in texts:
+        ids = tok(t).input_ids
+        if tok.decode(ids, skip_special_tokens=True) != t:
+            raise AssertionError(f"trocr: the tokenizer does not round-trip "
+                                 f"{t!r} ({ids})")
+    log(f"trocr: checkpoint of {n_params / 1e6:.1f}M params, tokenizer of "
+        f"{n_vocab} tokens ({n_merges} merges; {len(texts)} train texts "
+        f"round-trip) written in {time.perf_counter() - t0:.1f} s")
+
+    out, wall = run_cli(
+        ["import-trocr", "--device", "cuda", "--model_dir", model_dir,
+         "--check", "--train_coco_json", splits["train"], "--val_coco_json",
+         splits["val"], "--image_dir", tl["img_dir"], "--coco_json",
+         splits["read"], "--num_beams", "4", "--num_epochs",
+         str(TROCR_EPOCHS)], "import_trocr")
+    if "torch parity check passed" not in out:
+        raise AssertionError("trocr: no parity check line")
+    gap = _float(out, r"max \|logit diff\| (\S+)")[0]
+    steps = _float(out, r"train: steps=(\d+)")
+    images = _float(out, r"train: steps=\d+ images=(\d+)")
+    secs = _float(out, r"train: steps=\d+ images=\d+ seconds=(\S+)")
+    losses = _float(out, r"mean_loss=(\S+)")
+    zero_cer = _float(out, r"zero-shot: line_accuracy=\S+ CER=(\S+)")[0]
+    cers = _float(out, r"epoch \d+: loss=\S+ line_accuracy=\S+ CER=(\S+)")
+    greedy = [float(n) / float(s) for n, s in re.findall(
+        r"greedy eval: (\d+) val lines in (\S+) s", out)]
+    beam_n, beam_s = [float(x) for x in re.search(
+        r"decode: (\d+) lines in (\S+) s \(beam 4", out).groups()]
+    read_acc, read_cer = [float(x) for x in re.search(
+        r"n=\d+ line_accuracy=(\S+) CER=(\S+)", out).groups()]
+    if len(losses) != TROCR_EPOCHS or not np.all(np.isfinite(
+            losses + cers + [gap])):
+        raise AssertionError(f"trocr: epochs {losses}, CER {cers}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"trocr: epoch losses {losses} do not fall")
+    steps_s = sum(steps[1:]) / sum(secs[1:])
+    images_s = sum(images[1:]) / sum(secs[1:])
+    log(f"trocr: import-trocr exited 0 in {wall:.1f} s (process wall: "
+        f"conversion, --check, corpus decode, fine-tune, evaluation); "
+        f"--check max |logit diff| {gap:.3g} against the float64 reference "
+        f"(tolerance 2e-3); epochs {secs} s of {[int(s) for s in steps]} "
+        f"steps of 8; epochs 2-{len(steps)}: {steps_s:.3f} steps/s = "
+        f"{images_s:.2f} images/s ({card}); mean loss by epoch {losses}; "
+        f"CER zero-shot {zero_cer}, by epoch {cers}; greedy eval "
+        f"{[round(g, 2) for g in greedy]} lines/s; beam 4 on "
+        f"{int(beam_n)} read lines {beam_n / beam_s:.2f} lines/s, "
+        f"line_accuracy {read_acc} CER {read_cer}")
+
+    # card against CPU from the fine-tuned weights
+    params, spec = load_trocr_npz(os.path.join(model_dir,
+                                               "trocr_tpu_ft.npz"))
+    start, eos, pad = _special_ids(model_dir, tok)
+    cpu = torch.device("cpu")
+    models = [(dev, TrOCR.from_flat(params, spec).to(dev)),
+              (cpu, TrOCR.from_flat(params, spec))]
+    del params
+    pix, labels, mask = _trocr_batch(tok, splits["train"], tl["img_dir"],
+                                     TROCR_STEP_BATCH, spec.image_size, 64,
+                                     pad)
+    steps_out = []
+    for device, m in models:
+        rec = GradRecorder(dict(m.named_parameters()))
+        loss = make_trocr_finetune_step(m, rec, start)(
+            *(torch.from_numpy(a).to(device) for a in (pix, labels, mask)))
+        steps_out.append((float(loss), rec.grads))
+        m.zero_grad(set_to_none=True)
+    (lc, gc), (lp, gp) = steps_out
+    del steps_out
+    gmax = max(float(g.abs().max()) for g in gp.values())
+    gerr = max(float((gc[k] - g).abs().max()) for k, g in gp.items()) / gmax
+    lrel = abs(lc - lp) / abs(lp)
+    del gc, gp
+    log(f"trocr_step_vs_cpu: one float32 fine-tune step at full width, "
+        f"batch {TROCR_STEP_BATCH}: loss {lc:.7f} (card) vs {lp:.7f} (CPU), "
+        f"rel {lrel:.3g} (tolerance 1e-5); max |grad diff| / max|g| "
+        f"{gerr:.3g} (tolerance 1e-3; {card})")
+    if not (lrel <= 1e-5 and gerr <= 1e-3):
+        raise AssertionError("trocr_step_vs_cpu: card and CPU disagree")
+
+    vpix, _, _ = _trocr_batch(tok, splits["val"], tl["img_dir"],
+                              TROCR_CHECK_LINES, spec.image_size, 64, pad)
+    x = [m.normalize(torch.from_numpy(vpix).to(d)) for d, m in models]
+    with torch.no_grad():
+        tokens = trocr_greedy_decode(models[0][1], x[0], max_len=64,
+                                     bos_id=start, eos_id=eos,
+                                     pad_id=pad).cpu()
+        full = torch.cat([torch.full((len(tokens), 1), start), tokens], 1)
+        on_card, on_cpu = [m(xi, full.to(d)).cpu()
+                           for (d, m), xi in zip(models, x)]
+    lgap = float((on_card - on_cpu).abs().max())
+    if not torch.allclose(on_card, on_cpu, rtol=TROCR_LOGIT_TOL,
+                          atol=TROCR_LOGIT_TOL):
+        raise AssertionError(f"trocr: teacher-forced logits, card vs CPU, "
+                             f"max |diff| {lgap}")
+    top = torch.topk(on_cpu[:, :-1], 2, dim=-1)
+    margins = (top.values[..., 0] - top.values[..., 1]).numpy()
+    cpu_next = on_cpu[:, :-1].argmax(-1).numpy()
+    near, bad, n_steps = 0, [], 0
+    for r, row in enumerate(tokens.numpy()):
+        ends = np.flatnonzero(row == eos)
+        last = int(ends[0]) + 1 if len(ends) else len(row)
+        n_steps += last
+        diff = np.flatnonzero(cpu_next[r, :last] != row[:last])
+        if len(diff):
+            t = int(diff[0])
+            if margins[r, t] < TROCR_MARGIN:
+                near += 1
+            else:
+                bad.append((r, t, float(margins[r, t])))
+    log(f"trocr: {len(tokens)} val lines, card greedy ({n_steps} steps up "
+        f"to EOS) vs the CPU: teacher-forced logits max |diff| {lgap:.3g} "
+        f"(tolerance {TROCR_LOGIT_TOL}); {len(tokens) - near - len(bad)} "
+        f"lines identical, {near} part after a step whose CPU top-2 margin "
+        f"is < {TROCR_MARGIN}, {len(bad)} otherwise (smallest CPU margin "
+        f"on the path {float(margins.min()):.3g}); "
+        f"{[tok.decode(r.tolist(), skip_special_tokens=True) for r in tokens[:2]]}")
+    if bad:
+        raise AssertionError(f"trocr: greedy tokens differ at clear "
+                             f"margins: {bad}")
+    model = models[0][1]
+    del models, x, on_card, on_cpu
+
+    # where a step's time goes: the command's step (batch 8, AdamW) on
+    # the card, timed by the host clock around synchronized steps, then
+    # under torch.profiler; the float32 matmul work from the shapes
+    enc_f, dec_f = trocr_fwd_flops(spec, model.enc.L[0].fc1_w.shape[1],
+                                   model.dec.L[0].fc1_w.shape[1], 64)
+    step_tflop = 3 * 8 * (enc_f + dec_f) / 1e12
+    greedy_tflop = 8 * (enc_f + 63 * dec_f) / 1e12
+    batch = [torch.from_numpy(a).to(dev) for a in _trocr_batch(
+        tok, splits["train"], tl["img_dir"], 8, spec.image_size, 64, pad)]
+    step = make_trocr_finetune_step(
+        model.train(), AdamW([(list(model.parameters()), 5e-5)]), start)
+    for _ in range(2):
+        step(*batch)
+    torch.cuda.synchronize()
+    n_steps = 5
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        step(*batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            step(*batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / n_steps
+    gemm = sum(e.self_device_time_total for e in kernels
+               if "gemm" in e.key.lower()) / 1e3 / n_steps
+    launches = sum(e.count for e in kernels) / n_steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"trocr: the fine-tune step at batch 8 ({card}): {step_ms:.1f} ms "
+        f"wall ({n_steps} steps), {total:.1f} ms of kernels in "
+        f"{launches:.0f} launches (busy share {total / step_ms:.3f}, "
+        f"profiler on); GEMM kernels {gemm:.1f} ms ({gemm / total:.3f} of "
+        f"the kernels), the rest {total - gemm:.1f} ms; {step_tflop:.2f} "
+        f"TFLOP of matmuls a step (encoder {3 * 8 * enc_f / 1e12:.2f}, "
+        f"decoder {3 * 8 * dec_f / 1e12:.2f}): {step_tflop / step_ms * 1e3:.1f}"
+        f" TFLOP/s a step, {step_tflop / gemm * 1e3:.1f} in the GEMM "
+        f"kernels (float32 peak 67); greedy decode of 8 lines "
+        f"{greedy_tflop:.1f} TFLOP of matmuls (63 decoder passes), "
+        f"{greedy_tflop * max(greedy) / 8:.1f} TFLOP/s at the CLI's best "
+        f"{max(greedy):.2f} lines/s")
+    for e in top:
+        log(f"trocr: kernel {e.self_device_time_total / 1e3 / n_steps:8.2f}"
+            f" ms/step x{e.count // n_steps:<4d} {e.key[:100]}")
+    del model, step, batch
+    return dict(k1_launches=0, k2_launches=0, params_m=n_params / 1e6,
+                step_ms=step_ms, step_kernel_ms=total, step_gemm_ms=gemm,
+                step_launches=launches, step_tflop=step_tflop,
+                greedy_tflop=greedy_tflop,
+                check_gap=gap, steps_s=steps_s, images_s=images_s,
+                epoch_losses=losses, epoch_seconds=secs, zero_shot_cer=zero_cer,
+                val_cer=cers, greedy_lines_s=greedy,
+                beam4_lines_s=beam_n / beam_s, read_accuracy=read_acc,
+                read_cer=read_cer, cli_wall_s=wall, step_loss_rel=lrel,
+                step_grad_err=gerr, logits_gap=lgap, greedy_near_ties=near)
+
+
 def main(argv) -> int:
     import argparse
 
@@ -4622,20 +5077,22 @@ def main(argv) -> int:
         log(f"phase {name}: {interop[name]['phase_s']:.1f} s")
     log(f"the interop phases: {time.perf_counter() - t_io:.1f} s")
     # the tools (infer's overlays and comparators, error-analysis, viz,
-    # device_trace) and the seq2seq baseline trained here
+    # device_trace), the seq2seq baseline trained here and the TrOCR
+    # import at trocr-base's widths
     t_tools = time.perf_counter()
     tools = {}
     for name, run_phase in (
         ("tools", lambda: phase_tools(dev, card, sl, train)),
         ("seq2seq", lambda: phase_seq2seq(dev, card,
                                           train["train_localizer"])),
+        ("trocr", lambda: phase_trocr(dev, card, train["train_localizer"])),
     ):
         t0 = time.perf_counter()
         tools[name] = run_phase()
         tools[name]["phase_s"] = time.perf_counter() - t0
         log(f"phase {name}: {tools[name]['phase_s']:.1f} s")
-    log(f"the tools and seq2seq phases: {time.perf_counter() - t_tools:.1f} "
-        "s")
+    log(f"the tools, seq2seq and trocr phases: "
+        f"{time.perf_counter() - t_tools:.1f} s")
     launched = {k: v for k, v in {**more, **train, **fam, **par,
                                   **interop, **tools}.items()
                 if "k1_launches" in v}

@@ -4,8 +4,9 @@ Ported commands: ``infer``, ``serve``, ``train-recognizer``,
 ``train-localizer``, ``build-index``, ``build-freq-dict``,
 ``build-homoglyphs``, ``import-reference``, ``import-encoder``,
 ``export``, ``coco-split``, ``coco-combine``, ``coco-subset``,
-``error-analysis``, ``viz`` and ``train-seq2seq``.  ``NOT_PORTED`` names
-the JAX package's commands still to port (ROADMAP.md queue 1).
+``error-analysis``, ``viz``, ``train-seq2seq`` and ``import-trocr``.
+``NOT_PORTED`` names the JAX package's commands still to port
+(ROADMAP.md queue 1).
 
 The JAX package's core/cache.py has no counterpart: it points JAX's
 persistent compilation cache at a directory, and this package compiles
@@ -33,9 +34,9 @@ COMMANDS = {
     "error_analysis": "effocr_torch.cli.error_analysis",
     "viz": "effocr_torch.cli.viz",
     "train_seq2seq": "effocr_torch.cli.train_seq2seq",
+    "import_trocr": "effocr_torch.cli.import_trocr",
 }
-NOT_PORTED = ("make-corpus", "make-charset", "format-dataset",
-              "import-trocr")
+NOT_PORTED = ("make-corpus", "make-charset", "format-dataset")
 
 
 def main():

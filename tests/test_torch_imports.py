@@ -2,7 +2,8 @@
 
 In a fresh interpreter where importing ``jax``, ``flax``, ``optax``,
 ``msgpack``, ``PIL``, ``pytesseract``, ``cv2``, ``safetensors``,
-``transformers``, ``timm``, ``onnx``, ``onnxruntime`` or ``faiss`` fails, every module of
+``transformers``, ``tokenizers``, ``sentencepiece``, ``regex``, ``timm``,
+``onnx``, ``onnxruntime`` or ``faiss`` fails, every module of
 effocr_torch (the training slice's data, train and CLI modules included)
 and chip_smoke.py (imported, not run) must import, the artifact
 importers must read what the port's writers write (FAISS, ONNX,
@@ -25,7 +26,8 @@ _GUARD = textwrap.dedent("""
     import importlib, importlib.util, pkgutil, sys
     for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL",
                  "pytesseract", "cv2", "safetensors", "transformers", "timm",
-                 "onnx", "onnxruntime", "faiss"):
+                 "onnx", "onnxruntime", "faiss", "tokenizers",
+                 "sentencepiece", "regex"):
         sys.modules[name] = None
     import effocr_torch
     # Python modules only: the built native libraries sit in the tree too
@@ -62,8 +64,30 @@ _GUARD = textwrap.dedent("""
     w.save_module_pickle(d + "/best.pt", w.ultralytics_yolov5_state_dict(
         v["params"], v["batch_stats"], loc.anchors))
     import_ultralytics_localizer(d + "/best.pt", d + "/loc")
+    # the TrOCR import: an HF tokenizer's vocab.json + merges.txt, and a
+    # fairseq pickle read through the allowlist
+    import json, torch
+    from effocr_torch.baselines.tokenizer import load_tokenizer
+    from effocr_torch.baselines import trocr_import
+    os.makedirs(d + "/tok")
+    json.dump({"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3, "a": 4, "b": 5,
+               "ab": 6}, open(d + "/tok/vocab.json", "w"))
+    open(d + "/tok/merges.txt", "w").write("#version: 0.2" + chr(10)
+                                           + "a b" + chr(10))
+    tok = load_tokenizer(d + "/tok")
+    assert tok("ab").input_ids == [0, 6, 2], tok("ab").input_ids
+    assert tok.decode([0, 6, 4, 2], skip_special_tokens=True) == "aba"
+    torch.save({"model": {"decoder.embed_tokens.weight": torch.zeros(1)}},
+               d + "/fs.pt")
+    try:
+        trocr_import.import_fairseq_checkpoint(d + "/fs.pt")
+    except ValueError as e:
+        assert "no encoder.deit" in str(e), e
+    else:
+        raise AssertionError("a non-fairseq pickle was accepted")
     for name in ("safetensors", "transformers", "timm", "onnx",
-                 "onnxruntime", "faiss"):
+                 "onnxruntime", "faiss", "tokenizers", "sentencepiece",
+                 "regex"):
         assert sys.modules[name] is None, name
     leaked = sorted(k for k in sys.modules if k.startswith("effocr_tpu"))
     assert not leaked, leaked
