@@ -5,8 +5,8 @@
 Phases (any failure exits non-zero; nothing is caught and reported ok):
 
 1. setup: the card's name and power limit, torch/CUDA versions; build the
-   native preprocessing library and the two CUDA kernel libraries (NMS,
-   top-1 retrieval) in parallel.
+   native preprocessing library, the image decoders (native/imgdec.cpp)
+   and the two CUDA kernel libraries (NMS, top-1 retrieval) in parallel.
 2. K1 (csrc/nms.cu, the greedy-NMS keep-mask kernel) against its plain
    PyTorch version on the card, bit for bit: [512, 1024] boxes at IoU 0.25,
    a ragged N = 300, a tie-heavy batch, a 384-box cross-tile chain, N =
@@ -245,6 +245,20 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      only at a CPU top-2 margin under 2e-3 (counted); then the step at
      batch 8 timed and profiled (GEMM kernels against the rest, busy
      share, TFLOP/s of its matmuls from the shapes).
+   - image_formats: JPEG, TIFF, BMP and GIF input on the machine without
+     Pillow: every committed fixture of tests/torch_fixtures/images/
+     (64 JPEG lines, one file per decoder branch, a 2550 x 3300 page as
+     JPEG and group4 TIFF) decoded and held to golden.npz (Pillow 12.1's
+     RGB and L conversions, the JAX package's _LazyImage arrays, by
+     SHA-256); host decode rates (the page on one thread and 8 copies as
+     one batch, the lines one at a time and as one batch); ``infer
+     --infer_over_img_dir`` with BENCH_TRAINED.json's flags on 1,024
+     JPEG line paths and on the same lines as PNGs (identical text and
+     COCO output, every K1 call held bit for bit; K1's launches counted
+     from 0 around the JPEG run), the same engine timed on both lists
+     (lines/s, host decode ms a chunk, header ms); 16 mixed .jpg / .tif
+     / .bmp requests through ``serve``, answered as ``engine.run``
+     answers them (K1 checked in process).
 12. a ``kernels`` JSON line (launches per path under
    ``launches_by_path``; K1's ``train_localizer`` counts the evaluation's
    launches and the engine's; ``calls_by_iou`` splits the family paths'
@@ -299,6 +313,7 @@ from effocr_torch.models.factory import (
     create_localizer,
     init_params,
 )
+from effocr_torch.native import imgdec
 from effocr_torch.retrieval.index import PrototypeIndex
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -4908,6 +4923,327 @@ def phase_trocr(dev, card, tl):
                 step_grad_err=gerr, logits_gap=lgap, greedy_near_ties=near)
 
 
+# ------------------------------------------------------- image formats
+FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "images")
+N_FORMAT_LINES = 512     # distinct paths: the 64 fixture lines, 8 times
+N_FORMAT_SERVE = 16
+
+
+def fixture_tools():
+    """tests/torch_fixtures/make_images.py: the fixtures' digest and the
+    TIFF / BMP writers (numpy and the standard library only; Pillow and
+    JAX are imported only by its generator functions)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fixtures import make_images
+
+    return make_images
+
+
+def fixture_checks():
+    """Every committed fixture, decoded by the port, against golden.npz:
+    Pillow's RGB and L conversions and the JAX package's _LazyImage
+    arrays (both channel rules), bit for bit by SHA-256 and shape."""
+    from effocr_torch.data import image_io
+    from effocr_torch.pipelines.infer import _LazyImage
+
+    mi = fixture_tools()
+    golden = np.load(os.path.join(FIXTURES, "golden.npz"))
+    names = sorted({k.split("|")[0] for k in golden.files})
+    for name in names:
+        p = os.path.join(FIXTURES, name)
+        got = {"rgb": image_io.read_rgb(p), "l": image_io.read_l(p),
+               "lazy_gray": _LazyImage(p, gray=True).load(),
+               "lazy_rgb": _LazyImage(p, gray=False).load()}
+        for kind, a in got.items():
+            if (tuple(golden[f"{name}|{kind}|shape"]) != a.shape
+                    or not np.array_equal(mi.digest(a), golden[
+                        f"{name}|{kind}|sha256"])):
+                raise AssertionError(f"image_formats: {name} {kind} differs "
+                                     "from its golden (Pillow / JAX)")
+    return names
+
+
+def decode_rates(names, card):
+    """Host decode rates: the 2550 x 3300 gray JPEG page and its group4
+    TIFF on one thread, 8 copies of the JPEG page as one threaded native
+    batch (8 threads), and the 64 fixture lines one file at a time and as
+    one batch; best of 3, MP/s."""
+    from effocr_torch.data import image_io, jpeg, tiff
+    from effocr_torch.native import imgdec
+
+    def best(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return min(times)
+
+    out = {}
+    page = open(os.path.join(FIXTURES, "page", "page.jpg"), "rb").read()
+    h, w, _ = jpeg.jpeg_header(page)
+    t = best(lambda: imgdec.decode_jpeg(page, (h, w, 1)))
+    out["page_jpeg_ms"], out["page_jpeg_mp_s"] = t * 1e3, h * w / t / 1e6
+    page_path = os.path.join(FIXTURES, "page", "page.jpg")
+    t = best(lambda: imgdec.decode_jpeg_batch([page_path] * 8,
+                                              [(h, w, 1)] * 8, 8))
+    out["page_jpeg_batch8_mp_s"] = 8 * h * w / t / 1e6
+    g4 = open(os.path.join(FIXTURES, "page", "page_g4.tif"), "rb").read()
+    t = best(lambda: tiff.decode(g4))
+    out["page_g4_ms"], out["page_g4_mp_s"] = t * 1e3, h * w / t / 1e6
+    lines = [os.path.join(FIXTURES, n) for n in names
+             if n.startswith("lines/")]
+    shapes = [image_io.header(p)[:2] for p in lines]
+    shapes = [(hh, ww, 1) for hh, ww in shapes]
+    data = [open(p, "rb").read() for p in lines]
+    mp = sum(hh * ww for hh, ww, _ in shapes) / 1e6
+
+    def one_by_one():
+        for d, s in zip(data, shapes):
+            imgdec.decode_jpeg(d, s)
+
+    t = best(one_by_one)
+    out["lines_single_mp_s"] = mp / t
+    out["lines_single_ms_per_line"] = t * 1e3 / len(lines)
+    t = best(lambda: imgdec.decode_jpeg_batch(lines, shapes, 8))
+    out["lines_batch_mp_s"] = mp / t
+    out["lines_mp"] = mp
+    log(f"image_formats: decode on the host (best of 3; {card}): gray JPEG "
+        f"page {w}x{h} {out['page_jpeg_ms']:.1f} ms = "
+        f"{out['page_jpeg_mp_s']:.1f} MP/s (one thread), 8 copies as one "
+        f"8-thread batch {out['page_jpeg_batch8_mp_s']:.1f} MP/s; group4 "
+        "TIFF page "
+        f"{out['page_g4_ms']:.1f} ms = {out['page_g4_mp_s']:.1f} MP/s; "
+        f"{len(lines)} JPEG lines ({mp:.2f} MP) one at a time "
+        f"{out['lines_single_mp_s']:.1f} MP/s "
+        f"({out['lines_single_ms_per_line']:.3f} ms a line), as one "
+        f"8-thread batch {out['lines_batch_mp_s']:.1f} MP/s")
+    return out
+
+
+def _format_dirs(names):
+    """The 64 fixture lines copied to N_FORMAT_LINES distinct .jpg paths,
+    and the same lines as PNGs written from their decoded (golden-equal)
+    pixels under the gray pipeline's channel rule."""
+    from effocr_torch.pipelines.infer import _LazyImage
+
+    d = os.path.join(WORK, "formats")
+    shutil.rmtree(d, ignore_errors=True)
+    jdir, pdir = os.path.join(d, "jpg"), os.path.join(d, "png")
+    os.makedirs(jdir)
+    os.makedirs(pdir)
+    lines = [n for n in names if n.startswith("lines/")]
+    pixels = {}
+    for name in lines:
+        px = _LazyImage(os.path.join(FIXTURES, name), gray=True).load()
+        pixels[name] = px[..., 0] if px.shape[2] == 1 else px
+    for k in range(N_FORMAT_LINES):
+        name = lines[k % len(lines)]
+        stem = f"{k:05d}_{os.path.basename(name)[:-4]}"
+        shutil.copy(os.path.join(FIXTURES, name),
+                    os.path.join(jdir, stem + ".jpg"))
+        write_png(os.path.join(pdir, stem + ".png"), pixels[name])
+    return jdir, pdir, pixels
+
+
+def _cli_outputs(out_dir):
+    """infer's inference_results.json and inference_coco.json, keyed by
+    file stem (the two runs differ only in the extension)."""
+    with open(os.path.join(out_dir, "inference_results.json")) as f:
+        res = {os.path.splitext(k)[0]: v for k, v in json.load(f).items()}
+    with open(os.path.join(out_dir, "inference_coco.json")) as f:
+        coco = json.load(f)
+    for im in coco["images"]:
+        im["file_name"] = os.path.splitext(im["file_name"])[0]
+    return res, coco
+
+
+def _serve_requests(names, pixels):
+    """N_FORMAT_SERVE requests: fixture JPEG lines and the same lines as
+    uncompressed TIFF and palette BMP files (written by the fixture
+    generator's writers, which need no Pillow)."""
+    mi = fixture_tools()
+    d = os.path.join(WORK, "formats", "serve")
+    os.makedirs(d, exist_ok=True)
+    lines = [n for n in names if n.startswith("lines/")]
+    paths = []
+    for k in range(N_FORMAT_SERVE):
+        name = lines[(7 * k) % len(lines)]
+        px = pixels[name]
+        kind = ("jpg", "tif", "bmp")[k % 3]
+        p = os.path.join(d, f"r{k:02d}.{kind}")
+        if kind == "jpg":
+            shutil.copy(os.path.join(FIXTURES, name), p)
+        elif kind == "tif":
+            with open(p, "wb") as f:
+                f.write(mi.tiff_gray(px, order=">" if k % 2 else "<",
+                                     rows_per_strip=16, extra_tags={
+                                         262: (3, [2 if px.ndim == 3
+                                                   else 1])}))
+        else:
+            g = px if px.ndim == 2 else (px.astype(np.uint16).sum(-1)
+                                         // 3).astype(np.uint8)
+            grey = b"".join(bytes([i, i, i, 0]) for i in range(256))
+            with open(p, "wb") as f:
+                f.write(mi.bmp_bytes(g.shape[1], g.shape[0], 8,
+                                     mi.bmp_rows(g, 8), palette=grey))
+        paths.append(p)
+    return paths
+
+
+def _serve_formats(paths, loc_dir, rec_dir, card):
+    """``serve --stdin --device cuda`` with BENCH_TRAINED.json's flags on
+    the mixed requests; answers held to engine.run over the server's
+    batches, K1 checked on every call."""
+    import argparse
+
+    flags = engine_flags(loc_dir, rec_dir) + ["--line_batch",
+                                              str(N_FORMAT_SERVE)]
+    proc = subprocess.run(
+        [sys.executable, "-m", "effocr_torch", "serve", "--stdin",
+         "--device", "cuda", "--max_latency_ms", "50", *flags],
+        input="\n".join(paths) + "\n", capture_output=True, text=True,
+        cwd=ROOT, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"image_formats serve exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    answers = [json.loads(ln) for ln in proc.stdout.splitlines()
+               if ln.startswith("{")]
+    if [a["path"] for a in answers] != paths:
+        raise AssertionError("image_formats serve: not one answer per path "
+                             "in order")
+    batches = [int(ln.rsplit(" ", 1)[1]) for ln in proc.stderr.splitlines()
+               if ln.startswith("serve: batch of ")]
+    stats = [ln for ln in proc.stderr.splitlines()
+             if ln.startswith("serve: kernel launches")]
+    k1 = int(stats[-1].split("nms ")[1].split(",")[0])
+    p = argparse.ArgumentParser()
+    add_engine_args(p)
+    engine = load_engine(p.parse_args(flags))
+    ref, s = {}, 0
+    with kernels_checked("image_formats serve") as (k1c, _):
+        for n in batches:
+            ref.update(engine.run(paths[s:s + n]))
+            s += n
+    n_diff = sum(a["text"] != ref[a["path"]] for a in answers)
+    if s != len(paths) or n_diff or k1 == 0 or k1c.calls == 0:
+        raise AssertionError(f"image_formats serve: {n_diff} answers differ "
+                             f"from engine.run; batches {batches}; K1 "
+                             f"launched {k1} times by the server")
+    log(f"image_formats: serve answered {len(answers)} .jpg / .tif / .bmp "
+        f"requests identically to engine.run over its batches {batches} "
+        f"(K1 held bit for bit on {k1c.calls} calls in process; the server "
+        f"launched K1 {k1} times; {card})")
+    return dict(n_requests=len(answers), batches=batches,
+                server_k1_launches=k1, k1_checked=k1c.calls)
+
+
+def phase_image_formats(dev, card, loc_dir, rec_dir):
+    """JPEG, TIFF, BMP and GIF input where Pillow is not installed:
+    1. every fixture of tests/torch_fixtures/images/ equals its golden
+       (Pillow's conversions, the JAX _LazyImage arrays) bit for bit;
+    2. ``infer --infer_over_img_dir`` with BENCH_TRAINED.json's flags on
+       512 JPEG line paths (32 gray, 32 RGB 4:2:0 lines, 8 copies each,
+       so that the whole script ends inside 1200 s), then on the same lines
+       as PNGs written from their decoded pixels: identical text and
+       COCO boxes; every K1 call of both runs held bit for bit against
+       nms_mask; K1's launches counted from 0 around the JPEG run; both
+       runs on one engine (``load_engine``'s, handed to the CLI), then
+       timed on both lists (lines/s, host decode ms a chunk, header ms);
+    3. 16 mixed .jpg / .tif / .bmp requests through ``serve``, answered
+       as engine.run answers them;
+    and the host decode rates (``decode_rates``)."""
+    from effocr_torch.cli import infer as infer_cli
+
+    t0 = time.perf_counter()
+    names = fixture_checks()
+    log(f"image_formats: {len(names)} fixtures (JPEG, TIFF, BMP, GIF; "
+        "lines, one per decoder branch, a page) equal their goldens bit "
+        "for bit: Pillow 12.1's RGB and L conversions and the JAX "
+        f"_LazyImage arrays of both channel rules "
+        f"({time.perf_counter() - t0:.1f} s)")
+    rates = decode_rates(names, card)
+    jdir, pdir, pixels = _format_dirs(names)
+    flags = engine_flags(loc_dir, rec_dir)
+    engine = load_engine(engine_args(loc_dir, rec_dir))
+    outs, k1 = {}, {}
+    cli_load = infer_cli.load_engine
+    infer_cli.load_engine = lambda args: engine
+    try:
+        for tag, d in (("jpg", jdir), ("png", pdir)):
+            out = os.path.join(WORK, "formats", f"out_{tag}")
+            cuda_nms.nms_kernel.launches = 0
+            cuda_top1.top1_kernel.launches = 0
+            with kernels_checked(f"image_formats {tag}") as (k1c, _):
+                infer_cli.main(flags + ["--image_dir", d,
+                                        "--infer_over_img_dir",
+                                        "--save_output", out])
+            k1[tag] = (cuda_nms.nms_kernel.launches, k1c.calls)
+            outs[tag] = _cli_outputs(out)
+    finally:
+        infer_cli.load_engine = cli_load
+    (rj, cj), (rp, cp) = outs["jpg"], outs["png"]
+    if len(rj) != N_FORMAT_LINES or rj != rp or cj != cp:
+        raise AssertionError(
+            f"image_formats: {len(rj)} JPEG results; "
+            f"{sum(rj.get(k) != v for k, v in rp.items())} texts and "
+            f"{'the same' if cj == cp else 'different'} COCO output against "
+            "the PNG run")
+    if k1["jpg"][0] == 0 or k1["jpg"][1] == 0:
+        raise AssertionError(f"image_formats: K1 launched {k1['jpg']} on "
+                             "the JPEG run")
+    n_boxes = len(cj["annotations"])
+    n_read = sum(v is not None for v in rj.values())
+    log(f"image_formats: infer --infer_over_img_dir on {len(rj)} JPEG "
+        f"lines and on their PNGs: identical text ({n_read} lines read) "
+        f"and identical COCO output ({n_boxes} char boxes); K1 "
+        f"launched {k1['jpg'][0]} times on the JPEG run, every call "
+        f"({k1['jpg'][1]} on JPEG, {k1['png'][1]} on PNG) held bit for bit "
+        "against nms_mask")
+    lists = {tag: sorted(os.path.join(d, f) for f in os.listdir(d))
+             for tag, d in (("jpg", jdir), ("png", pdir))}
+    from effocr_torch.pipelines.infer import _LazyImage
+
+    timing = {}
+    for tag in ("jpg", "png"):       # the engine is warm from the CLI runs
+        t1 = time.perf_counter()
+        for p in lists[tag]:
+            _LazyImage(p, gray=True)
+        headers_ms = (time.perf_counter() - t1) * 1e3
+        engine.timer.reset()
+        t1 = time.perf_counter()
+        engine.run(lists[tag])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        tm = engine.timer
+        decode = sum(tm.totals[k] for k in ("prep/decode",
+                                            "prep/letterbox+pack",
+                                            "prep/decode+letterbox"))
+        chunks = max(tm.counts["prep/h2d+dispatch"], 1)
+        timing[tag] = dict(lines_s=len(lists[tag]) / wall, wall_s=wall,
+                           headers_ms=headers_ms,
+                           decode_letterbox_ms_per_chunk=decode * 1e3
+                           / chunks, chunks=chunks,
+                           stages={k: tm.totals[k] for k in tm.totals})
+    log(f"image_formats: the en engine on {N_FORMAT_LINES} lines ({card}): "
+        f"JPEG {timing['jpg']['lines_s']:.1f} lines/s, host decode + "
+        f"letterbox {timing['jpg']['decode_letterbox_ms_per_chunk']:.1f} ms "
+        f"a chunk (prep/decode, then prep/letterbox+pack); PNG "
+        f"{timing['png']['lines_s']:.1f} lines/s, "
+        f"{timing['png']['decode_letterbox_ms_per_chunk']:.1f} ms a chunk "
+        "(the fused prep/decode+letterbox); after the CLI runs; the "
+        f"headers of the {N_FORMAT_LINES} files (the engine's _LazyImage, "
+        f"before the first chunk) {timing['jpg']['headers_ms']:.1f} ms for "
+        f"JPEG, {timing['png']['headers_ms']:.1f} ms for PNG")
+    serve = _serve_formats(_serve_requests(names, pixels), loc_dir, rec_dir,
+                           card)
+    return dict(n_fixtures=len(names), k1_launches=k1["jpg"][0],
+                k2_launches=0, k1_checked=k1["jpg"][1] + k1["png"][1],
+                png_run_k1_launches=k1["png"][0], n_lines=len(rj),
+                n_char_boxes=n_boxes, decode=rates, timing=timing,
+                serve=serve)
+
+
 def main(argv) -> int:
     import argparse
 
@@ -4937,9 +5273,9 @@ def main(argv) -> int:
 
     # every library built at once, one compiler process each
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        builds = [pool.submit(native.build), pool.submit(cuda_nms.build),
-                  pool.submit(cuda_top1.build)]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        builds = [pool.submit(native.build), pool.submit(imgdec.build),
+                  pool.submit(cuda_nms.build), pool.submit(cuda_top1.build)]
         libs = [f.result() for f in builds]
     log(f"build: {libs} in {time.perf_counter() - t0:.1f} s")
     for name in ("nms", "top1"):
@@ -5086,12 +5422,14 @@ def main(argv) -> int:
         ("seq2seq", lambda: phase_seq2seq(dev, card,
                                           train["train_localizer"])),
         ("trocr", lambda: phase_trocr(dev, card, train["train_localizer"])),
+        ("image_formats", lambda: phase_image_formats(dev, card, en_loc,
+                                                      en_rec)),
     ):
         t0 = time.perf_counter()
         tools[name] = run_phase()
         tools[name]["phase_s"] = time.perf_counter() - t0
         log(f"phase {name}: {tools[name]['phase_s']:.1f} s")
-    log(f"the tools, seq2seq and trocr phases: "
+    log(f"the tools, seq2seq, trocr and image_formats phases: "
         f"{time.perf_counter() - t_tools:.1f} s")
     launched = {k: v for k, v in {**more, **train, **fam, **par,
                                   **interop, **tools}.items()

@@ -1,6 +1,6 @@
 """Seq2seq line dataset: COCO (line image, text) pairs -> fixed canvas +
 token batches (the JAX package's baselines/data.py), bit for bit on its
-images without Pillow: the PNG decode is data/png.py (Pillow's RGB
+images without Pillow: the decode is data/image_io.py (Pillow's RGB
 conversion), the height-normalizing resize ``pil_bicubic_resize``
 (``Image.resize``'s default filter), white right-padding to the
 canvas."""
@@ -13,7 +13,7 @@ from typing import Dict, Iterator, List, Tuple
 import numpy as np
 
 from effocr_torch.baselines.seq2seq import CharTokenizer
-from effocr_torch.data import png
+from effocr_torch.data import image_io
 from effocr_torch.data.coco import load_json
 from effocr_torch.data.folder import pil_bicubic_resize
 
@@ -37,7 +37,7 @@ class Seq2SeqDataset:
 
     def load(self, i: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray, str]:
         name, text = self.entries[i]
-        img = png.read_png(os.path.join(self.image_dir, name), 3)
+        img = image_io.read_rgb(os.path.join(self.image_dir, name))
         # aspect-preserving height-normalize, white-pad right
         h, w = img.shape[:2]
         nw = max(min(int(round(w * self.img_h / h)), self.img_w), 1)

@@ -17,7 +17,7 @@ float64) at rtol/atol 2e-3, where the JAX command asks
 ``--train_coco_json`` fine-tunes first (AdamW with ``optax.adamw(lr)``'s
 arithmetic, the last partial batch dropped, greedy CER on the val split
 after each epoch, the best checkpoint kept at ``cer <= best``).  Images
-are read by data/png.py (Pillow's RGB conversion) and resized by
+are read by data/image_io.py (Pillow's RGB conversion) and resized by
 data/folder.py ``pil_bilinear_resize``; the tokenizer is
 baselines/tokenizer.py.  Besides the JAX command's lines, it prints the
 check's largest gap, each epoch's steps, images, seconds and mean loss,
@@ -68,9 +68,9 @@ def load_line(path: str, size: int) -> np.ndarray:
     """uint8 [size, size, 3]: ``Image.open(path).convert("RGB").resize(
     (size, size), Image.BILINEAR)``."""
     from effocr_torch.data.folder import pil_bilinear_resize
-    from effocr_torch.data.png import read_png
+    from effocr_torch.data.image_io import read_rgb
 
-    return pil_bilinear_resize(read_png(path, 3), size, size)
+    return pil_bilinear_resize(read_rgb(path), size, size)
 
 
 def check_against_reference(model_dir: str, params, spec, device) -> float:

@@ -41,7 +41,7 @@ from effocr_torch.core.config import (
 )
 from effocr_torch.core.device import resolve_device
 from effocr_torch.core.distributed import pad_batch_to_data_axis
-from effocr_torch.data import png
+from effocr_torch.data import image_io
 from effocr_torch.data.folder import CharFolderDataset, embed_items
 from effocr_torch.eval.textline import textline_evaluation
 from effocr_torch.interop.flax_bridge import flax_to_state_dict
@@ -322,7 +322,7 @@ def write_overlays(out_dir: str, results, inference_coco) -> None:
              a["bbox"][0] + a["bbox"][2], a["bbox"][1] + a["bbox"][3]]
             for a in annos_by_img.get(im_entry["id"], [])
         ]
-        draw_boxes(png.read_png(path, 3), boxes,
+        draw_boxes(image_io.read_rgb(path), boxes,
                    os.path.join(out_dir, im_entry["file_name"]))
 
 
@@ -335,7 +335,7 @@ def compare_external(args, coco) -> None:
                                          args.baidu_secret_key)
     imgs, gts = [], []
     for x in coco["images"]:
-        imgs.append(png.read_png_l(os.path.join(args.image_dir,
+        imgs.append(image_io.read_l(os.path.join(args.image_dir,
                                                 x["file_name"])))
         gts.append(x["text"])
     comp = compare_ocr(imgs, gts, lang="jpn" if args.lang == "jp" else "eng",
@@ -378,8 +378,10 @@ def main(argv=None):
 
     if args.infer_over_img_dir:
         coco = None
-        images = sorted(glob(os.path.join(args.image_dir, "**/*.png"),
-                             recursive=True))
+        # .png and .jpg, sorted as one list, as the JAX command globs them
+        images = sorted(
+            glob(os.path.join(args.image_dir, "**/*.png"), recursive=True)
+            + glob(os.path.join(args.image_dir, "**/*.jpg"), recursive=True))
     else:
         with open(args.coco_json) as f:
             coco = json.load(f)

@@ -3,7 +3,7 @@
     python -m effocr_torch viz --recognizer_dir rec --query_dir crops \
         --out_dir viz [--k 5] [--num 50] [--device cuda]
 
-For each query crop (read through data/png.py with Pillow's RGB
+For each query crop (read through data/image_io.py with Pillow's RGB
 conversion): embed on the device, retrieve the k nearest prototypes with
 ``PrototypeIndex.search``, and save [query | neighbours] as a PNG whose
 name carries the match flag and the neighbours' code points, the JAX
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from effocr_torch.core.device import resolve_device, use_full_f32
-from effocr_torch.data import png
+from effocr_torch.data import image_io
 from effocr_torch.interop.flax_bridge import flax_to_state_dict
 from effocr_torch.interop.flax_msgpack import read_variables
 from effocr_torch.kernels.image_ops import paired_transform_host
@@ -84,7 +84,7 @@ def main(argv=None):
     np.random.default_rng(args.seed).shuffle(queries)
     queries = queries[: args.num]
     for qp in queries:
-        raw = png.read_png(qp, 3)
+        raw = image_io.read_rgb(qp)
         x = paired_transform_host(raw, imsize)
         if ch == 1:
             x = x.mean(axis=-1, keepdims=True)

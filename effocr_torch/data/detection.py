@@ -1,7 +1,7 @@
 """Detection dataset (the JAX package's data/detection.py): COCO line
 images with char/word boxes -> fixed-shape letterboxed training batches.
 
-Each image is read as Pillow's RGB conversion (data/png.py), reduced to
+Each image is read as Pillow's RGB conversion (data/image_io.py), reduced to
 the truncating channel mean for 1-channel detectors, and letterboxed to
 (input_height, input_size) by ``letterbox_host`` (OpenCV's bilinear
 resize, byte for byte, as the JAX package letterboxes with cv2).  Boxes
@@ -17,7 +17,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from effocr_torch.data import png
+from effocr_torch.data import image_io
 from effocr_torch.data.coco import load_json
 from effocr_torch.kernels.image_ops import letterbox_host
 
@@ -59,7 +59,7 @@ class DetectionDataset:
         """-> (letterboxed uint8 image [H, W, C], targets [T, 5], mask
         [T], gt dict in letterbox space for eval).  ``rgb``: the image's
         RGB pixels when already decoded."""
-        img = rgb if rgb is not None else png.read([self.path(i)], [3])[0]
+        img = rgb if rgb is not None else image_io.read_rgb(self.path(i))
         if self.channels == 1:
             img = img.mean(axis=-1, keepdims=True).astype(np.uint8)
         lb, r, (dw, dh) = letterbox_host(img, (self.input_height,
@@ -89,7 +89,8 @@ class DetectionDataset:
         return lb, targets, mask, gt
 
     def _load_many(self, indices):
-        rgbs = png.read([self.path(i) for i in indices], [3] * len(indices))
+        rgbs = image_io.read([self.path(i) for i in indices],
+                             [3] * len(indices))
         return [self.load(i, rgb) for i, rgb in zip(indices, rgbs)]
 
     def materialize(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -6,7 +6,7 @@ crops cut from text lines get the plain transform; split membership
 comes from the line-stem prefixes of the per-split COCO files, with the
 same leakage asserts.  Each item is decoded once into a white-padded
 uint8 square resized to the encoder's input size (``load_square``): the
-decode is ``png.read`` (Pillow's RGB conversion), the resize
+decode is ``image_io.read`` (Pillow's RGB conversion), the resize
 ``pil_bilinear_resize``, a numpy copy of Pillow's ``Image.BILINEAR``
 (``pil_bicubic_resize`` copies ``Image.BICUBIC`` the same way).
 """
@@ -21,7 +21,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from effocr_torch.data import png
+from effocr_torch.data import image_io
 from effocr_torch.kernels.image_ops import (
     median_pad_square,
     normalize_imagenet,
@@ -202,7 +202,7 @@ class CharFolderDataset:
         cached = self._cache.get((idx, size))
         if cached is not None:
             return cached
-        arr = median_pad_square(png.read([self.data[idx][0]], [3])[0])
+        arr = median_pad_square(image_io.read_rgb(self.data[idx][0]))
         if arr.shape[0] != size:
             arr = pil_bilinear_resize(arr, size, size)
         if len(self._cache) < self.cache_max_items:

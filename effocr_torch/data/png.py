@@ -24,7 +24,8 @@ luma in Pillow's integer form), which is not the channel mean.
 arrays as 8-bit PNGs (filter None, zlib level 6): the pixels decode to
 the array, in Pillow too; the bytes are not Pillow's.
 
-Files that are not PNG raise ``NotImplementedError`` naming their format.
+Files that are not PNG raise: data/image_io.py reads JPEG, TIFF, BMP and
+GIF; anything else is refused (``not_png_error``), naming its format.
 """
 
 from __future__ import annotations
@@ -40,15 +41,20 @@ from effocr_torch import native
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 
-# (magic prefix, format name) of the image files this package refuses
+# (magic prefix, format name) of image files, for the refusal's message
 _OTHER_FORMATS = (
     (b"\xff\xd8\xff", "JPEG"),
     (b"II*\x00", "TIFF"),
     (b"MM\x00*", "TIFF"),
+    (b"II+\x00", "BigTIFF"),
+    (b"MM\x00+", "BigTIFF"),
     (b"BM", "BMP"),
     (b"GIF8", "GIF"),
     (b"RIFF", "RIFF (WebP)"),
 )
+
+# formats data/image_io.py reads besides PNG
+_READ_ELSEWHERE = ("JPEG", "TIFF", "BMP", "GIF")
 
 # Adam7 passes: (x0, y0, dx, dy)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
@@ -58,11 +64,14 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
 _SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 
-def png_header(path: str) -> Optional[Tuple[int, int, int, int, int]]:
+def png_header(path: str, head: Optional[bytes] = None
+               ) -> Optional[Tuple[int, int, int, int, int]]:
     """(h, w, color_type, bit_depth, interlace) from a PNG IHDR, or None
-    when the file is not a PNG."""
-    with open(path, "rb") as f:
-        head = f.read(33)
+    when the file is not a PNG.  ``head``: the file's first 33 bytes or
+    more, when the caller has read them."""
+    if head is None:
+        with open(path, "rb") as f:
+            head = f.read(33)
     if len(head) < 33 or head[:8] != PNG_MAGIC or head[12:16] != b"IHDR":
         return None
     w = int.from_bytes(head[16:20], "big")
@@ -76,13 +85,26 @@ def is_native(hdr: Tuple[int, int, int, int, int]) -> bool:
     return hdr[3] == 8 and hdr[2] in (0, 2) and hdr[4] == 0
 
 
-def not_png_error(path: str, head: bytes) -> NotImplementedError:
+def not_png_error(path: str, head: bytes) -> Exception:
+    """The error for a file that is not a PNG: a ValueError pointing to
+    data/image_io.py for the formats it reads, else the refusal,
+    ``NotImplementedError`` naming the format."""
     fmt = next((name for magic, name in _OTHER_FORMATS
                 if head.startswith(magic)), "an unknown format")
+    if fmt in _READ_ELSEWHERE:
+        return ValueError(f"{path}: {fmt}, not PNG (data/image_io.py reads "
+                          "it)")
     return NotImplementedError(
-        f"{path}: {fmt}, not PNG.  effocr_torch decodes PNG files only (or "
-        "takes HWC uint8 arrays); other formats need a decoder the package "
-        "does not have (ROADMAP.md, queue 3)")
+        f"{path}: {fmt}.  effocr_torch decodes PNG, JPEG, TIFF, BMP and GIF "
+        "files (or takes HWC uint8 arrays); other formats need a decoder "
+        "the package does not have (ROADMAP.md, queue 1)")
+
+
+def pillow_mode(color_type: int, bit_depth: int) -> str:
+    """The mode Pillow opens a PNG in."""
+    if color_type == 0:
+        return {1: "1", 16: "I;16"}.get(bit_depth, "L")
+    return {2: "RGB", 3: "P", 4: "LA", 6: "RGBA"}[color_type]
 
 
 def _chunks(data: bytes):

@@ -7,7 +7,9 @@ Fused letterbox path (``crop_source letterbox``), per chunk of
 
   host (prefetch worker):  native PNG decode + gray letterbox + sub-byte
                            pack straight into the canvas buffer
-                           (native/preproc.cpp), one upload; or, under
+                           (native/preproc.cpp; JPEG, TIFF, BMP and GIF
+                           lines decode first, data/image_io.py), one
+                           upload; or, under
                            ``transfer bucket``, raw-size lines in a small
                            padded bucket that the device letterboxes
   device (one stream):     unpack -> detector -> decode + greedy NMS (CUDA
@@ -63,7 +65,7 @@ from effocr_torch.data.coco import (
     create_coco_anno_entry,
     create_coco_image_entry,
 )
-from effocr_torch.data import png
+from effocr_torch.data import image_io, png
 from effocr_torch.data.png import png_header as _png_header
 from effocr_torch.kernels import cuda_top1
 from effocr_torch.kernels.image_ops import (
@@ -96,27 +98,35 @@ _PAD_BYTE = {2: 0x55, 4: 0x77, 8: 114}
 
 
 class _LazyImage:
-    """Deferred PNG decode: the shape comes from the IHDR so chunk
+    """Deferred decode: the shape comes from the file's header so chunk
     planning never decodes; pixels decode in the prep worker.  8-bit gray
-    and RGB non-interlaced PNGs go to the native decoder, every other PNG
-    to data/png.py (Pillow's RGB conversion).  The channel rule is the
-    JAX package's: a gray pipeline keeps one channel for native files and
-    for any 8-bit gray PNG, and three (reduced to gray downstream) for
-    the rest.  Other formats raise."""
+    and RGB non-interlaced PNGs go to the native PNG decoder, other PNGs
+    to data/png.py, JPEG, TIFF, BMP and GIF to data/image_io.py.  The
+    channel rule is the JAX package's: a gray pipeline keeps one channel
+    for native PNGs, for any 8-bit gray PNG and for any other file whose
+    Pillow mode is ``L``, and three (RGB, reduced to gray downstream) for
+    the rest.  Formats without a decoder raise."""
 
-    __slots__ = ("path", "_shape", "_arr", "_native")
+    __slots__ = ("path", "_shape", "_arr", "_native", "_described")
 
     def __init__(self, path: str, gray: bool):
         self.path = path
         self._arr: Optional[np.ndarray] = None
-        hdr = _png_header(path)
+        with open(path, "rb") as f:
+            head = f.read(image_io.HEAD_BYTES)
+        hdr = _png_header(path, head)
         if hdr is None:
-            with open(path, "rb") as f:
-                raise png.not_png_error(path, f.read(16))
-        h, w, color_type, bit_depth, _ = hdr
-        self._native = png.is_native(hdr)
-        ch = 1 if gray and (self._native or (color_type == 0
-                                             and bit_depth == 8)) else 3
+            self._described = image_io.describe(path, head)
+            _, h, w, mode = self._described
+            self._native = False
+            ch = 1 if gray and mode == "L" else 3
+        else:
+            h, w, color_type, bit_depth, _ = hdr
+            self._described = ("PNG", h, w, png.pillow_mode(color_type,
+                                                            bit_depth))
+            self._native = png.is_native(hdr)
+            ch = 1 if gray and (self._native or (color_type == 0
+                                                 and bit_depth == 8)) else 3
         self._shape = (h, w, ch)
 
     @property
@@ -129,17 +139,30 @@ class _LazyImage:
         return self._arr
 
 
-def _materialize_batch(chunk: List) -> List[np.ndarray]:
-    """Decode a chunk's lazy images in one ``png.read`` call (one native
-    batch for the files the native decoder takes); repeated paths share
-    one _LazyImage and decode once."""
+def _materialize_batch(chunk: List, gray: bool = False) -> List[np.ndarray]:
+    """Decode a chunk's lazy images in one ``image_io.read`` call (one
+    native batch for the PNGs the native decoder takes, one for the
+    JPEGs); repeated paths share one _LazyImage and decode once.
+
+    ``gray``: every image as one channel, the truncating channel mean
+    of the three ``load`` gives, which the gray pipeline takes anyway;
+    the decoder takes it (for JPEG, inside the native batch) and the
+    one-channel array is not kept as the image's pixels."""
     todo = list({id(im): im for im in chunk
                  if isinstance(im, _LazyImage) and im._arr is None}.values())
+    reduced = {}
     if todo:
-        arrs = png.read([im.path for im in todo], [im.shape[2] for im in todo])
+        arrs = image_io.read([im.path for im in todo],
+                             [1 if gray else im.shape[2] for im in todo],
+                             described=[im._described for im in todo])
         for im, arr in zip(todo, arrs):
-            im._arr = arr
-    return [im.load() if isinstance(im, _LazyImage) else im for im in chunk]
+            if arr.shape[2] == im.shape[2]:
+                im._arr = arr
+            else:
+                reduced[id(im)] = arr
+    return [reduced[id(im)] if id(im) in reduced
+            else im.load() if isinstance(im, _LazyImage) else im
+            for im in chunk]
 
 
 def build_inference_coco(coco_boxes: Dict) -> Dict:
@@ -740,7 +763,7 @@ class EffOCRInference:
                 return handle
 
         with self.timer.stage("prep/decode"):
-            chunk = _materialize_batch(chunk)
+            chunk = _materialize_batch(chunk, gray=c.input_channels == 1)
         size_h, size_w = self._chunk_canvas_dims(chunk)
         if c.crop_source == "original":
             return self._dispatch_original(chunk, chunk_keys, size_h, size_w)

@@ -4,8 +4,9 @@
   palette 1/2/4/8 with tRNS, gray + alpha and RGBA at 8/16, all five row
   filters, Adam7) exactly as ``Image.open(p).convert("RGB")`` does, the
   16-bit gray clip included; the gray pipeline's ``_LazyImage`` gives the
-  JAX package's shape and pixels on one file of each; non-PNG files raise
-  with their format named;
+  JAX package's shape and pixels on one file of each; malformed JPEG,
+  TIFF and BMP files raise with their format named, as in JAX, and WebP
+  and arithmetic-coded JPEG are refused by name;
 - ``pil_bilinear_resize`` equals Pillow's ``Image.BILINEAR`` bit for bit;
 - ``CharFolderDataset`` (load_square, decode_all_gray, load_batch),
   ``split_indices``, the CLI glue (ann_stems, default_render_indices),
@@ -157,16 +158,36 @@ def test_png_reader_matches_pil(tmp_path, ct, depth, interlace):
         assert ref.max() == 255 and got.max() == 255
 
 
-@pytest.mark.parametrize("magic,name", [(b"\xff\xd8\xff\xe0", "JPEG"),
-                                        (b"II*\x00", "TIFF"),
-                                        (b"BM", "BMP")])
-def test_non_png_raises_with_its_format(tmp_path, magic, name):
+# SOF9 (arithmetic coding) of a 16 x 16 gray image
+_SOF9 = b"\xff\xc9\x00\x0b\x08\x00\x10\x00\x10\x01\x01\x11\x00"
+
+
+@pytest.mark.parametrize("data,name,refused", [
+    (b"\xff\xd8\xff\xe0" + bytes(64), "JPEG", None),
+    (b"II*\x00" + bytes(64), "TIFF", None),
+    (b"BM" + bytes(64), "BMP", None),
+    (b"RIFF\x40\x00\x00\x00WEBPVP8 " + bytes(64), "WebP", "WebP"),
+    (b"\xff\xd8" + _SOF9 + bytes(64), "JPEG", "arithmetic coding"),
+])
+def test_non_png_raises_with_its_format(tmp_path, data, name, refused):
+    """A malformed JPEG, TIFF or BMP file (magic bytes, then zeros)
+    raises an error naming its format, in the port as in JAX (the port
+    decodes these formats now); what the port still refuses, WebP and
+    arithmetic-coded JPEG, raises NotImplementedError naming it and
+    ROADMAP.md.  data/png.py keeps its PNG-only API and names the
+    format."""
     p = str(tmp_path / "x.img")
     with open(p, "wb") as f:
-        f.write(magic + bytes(64))
-    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP"):
-        t_infer._LazyImage(p, gray=True)
-    with pytest.raises(NotImplementedError, match=name):
+        f.write(data)
+    if refused:
+        with pytest.raises(NotImplementedError, match=f"{refused}.*ROADMAP"):
+            t_infer._LazyImage(p, gray=True)
+    else:
+        with pytest.raises(OSError, match=name):
+            t_infer._LazyImage(p, gray=True)
+        with pytest.raises(OSError):
+            j_infer._LazyImage(p, gray=True)
+    with pytest.raises((ValueError, NotImplementedError), match=name):
         png.read_png(p)
 
 

@@ -1,0 +1,662 @@
+"""Image fixtures for the port's decoders, and the writers that make them.
+
+    python tests/torch_fixtures/make_images.py [--out DIR]
+
+writes, from a fixed seed, with Pillow and numpy (and the JAX package for
+the golden ``_LazyImage`` arrays), into ``tests/torch_fixtures/images/``:
+
+- ``lines/g00.jpg`` .. ``g31.jpg``: 32 synthetic gray text lines as JPEG
+  at quality 75, and ``c00.jpg`` .. ``c31.jpg``: 32 RGB lines (dark ink
+  on cream paper) at 4:2:0;
+- one file per decoder branch (``cases/``): progressive with restart
+  markers, 4:4:4, 4:2:2, optimized Huffman tables, CMYK, odd sizes, a
+  1x2-sampled file from ``baseline_jpeg``; TIFF group4, group3 2-D, LZW
+  with predictor 2, PackBits, Deflate, JPEG, 16-bit gray, big-endian and
+  MinIsWhite; BMP at 1, 4, 8 bits, RLE8, RLE4, 16, 24 and 32 bits and a
+  V5 header; GIF in L, P, interlaced and with a local palette on a frame
+  smaller than its screen;
+- ``page/page.jpg`` and ``page/page_g4.tif``: a 2550 x 3300 gray page
+  (US letter at 300 dpi) as JPEG and, thresholded, as group4 TIFF;
+- ``golden.npz``: for every file, the SHA-256 digest and shape of
+  Pillow's ``convert("RGB")`` and ``convert("L")`` and of the JAX
+  package's ``_LazyImage(path, gray).load()`` for gray True and False.
+
+The writers (``baseline_jpeg``, ``tiff_bytes``, ``bmp_bytes``,
+``gif_bytes``) build files Pillow cannot write: any JPEG sampling
+factors, any TIFF tag set and byte order, BMP headers, bitfields and RLE
+streams, GIF frames with local palettes and offsets.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import os
+import struct
+import sys
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(HERE, "images")
+SEED = 13
+N_LINES = 32          # of each kind, gray and RGB
+INK = (28, 22, 60)
+PAPER = (246, 240, 226)
+
+
+# ------------------------------------------------------------ content
+def synth_line(rng, n=None) -> np.ndarray:
+    """chip_smoke.py's printed-line-like gray image: dark strokes in glyph
+    boxes, word gaps, heights 36-72 px, ``n`` glyphs (default 4-40)."""
+    h = int(rng.integers(36, 73))
+    n = int(rng.integers(4, 41)) if n is None else n
+    gw = (h * rng.uniform(0.3, 0.7, n)).astype(int) + 2
+    gap = np.where(rng.uniform(size=n) < 0.2, h // 2, max(2, h // 10))
+    w = int(gw.sum() + gap.sum()) + 2 * (h // 4)
+    img = np.full((h, w), 245, np.uint8)
+    x = h // 4
+    top, bot = h // 6, h - h // 6
+    for g, sp in zip(gw, gap):
+        for _ in range(int(rng.integers(2, 5))):
+            if rng.uniform() < 0.5:
+                x0 = x + int(rng.integers(0, max(1, g - 3)))
+                img[top:bot, x0:x0 + max(2, h // 12)] = rng.integers(0, 60)
+            else:
+                y0 = int(rng.integers(top, bot - 2))
+                img[y0:y0 + max(2, h // 14), x:x + g] = rng.integers(0, 60)
+        x += int(g + sp)
+    return img
+
+
+def colour_line(gray: np.ndarray) -> np.ndarray:
+    """A gray line as dark ink on cream paper, RGB."""
+    t = (gray.astype(np.float32) / 245.0)[..., None]
+    rgb = np.asarray(INK) * (1 - t) + np.asarray(PAPER) * t
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def textured(rng, h, w, noise=20.0) -> np.ndarray:
+    """RGB with smooth structure and noise, so that quantisation, every
+    subsampling filter and the range limit all matter."""
+    y, x = np.mgrid[0:h, 0:w]
+    base = np.stack([128 + 90 * np.sin(x / 5.0 + c) * np.cos(y / 7.0 - c)
+                     for c in range(3)], -1)
+    return np.clip(base + rng.normal(0, noise, (h, w, 3)), 0,
+                   255).astype(np.uint8)
+
+
+def synth_page(rng, h=3300, w=2550) -> np.ndarray:
+    """A gray page: synthetic text lines every 64 px within 150 px
+    margins, on flat paper."""
+    page = np.full((h, w), 245, np.uint8)
+    y = 150
+    while y + 72 < h - 150:
+        line = synth_line(rng, n=int(rng.integers(30, 45)))[:, :w - 300]
+        page[y:y + line.shape[0], 150:150 + line.shape[1]] = line
+        y += 64
+    return page
+
+
+# ------------------------------------------------------ JPEG writer
+def _bits_writer():
+    out = bytearray()
+    acc = [0, 0]          # value, bit count
+
+    def put(v, n):
+        for i in range(n - 1, -1, -1):
+            acc[0] = (acc[0] << 1) | ((v >> i) & 1)
+            acc[1] += 1
+            if acc[1] == 8:
+                out.append(acc[0])
+                if acc[0] == 0xFF:
+                    out.append(0)
+                acc[0] = acc[1] = 0
+
+    def flush():
+        if acc[1]:
+            put((1 << (8 - acc[1])) - 1, 8 - acc[1])
+        return bytes(out)
+
+    return put, flush
+
+
+_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33,
+    40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43,
+    36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53,
+    60, 61, 54, 47, 55, 62, 63])
+
+
+def _dct_matrix():
+    c = np.array([[np.sqrt((1 if u == 0 else 2) / 8) * np.cos(
+        (2 * x + 1) * u * np.pi / 16) for x in range(8)] for u in range(8)])
+    return c
+
+
+def _category(v: int) -> int:
+    return int(abs(v)).bit_length()
+
+
+def baseline_jpeg(img: np.ndarray, factors: Sequence[Tuple[int, int]],
+                  q: int = 6) -> bytes:
+    """A baseline JPEG (SOF0, JFIF) of uint8 [H, W] or [H, W, 3] (taken as
+    YCbCr samples) with any sampling factors: each component box-averaged
+    to its size, a flat quantization table of ``q``, 4-bit DC codes and
+    8-bit AC codes (canonical tables built from the symbols used)."""
+    img = img[..., None] if img.ndim == 2 else img
+    hh, ww, nc = img.shape
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    mcux, mcuy = -(-ww // (8 * hmax)), -(-hh // (8 * vmax))
+    dct = _dct_matrix()
+    comps = []
+    for c, (fh, fv) in enumerate(factors):
+        sx, sy = hmax // fh, vmax // fv
+        dw, dh = -(-ww * fh // hmax), -(-hh * fv // vmax)
+        plane = img[..., c].astype(np.float64)
+        pad = np.pad(plane, ((0, dh * sy - hh), (0, dw * sx - ww)), "edge")
+        small = pad.reshape(dh, sy, dw, sx).mean((1, 3))
+        bw, bh = (mcux * fh, mcuy * fv) if nc > 1 else (-(-dw // 8),
+                                                         -(-dh // 8))
+        full = np.pad(small, ((0, bh * 8 - dh), (0, bw * 8 - dw)), "edge")
+        blocks = full.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3) - 128
+        coef = dct @ blocks @ dct.T
+        comps.append(np.round(coef / q).astype(np.int32).reshape(
+            bh, bw, 64)[..., _ZIGZAG])
+    order = []
+    if nc == 1:
+        for by in range(comps[0].shape[0]):
+            for bx in range(comps[0].shape[1]):
+                order.append((0, by, bx))
+    else:
+        for my in range(mcuy):
+            for mx in range(mcux):
+                for c, (fh, fv) in enumerate(factors):
+                    for v in range(fv):
+                        for h in range(fh):
+                            order.append((c, my * fv + v, mx * fh + h))
+    # symbols: DC categories, AC run/size bytes
+    pred = [0] * nc
+    events = []
+    ac_syms = set()
+    for c, by, bx in order:
+        z = comps[c][by, bx]
+        diff = int(z[0]) - pred[c]
+        pred[c] = int(z[0])
+        ev = [("dc", diff)]
+        run = 0
+        last = max([k for k in range(1, 64) if z[k]], default=0)
+        for k in range(1, last + 1):
+            if z[k] == 0:
+                run += 1
+                continue
+            while run > 15:
+                ev.append(("ac", 0xF0, 0))
+                ac_syms.add(0xF0)
+                run -= 16
+            s = _category(int(z[k]))
+            ev.append(("ac", (run << 4) | s, int(z[k])))
+            ac_syms.add((run << 4) | s)
+            run = 0
+        if last < 63:
+            ev.append(("ac", 0x00, 0))
+            ac_syms.add(0)
+        events.append(ev)
+    ac_vals = sorted(ac_syms)
+    ac_code = {s: i for i, s in enumerate(ac_vals)}
+    put, flush = _bits_writer()
+
+    def value_bits(v, s):
+        return v if v >= 0 else v + (1 << s) - 1
+
+    for ev in events:
+        for e in ev:
+            if e[0] == "dc":
+                s = _category(e[1])
+                put(s, 4)
+                if s:
+                    put(value_bits(e[1], s), s)
+            else:
+                put(ac_code[e[1]], 8)
+                s = e[1] & 15
+                if s:
+                    put(value_bits(e[2], s), s)
+    scan = flush()
+
+    def seg(marker, body):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+    out = b"\xff\xd8" + seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01"
+                            b"\x00\x00")
+    out += seg(0xDB, bytes([0]) + bytes([q] * 64))
+    out += seg(0xC0, struct.pack(">BHHB", 8, hh, ww, nc) + b"".join(
+        bytes([c + 1, (f[0] << 4) | f[1], 0]) for c, f in enumerate(factors)))
+    dc_bits = bytes([0, 0, 0, 12] + [0] * 12)
+    out += seg(0xC4, bytes([0x00]) + dc_bits + bytes(range(12)))
+    ac_bits = bytes([0] * 7 + [len(ac_vals)] + [0] * 8)
+    out += seg(0xC4, bytes([0x10]) + ac_bits + bytes(ac_vals))
+    out += seg(0xDA, bytes([nc]) + b"".join(bytes([c + 1, 0x00])
+                                           for c in range(nc))
+               + bytes([0, 63, 0]))
+    return out + scan + b"\xff\xd9"
+
+
+def drop_refinement_scans(data: bytes) -> bytes:
+    """A progressive JPEG with its successive-approximation refinement
+    scans (Ah > 0) removed: some coefficient bits are never sent."""
+    out = bytearray(data[:2])
+    pos = 2
+    while pos < len(data):
+        m = data[pos + 1]
+        if m == 0xD9:
+            return bytes(out) + b"\xff\xd9"
+        seg = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        end = pos + 2 + seg
+        if m == 0xDA:       # the scan runs to the next marker
+            q = end
+            while not (data[q] == 0xFF and data[q + 1] not in (0,)
+                       and not 0xD0 <= data[q + 1] <= 0xD7):
+                q += 1
+            ns = data[pos + 4]
+            ah = data[pos + 4 + 1 + 2 * ns + 2] >> 4
+            if ah == 0:
+                out += data[pos:q]
+            pos = q
+            continue
+        out += data[pos:end]
+        pos = end
+    raise ValueError("no EOI")
+
+
+# ------------------------------------------------------ TIFF writer
+_TTYPE = {1: "B", 2: "B", 3: "H", 4: "I", 11: "f", 16: "Q"}
+
+
+def tiff_bytes(strips: Sequence[bytes], tags: Dict[int, Tuple[int, list]],
+               order: str = "<", big: bool = False) -> bytes:
+    """A TIFF (or BigTIFF) of the given strips: ``tags`` maps tag ->
+    (type, values); StripOffsets and StripByteCounts are filled in."""
+    e = order
+    magic = (b"II" if e == "<" else b"MM") + struct.pack(e + "H",
+                                                         43 if big else 42)
+    head = magic + (struct.pack(e + "HHQ", 8, 0, 16) if big else
+                    struct.pack(e + "I", 8))
+    data = bytearray(head)
+    offs = []
+    for s in strips:
+        offs.append(len(data))
+        data += s
+        if len(data) % 2:
+            data += b"\0"
+    tags = dict(tags)
+    tags[273] = (16 if big else 4, offs)
+    tags[279] = (16 if big else 4, [len(s) for s in strips])
+    ifd_at = len(data)
+    ent = 20 if big else 12
+    inline = 8 if big else 4
+    n = len(tags)
+    extra_at = ifd_at + (8 if big else 2) + ent * n + (8 if big else 4)
+    ifd = bytearray(struct.pack(e + ("Q" if big else "H"), n))
+    extra = bytearray()
+    for tag in sorted(tags):
+        typ, vals = tags[tag]
+        raw = struct.pack(e + _TTYPE[typ] * len(vals), *vals)
+        if len(raw) <= inline:
+            field = raw.ljust(inline, b"\0")
+        else:
+            field = struct.pack(e + ("Q" if big else "I"),
+                                extra_at + len(extra))
+            extra += raw
+            if len(extra) % 2:
+                extra += b"\0"
+        ifd += struct.pack(e + ("HHQ" if big else "HHI"), tag, typ,
+                           len(vals)) + field
+    ifd += b"\0" * (8 if big else 4)
+    data += ifd + extra
+    if big:
+        data[8:16] = struct.pack(e + "Q", ifd_at)
+    else:
+        data[4:8] = struct.pack(e + "I", ifd_at)
+    return bytes(data)
+
+
+def tiff_gray(img: np.ndarray, order="<", photometric=1, bits=8,
+              extra_tags=None, rows_per_strip=None) -> bytes:
+    """An uncompressed TIFF of one gray plane (8 or 16 bits) or RGB."""
+    h, w = img.shape[:2]
+    spp = 1 if img.ndim == 2 else img.shape[2]
+    rps = rows_per_strip or h
+    dt = np.dtype(order + ("u2" if bits == 16 else "u1"))
+    strips = [np.ascontiguousarray(img[y:y + rps]).astype(dt).tobytes()
+              for y in range(0, h, rps)]
+    tags = {256: (3, [w]), 257: (3, [h]), 258: (3, [bits] * spp),
+            259: (3, [1]), 262: (3, [photometric]), 277: (3, [spp]),
+            278: (3, [rps])}
+    tags.update(extra_tags or {})
+    return tiff_bytes(strips, tags, order)
+
+
+# ------------------------------------------------------- BMP writer
+def bmp_bytes(w: int, h: int, bits: int, pixels: bytes, header: int = 40,
+              palette: bytes = b"", compression: int = 0,
+              masks: Sequence[int] = (), colors: int = 0,
+              top_down: bool = False) -> bytes:
+    """A BMP: file header, a ``header``-byte info header (12, 40, 108 or
+    124; masks inside it from 52 bytes, after a 40-byte one otherwise),
+    the palette as given (BGR0 entries, BGR for the 12-byte header), the
+    pixel data as given."""
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h,
+                           1, bits, compression, len(pixels), 2835, 2835,
+                           colors, 0)
+        if header >= 52:
+            m = list(masks) + [0] * (4 - len(masks))
+            info += struct.pack("<IIII", *m)
+        info = info.ljust(header, b"\0")
+        if header == 40 and compression == 3:
+            info += struct.pack("<III", *masks[:3])
+    off = 14 + len(info) + len(palette)
+    return (b"BM" + struct.pack("<IHHI", off + len(pixels), 0, 0, off)
+            + info + palette + pixels)
+
+
+def bmp_rows(idx: np.ndarray, bits: int) -> bytes:
+    """Bottom-up rows of indices / BGR bytes, each padded to 4 bytes."""
+    h = idx.shape[0]
+    rows = []
+    for y in range(h - 1, -1, -1):
+        r = idx[y]
+        if bits < 8:
+            per = 8 // bits
+            v = np.concatenate([r, np.zeros(-len(r) % per, np.uint8)])
+            b = (v.reshape(-1, per) << np.arange(8 - bits, -1, -bits,
+                                                  dtype=np.uint8)).sum(
+                -1).astype(np.uint8).tobytes()
+        else:
+            b = np.ascontiguousarray(r).tobytes()
+        rows.append(b + b"\0" * (-len(b) % 4))
+    return b"".join(rows)
+
+
+# ------------------------------------------------------- GIF writer
+def gif_lzw(indices: np.ndarray, min_code: int) -> bytes:
+    """GIF LZW of a flat index array, packed into data sub-blocks."""
+    clear, eoi = 1 << min_code, (1 << min_code) + 1
+    codes: List[Tuple[int, int]] = []
+    width, nxt = min_code + 1, clear + 2
+    table = {bytes([i]): i for i in range(clear)}
+    codes.append((clear, width))
+    data = indices.astype(np.uint8).tobytes()
+    cur = data[:1]
+    for b in data[1:]:
+        k = cur + bytes([b])
+        if k in table:
+            cur = k
+            continue
+        codes.append((table[cur], width))
+        table[k] = nxt
+        nxt += 1
+        if nxt > (1 << width) and width < 12:
+            width += 1
+        if nxt >= 4093:
+            codes.append((clear, width))
+            table = {bytes([i]): i for i in range(clear)}
+            width, nxt = min_code + 1, clear + 2
+        cur = bytes([b])
+    codes.append((table[cur], width))
+    codes.append((eoi, width))
+    out, acc, nbits = bytearray(), 0, 0
+    for c, wd in codes:
+        acc |= c << nbits
+        nbits += wd
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        out.append(acc & 0xFF)
+    blocks = b"".join(bytes([len(out[i:i + 255])]) + bytes(out[i:i + 255])
+                      for i in range(0, len(out), 255))
+    return bytes([min_code]) + blocks + b"\0"
+
+
+def gif_bytes(screen: Tuple[int, int], frame: np.ndarray,
+              at: Tuple[int, int] = (0, 0), global_pal: np.ndarray = None,
+              local_pal: np.ndarray = None, transparency: int = None,
+              interlace: bool = False) -> bytes:
+    """A one-frame GIF89a: ``frame`` (indices [h, w]) at ``at`` (x, y) on a
+    ``screen`` (w, h), with the palettes given ([2**k, 3] uint8)."""
+    def table_bits(p):
+        return int(np.log2(len(p))) - 1
+
+    sw, sh = screen
+    flags = 0
+    if global_pal is not None:
+        flags = 0x80 | 0x70 | table_bits(global_pal)
+    out = b"GIF89a" + struct.pack("<HHBBB", sw, sh, flags, 0, 0)
+    if global_pal is not None:
+        out += global_pal.astype(np.uint8).tobytes()
+    if transparency is not None:
+        out += b"\x21\xf9\x04" + bytes([1, 0, 0, transparency, 0])
+    fh, fw = frame.shape
+    fl = 0x40 if interlace else 0
+    if local_pal is not None:
+        fl |= 0x80 | table_bits(local_pal)
+    out += b"," + struct.pack("<HHHHB", at[0], at[1], fw, fh, fl)
+    if local_pal is not None:
+        out += local_pal.astype(np.uint8).tobytes()
+    rows = frame
+    if interlace:
+        order = np.concatenate([np.arange(0, fh, 8), np.arange(4, fh, 8),
+                                np.arange(2, fh, 4), np.arange(1, fh, 2)])
+        rows = frame[order]
+    pal = local_pal if local_pal is not None else global_pal
+    bits = max(2, table_bits(pal) + 1) if pal is not None else 8
+    return out + gif_lzw(rows.reshape(-1), bits) + b";"
+
+
+# ---------------------------------------------------------- fixtures
+def _save(img, path, fmt, **kw) -> None:
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    im = img if isinstance(img, Image.Image) else Image.fromarray(img)
+    im.save(path, fmt, **kw)
+
+
+def _write(path, data: bytes) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def make_files(out: str) -> List[str]:
+    """Every fixture file, written under ``out``; their paths relative to
+    it."""
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED)
+    names = []
+    for i in range(N_LINES):
+        g = synth_line(rng)
+        _save(g, os.path.join(out, "lines", f"g{i:02d}.jpg"), "JPEG",
+              quality=75)
+        names.append(f"lines/g{i:02d}.jpg")
+    for i in range(N_LINES):
+        c = colour_line(synth_line(rng))
+        _save(c, os.path.join(out, "lines", f"c{i:02d}.jpg"), "JPEG",
+              quality=75, subsampling=2)
+        names.append(f"lines/c{i:02d}.jpg")
+    case = os.path.join(out, "cases")
+    tex = textured(rng, 45, 77)
+    gl = synth_line(rng, n=8)
+    jpegs = {
+        "progressive_rst.jpg": (tex, dict(progressive=True,
+                                          restart_marker_blocks=3)),
+        "s444.jpg": (tex, dict(subsampling=0, quality=90)),
+        "s422.jpg": (tex, dict(subsampling=1, quality=60)),
+        "optimized.jpg": (colour_line(gl), dict(optimize=True)),
+        "odd_7x9.jpg": (tex[:9, :7], dict(subsampling=2)),
+        "odd_gray_17x15.jpg": (gl[:15, :17], dict(quality=30)),
+    }
+    for name, (img, kw) in jpegs.items():
+        _save(img, os.path.join(case, name), "JPEG", **kw)
+        names.append(f"cases/{name}")
+    _save(Image.fromarray(tex).convert("CMYK"), os.path.join(
+        case, "cmyk.jpg"), "JPEG", quality=80)
+    _write(os.path.join(case, "h1v2.jpg"),
+           baseline_jpeg(tex, [(1, 2), (1, 1), (1, 1)]))
+    names += ["cases/cmyk.jpg", "cases/h1v2.jpg"]
+    bw = Image.fromarray(gl).point(lambda v: 255 if v > 128 else 0).convert(
+        "1")
+    tiffs = {
+        "group4.tif": (bw, dict(compression="group4")),
+        "group3_2d.tif": (bw, dict(compression="group3",
+                                   tiffinfo={292: 1})),
+        "lzw_pred.tif": (Image.fromarray(tex), dict(
+            compression="tiff_lzw", tiffinfo={317: 2})),
+        "packbits.tif": (Image.fromarray(gl), dict(compression="packbits")),
+        "deflate.tif": (Image.fromarray(tex).convert("L"), dict(
+            compression="tiff_adobe_deflate")),
+        "jpeg.tif": (Image.fromarray(tex), dict(compression="jpeg")),
+        "gray16.tif": (Image.fromarray((gl.astype(np.uint16) * 3)),
+                       dict(compression="tiff_lzw")),
+    }
+    for name, (im, kw) in tiffs.items():
+        _save(im, os.path.join(case, name), "TIFF", **kw)
+        names.append(f"cases/{name}")
+    _write(os.path.join(case, "mm_miniswhite.tif"),
+           tiff_gray(255 - gl, order=">", photometric=0,
+                     rows_per_strip=16))
+    names.append("cases/mm_miniswhite.tif")
+    idx = (gl // 16).astype(np.uint8)
+    pal16 = bytes(b for i in range(16) for b in (i * 16, 255 - i * 9, i, 0))
+    bmps = {
+        "b1.bmp": Image.fromarray(gl).convert("1"),
+        "b8.bmp": Image.fromarray(tex).quantize(40),
+        "b24.bmp": Image.fromarray(tex),
+        "b32_rgba.bmp": Image.fromarray(np.dstack([tex, tex[..., :1]])),
+    }
+    for name, im in bmps.items():
+        _save(im, os.path.join(case, name), "BMP")
+        names.append(f"cases/{name}")
+    h, w = idx.shape
+    _write(os.path.join(case, "b4.bmp"), bmp_bytes(
+        w, h, 4, bmp_rows(idx, 4), palette=pal16))
+    _write(os.path.join(case, "rle8.bmp"), bmp_bytes(
+        12, 6, 8, rle8_stream(), palette=pal16 * 16, compression=1))
+    c16 = ((tex[..., 0] >> 3).astype(np.uint16) << 11 | (
+        tex[..., 1] >> 2).astype(np.uint16) << 5 | tex[..., 2] >> 3)
+    _write(os.path.join(case, "b16_565.bmp"), bmp_bytes(
+        tex.shape[1], tex.shape[0], 16, bmp_rows(c16.astype("<u2").view(
+            np.uint8).reshape(tex.shape[0], -1), 8), compression=3,
+        masks=(0xF800, 0x7E0, 0x1F)))
+    _write(os.path.join(case, "v5_topdown.bmp"), bmp_bytes(
+        tex.shape[1], tex.shape[0], 32, np.dstack(
+            [tex[..., ::-1], tex[..., :1]]).tobytes(), header=124,
+        compression=3, masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+        top_down=True))
+    names += ["cases/b4.bmp", "cases/rle8.bmp", "cases/b16_565.bmp",
+              "cases/v5_topdown.bmp"]
+    _save(Image.fromarray(gl), os.path.join(case, "gray.gif"), "GIF",
+          interlace=False)
+    _save(Image.fromarray(tex).quantize(60), os.path.join(case, "p.gif"),
+          "GIF", interlace=False)
+    _save(Image.fromarray(tex).quantize(60), os.path.join(
+        case, "p_interlaced.gif"), "GIF", interlace=True)
+    gpal = rng.integers(0, 256, (8, 3)).astype(np.uint8)
+    lpal = rng.integers(0, 256, (16, 3)).astype(np.uint8)
+    frame = rng.integers(0, 16, (20, 30)).astype(np.uint8)
+    _write(os.path.join(case, "local_palette_offset.gif"), gif_bytes(
+        (50, 40), frame, at=(7, 5), global_pal=gpal, local_pal=lpal,
+        transparency=3, interlace=True))
+    names += ["cases/gray.gif", "cases/p.gif", "cases/p_interlaced.gif",
+              "cases/local_palette_offset.gif"]
+    page = synth_page(rng)
+    _save(page, os.path.join(out, "page", "page.jpg"), "JPEG", quality=75)
+    _save(Image.fromarray(page).point(lambda v: 255 if v > 128 else 0)
+          .convert("1"), os.path.join(out, "page", "page_g4.tif"), "TIFF",
+          compression="group4")
+    names += ["page/page.jpg", "page/page_g4.tif"]
+    return names
+
+
+def rle8_stream() -> bytes:
+    """12 x 6 RLE8 pixels with every escape (bottom row first): encoded
+    runs, an absolute run of odd length (word-padded), a delta (as Pillow
+    reads it: two bytes skipped, then right and up), end-of-line after
+    each row (Pillow's decoder clips runs past the row until one comes),
+    and end-of-bitmap."""
+    eol = [0, 0]
+    s = [4, 7, 0, 3, 1, 2, 3, 0, 5, 9] + eol               # row 0
+    s += [12, 200] + eol                                   # row 1
+    s += [3, 40, 0, 2, 0, 0, 2, 0, 7, 41] + eol            # row 2: delta
+    s += [0, 12] + list(range(100, 112)) + eol             # row 3
+    s += [6, 1, 6, 2] + eol                                # row 4
+    s += [5, 3] + eol                                      # row 5: EOL pads
+    return bytes(s + [0, 1])
+
+
+def rle4_stream() -> bytes:
+    """10 x 4 RLE4 pixels: encoded runs of alternating nibbles, absolute
+    runs of odd and even length, end-of-line padding, end-of-bitmap."""
+    eol = [0, 0]
+    s = [5, 0x12, 0, 5, 0x34, 0x56, 0x70, 0] + eol         # row 0
+    s += [10, 0xAB] + eol                                  # row 1
+    s += [0, 4, 0xCD, 0xEF, 3, 0x11] + eol                 # row 2: pad
+    s += [2, 0x9F, 0, 6, 0x12, 0x34, 0x56, 0] + eol        # row 3
+    return bytes(s + [0, 1])
+
+
+def digest(a: np.ndarray) -> np.ndarray:
+    return np.frombuffer(hashlib.sha256(
+        np.ascontiguousarray(a).tobytes()).digest(), np.uint8)
+
+
+def golden_arrays(path: str) -> Dict[str, np.ndarray]:
+    """Pillow's RGB and L conversions and the JAX ``_LazyImage`` arrays of
+    one file: {kind: array}."""
+    from PIL import Image
+
+    from effocr_tpu.pipelines.infer import _LazyImage
+
+    with Image.open(path) as im:
+        out = {"rgb": np.asarray(im.convert("RGB")),
+               "l": np.asarray(im.convert("L"))}
+    out["lazy_gray"] = _LazyImage(path, gray=True).load()
+    out["lazy_rgb"] = _LazyImage(path, gray=False).load()
+    return out
+
+
+def golden_entry(name: str, arrays: Dict[str, np.ndarray]
+                 ) -> Dict[str, np.ndarray]:
+    out = {}
+    for kind, a in arrays.items():
+        out[f"{name}|{kind}|sha256"] = digest(a)
+        out[f"{name}|{kind}|shape"] = np.asarray(a.shape, np.int64)
+    return out
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--out", default=OUT)
+    args = p.parse_args(argv)
+    names = make_files(args.out)
+    golden = {}
+    for name in names:
+        golden.update(golden_entry(name, golden_arrays(
+            os.path.join(args.out, name))))
+    np.savez_compressed(os.path.join(args.out, "golden.npz"), **golden)
+    total = sum(os.path.getsize(os.path.join(r, f))
+                for r, _, fs in os.walk(args.out) for f in fs)
+    print(f"{len(names)} files + golden.npz, {total} bytes in {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+    sys.exit(main())
