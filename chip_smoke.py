@@ -5,8 +5,9 @@
 Phases (any failure exits non-zero; nothing is caught and reported ok):
 
 1. setup: the card's name and power limit, torch/CUDA versions; build the
-   native preprocessing library, the image decoders (native/imgdec.cpp)
-   and the two CUDA kernel libraries (NMS, top-1 retrieval) in parallel.
+   native preprocessing library, the image decoders (native/imgdec.cpp),
+   the glyph renderer (native/glyph.cpp) and the two CUDA kernel
+   libraries (NMS, top-1 retrieval) in parallel.
 2. K1 (csrc/nms.cu, the greedy-NMS keep-mask kernel) against its plain
    PyTorch version on the card, bit for bit: [512, 1024] boxes at IoU 0.25,
    a ragged N = 300, a tie-heavy batch, a 384-box cross-tile chain, N =
@@ -67,7 +68,7 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    - train: ``python -m effocr_torch train-recognizer --device cuda``
      with the en recipe of scripts/rebuild_r5.sh at full width
      (mobilenetv3_small_050, 128 px, 1 channel, batch 128, resident
-     bank; depth cut to 3 epochs) on a synthetic 90-class char tree, then
+     bank; depth cut to 2 epochs) on a synthetic 90-class char tree, then
      ``build-index --test --mine_hardneg 8``, then the en engine on the
      new recognizer over 512 lines (``checked_runs``); prints steps/s and
      images/s of epochs 2-3, the logged losses, val and test p@1 and peak
@@ -119,7 +120,8 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      this process with every K1 call checked; steps/s, images/s, losses,
      AP and peak memory;
    - train_xcit: ``train-recognizer`` with the en recipe's flags and
-     xcit_small_12_p8_224 at 224 px (2 epochs) on phase train's tree,
+     xcit_small_12_p8_224 at 224 px (2 epochs of 10 passes) on phase
+     train's tree,
      then ``build-index --test``;
    - family_steps_vs_cpu: one float32 step of each family (the XCiT
      recognizer at batch 16, FCOS and R-CNN at batch 4 x 96 x 1024) from
@@ -161,7 +163,7 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      phase train's recipe (1 epoch of 28 steps, 10 passes; no test
      split or hard-negative mining) and of
      ``train-localizer`` with phase train_localizer's (1 epoch, one
-     evaluation; the first 320 lines of its train split), both ranks on
+     evaluation; the first 160 lines of its train split), both ranks on
      cuda:0 over gloo; the ranks' log must
      name the backend and end with the trainer's check that both ranks'
      parameters are bit-identical; the localizer's best checkpoint is
@@ -205,7 +207,8 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      1 epoch) in process: finite losses.
 11. The tools and the seq2seq baseline:
    - tools: ``python -m effocr_torch infer`` (BENCH_TRAINED's flags,
-     ``--nms_kernel pallas``) on phase train_localizer's 256 read lines
+     ``--nms_kernel pallas``) on the first 128 of phase
+     train_localizer's 256 read lines
      with phase train's recognizer, in a subprocess with
      ``--output_localizer_results --compare_ocr --save_output``: every
      overlay equal to ``draw_boxes`` at inference_coco.json's boxes, the
@@ -221,7 +224,8 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    - seq2seq: ``train-seq2seq --data_device resident`` at full width
      (the JAX command's defaults: dim 256, 6 + 4 blocks, 64 x 512
      canvas, max_len 64, batch 16, float32; depth cut to 2 epochs) on
-     phase train_localizer's 2,000 train and 128 val lines: steps/s and
+     the first 1,000 of phase train_localizer's 2,000 train lines and its
+     128 val lines: steps/s and
      images/s from the second epoch, epoch losses (falling), val CER and
      greedy lines/s by epoch; the best checkpoint's greedy and beam-4
      decode in process (lines/s, CER); one float32 step on the card
@@ -235,8 +239,8 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      model.safetensors + config.json + a byte-level BPE vocab.json +
      merges.txt counted from phase train_localizer's texts; ``--check``
      (against the float64 HF-layout reference), fine-tuning for 2 epochs
-     of 256 train lines (batch 8, greedy val CER on 16 lines each epoch),
-     then beam 4 on 32 read lines: the check's gap, steps/s and images/s
+     of 128 train lines (batch 8, greedy val CER on 16 lines each epoch),
+     then beam 4 on 16 read lines: the check's gap, steps/s and images/s
      of the second epoch, epoch losses (falling), CER, greedy and beam-4
      lines/s; from the fine-tuned npz, one float32 step at batch 2 on the
      card against the CPU (loss 1e-5 relative, gradients 1e-3 of the
@@ -252,13 +256,31 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      RGB and L conversions, the JAX package's _LazyImage arrays, by
      SHA-256); host decode rates (the page on one thread and 8 copies as
      one batch, the lines one at a time and as one batch); ``infer
-     --infer_over_img_dir`` with BENCH_TRAINED.json's flags on 1,024
+     --infer_over_img_dir`` with BENCH_TRAINED.json's flags on 256
      JPEG line paths and on the same lines as PNGs (identical text and
      COCO output, every K1 call held bit for bit; K1's launches counted
      from 0 around the JPEG run), the same engine timed on both lists
      (lines/s, host decode ms a chunk, header ms); 16 mixed .jpg / .tif
      / .bmp requests through ``serve``, answered as ``engine.run``
      answers them (K1 checked in process).
+   - fonts: the port's own glyph renderer (native/glyph.cpp: FreeType's
+     v40 hinting and gray rasterizer; fonts/: the sfnt reader, shaping,
+     Pillow's text drawing) on the host with no Pillow or FreeType: the
+     90 en characters in the three committed DejaVu fonts through
+     ``draw_single_char`` and ``draw_single_char_ascender`` at canvas
+     256 and both AddAdjacentChars banks against the JAX package's
+     golden digests (tests/torch_fixtures/fonts/golden.npz), renders/s;
+     ``make-corpus`` (512 en lines, noise 8, blur 1), ``make-charset
+     --dedupe_renders`` and ``format-dataset`` as subprocesses of a
+     background process started with the family phases, each output
+     against the JAX commands' goldens; then, in that process,
+     ``coco-split`` and ``train-recognizer --device cuda
+     --adjacent_font_path`` (the en recipe, 1 epoch) on the rendered
+     tree, beside the family phases' device work; in the phase itself,
+     the renders and one ``apply_augment`` batch with the bank on the
+     card against the CPU (the composite alone bit for bit, the full
+     stack's error logged).  No kernel is on this path (``fonts`` 0 in
+     the launch counts).
 12. a ``kernels`` JSON line (launches per path under
    ``launches_by_path``; K1's ``train_localizer`` counts the evaluation's
    launches and the engine's; ``calls_by_iou`` splits the family paths'
@@ -313,7 +335,7 @@ from effocr_torch.models.factory import (
     create_localizer,
     init_params,
 )
-from effocr_torch.native import imgdec
+from effocr_torch.native import glyph, imgdec
 from effocr_torch.retrieval.index import PrototypeIndex
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1702,12 +1724,12 @@ def page_reads(d, rng, card):
 
 # ---------------------------------------------------------- training
 # the en recognizer recipe of scripts/rebuild_r5.sh:53-60, at full width;
-# depth cut to 3 epochs (of 16)
+# depth cut to 2 epochs (of 16)
 TRAIN_FLAGS = ["--lang", "en", "--auto_model", "mobilenetv3_small_050",
                "--imsize", "128", "--input_channels", "1", "--batch_size",
                "128", "--lr", "1e-3", "--lr_schedule", "cosine",
                "--warmup_frac", "0.05", "--aux_ce_weight", "1.0",
-               "--ref_source", "centroid", "--num_epochs", "3",
+               "--ref_source", "centroid", "--num_epochs", "2",
                "--num_passes", "20", "--paired_jitter", "0.1",
                "--infer_hardneg_k", "8", "--data_device", "resident",
                "--test_at_end"]
@@ -2501,9 +2523,9 @@ def _with(flags, **values):
 
 
 # train-recognizer with the en recipe's flags and XCiT at its 224 px;
-# depth cut to 2 epochs
+# depth cut to 2 epochs of 10 sampler passes (the recipe's 20)
 XCIT_TRAIN_FLAGS = _with(TRAIN_FLAGS, auto_model=XCIT_ARCH, imsize="224",
-                         num_epochs="2")
+                         num_epochs="2", num_passes="10")
 
 
 def family_engine_args(loc_dir, rec_dir):
@@ -2787,8 +2809,8 @@ def phase_train_family(dev, card, arch, img_dir, splits):
 
 def phase_train_xcit(dev, card, tree):
     """``train-recognizer --device cuda`` with the en recipe's flags and
-    xcit_small_12_p8_224 at 224 px (2 epochs) on phase train's char tree,
-    then ``build-index --test``."""
+    xcit_small_12_p8_224 at 224 px (2 epochs of 10 passes) on phase
+    train's char tree, then ``build-index --test``."""
     run_dir = os.path.join(WORK, "train_xcit", "rec")
     splits = {k: os.path.join(os.path.dirname(tree), f"{k}.json")
               for k in ("train", "val", "test")}
@@ -3216,7 +3238,7 @@ def _f32_copy(model, device):
 # ------------------------------------------------------- data parallelism
 N_DP_EN = 512
 N_DP_JP = 240
-N_DDP_LOC_LINES = 320       # 20 steps of 16 for the localizer's DDP epoch
+N_DDP_LOC_LINES = 160       # 10 steps of 16 for the localizer's DDP epoch
 DDP_REC_PASSES = "10"       # 28 steps of 128 for the recognizer's (20: 56)
 DP_STEP_TOL = 1e-4          # gradients and batch_stats, of the largest
 # the recognizer's float32 gradients, of the largest (2 ranks vs 1, and
@@ -3522,7 +3544,7 @@ def _epoch_rate(run_dir):
 def phase_ddp_train(dev, card, train):
     """``torchrun --nproc_per_node 2`` of ``train-recognizer`` (phase
     train's en recipe, 1 epoch of 28 steps) and of ``train-localizer``
-    (phase train_localizer's recipe on 320 lines, 1 epoch of 20 steps,
+    (phase train_localizer's recipe on 160 lines, 1 epoch of 10 steps,
     one evaluation), both ranks
     on cuda:0 over gloo; each run must end with the trainer's check that
     both ranks' parameters are bit-identical.  The localizer run's best
@@ -4128,6 +4150,7 @@ def phase_import_encoder(dev, card, jp, train):
 # ------------------------------------------------------------ the tools
 N_VIZ = 50              # query crops of the viz phase (viz's --num)
 TOOLS_CHUNK = 512       # device_trace's en chunk (BENCH_TRAINED's line_batch)
+N_TOOLS_LINES = 128     # infer's overlays and comparators
 
 
 def phase_tools(dev, card, sl, train):
@@ -4164,7 +4187,9 @@ def phase_tools(dev, card, sl, train):
     d = os.path.join(WORK, "tools")
     shutil.rmtree(d, ignore_errors=True)
     over, save = os.path.join(d, "overlays"), os.path.join(d, "out")
-    read_json = tl["splits"]["read"]
+    # the first N_TOOLS_LINES of the localizer corpus's 256 read lines
+    read_json = _coco_head(tl["splits"]["read"], N_TOOLS_LINES,
+                           os.path.join(WORK, "tools_read.json"))
     stdout, infer_wall = run_cli(
         ["infer", *engine_flags(loc_dir, rec_dir), "--nms_kernel", "pallas",
          "--image_dir", tl["img_dir"], "--coco_json", read_json,
@@ -4320,7 +4345,9 @@ def phase_tools(dev, card, sl, train):
 # train-seq2seq at the JAX command's defaults (full width: dim 256, 6 + 4
 # blocks, 8 heads, patch 8, a 64 x 512 canvas, max_len 64, batch 16, lr
 # 3e-4, float32), resident bank, greedy evaluation; depth cut to 2
-# epochs (of 20) on the loc corpus's 2,000 train lines (125 steps each)
+# epochs (of 20) on the first 1,000 of the loc corpus's 2,000 train lines
+# (63 steps each)
+S2S_TRAIN_LINES = 1000
 S2S_EPOCHS = 2
 S2S_FLAGS = ["--num_epochs", str(S2S_EPOCHS), "--data_device", "resident"]
 S2S_BATCH = 16
@@ -4341,8 +4368,8 @@ def _s2s_margins(model, images, tokens):
 
 def phase_seq2seq(dev, card, tl):
     """``python -m effocr_torch train-seq2seq --data_device resident`` at
-    full width on phase train_localizer's corpus (train 2,000 lines, val
-    128): steps/s and images/s from the second epoch on, the mean loss of
+    full width on phase train_localizer's corpus (the first
+    S2S_TRAIN_LINES of its 2,000 train lines, val 128): steps/s and images/s from the second epoch on, the mean loss of
     each epoch (it must fall), val CER and greedy lines/s each epoch.
     Then, in process, seq2seq_best.msgpack on the val split: greedy and
     beam-4 decode (lines/s, CER; greedy's CER equals the best epoch's);
@@ -4366,9 +4393,10 @@ def phase_seq2seq(dev, card, tl):
     shutil.rmtree(run_dir, ignore_errors=True)
     _, wall = run_cli(
         ["train-seq2seq", "--device", "cuda", "--image_dir", tl["img_dir"],
-         "--train_coco", tl["splits"]["train"], "--val_coco",
-         tl["splits"]["val"], "--run_name", run_dir, *S2S_FLAGS],
-        "train_seq2seq")
+         "--train_coco", _coco_head(tl["splits"]["train"], S2S_TRAIN_LINES,
+                                    os.path.join(WORK, "s2s_train.json")),
+         "--val_coco", tl["splits"]["val"], "--run_name", run_dir,
+         *S2S_FLAGS], "train_seq2seq")
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         recs = [json.loads(ln) for ln in f]
     epochs = [r for r in recs if "epoch/steps" in r]
@@ -4490,13 +4518,13 @@ def phase_seq2seq(dev, card, tl):
 # wide, 12 layers, 12 heads, MLP 3072, 384 px, patch 16; TrOCR decoder:
 # d_model 1024, 12 layers, 16 heads, FFN 4096, vocab 50265, 512 learned
 # positions, embedding LayerNorm, cross attention from 768), weights
-# drawn from SEED; depth cut to 2 epochs of 256 train lines, 16 val
-# lines, 32 read lines at beam 4 (the JAX command: 10 epochs, and
+# drawn from SEED; depth cut to 2 epochs of 128 train lines, 16 val
+# lines, 16 read lines at beam 4 (the JAX command: 10 epochs, and
 # phase train_localizer's 2,000 / 128 / 256)
 TROCR_BASE = dict(enc_hidden=768, enc_layers=12, enc_heads=12, enc_mlp=3072,
                   image_size=384, patch=16, dec_hidden=1024, dec_layers=12,
                   dec_heads=16, dec_ffn=4096, vocab=50265, max_positions=512)
-TROCR_SPLITS = {"train": 256, "val": 16, "read": 32}
+TROCR_SPLITS = {"train": 128, "val": 16, "read": 16}
 TROCR_EPOCHS = 2
 TROCR_MERGES = 300      # byte-level BPE merges counted from the corpus
 TROCR_STEP_BATCH = 2    # the card-vs-CPU step
@@ -4925,7 +4953,7 @@ def phase_trocr(dev, card, tl):
 
 # ------------------------------------------------------- image formats
 FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "images")
-N_FORMAT_LINES = 512     # distinct paths: the 64 fixture lines, 8 times
+N_FORMAT_LINES = 256     # distinct paths: the 64 fixture lines, 4 times
 N_FORMAT_SERVE = 16
 
 
@@ -4969,7 +4997,7 @@ def decode_rates(names, card):
     batch (8 threads), and the 64 fixture lines one file at a time and as
     one batch; best of 3, MP/s."""
     from effocr_torch.data import image_io, jpeg, tiff
-    from effocr_torch.native import imgdec
+    from effocr_torch.native import glyph, imgdec
 
     def best(fn, reps=3):
         times = []
@@ -5143,7 +5171,7 @@ def phase_image_formats(dev, card, loc_dir, rec_dir):
     1. every fixture of tests/torch_fixtures/images/ equals its golden
        (Pillow's conversions, the JAX _LazyImage arrays) bit for bit;
     2. ``infer --infer_over_img_dir`` with BENCH_TRAINED.json's flags on
-       512 JPEG line paths (32 gray, 32 RGB 4:2:0 lines, 8 copies each,
+       256 JPEG line paths (32 gray, 32 RGB 4:2:0 lines, 4 copies each,
        so that the whole script ends inside 1200 s), then on the same lines
        as PNGs written from their decoded pixels: identical text and
        COCO boxes; every K1 call of both runs held bit for bit against
@@ -5244,6 +5272,233 @@ def phase_image_formats(dev, card, loc_dir, rec_dir):
                 serve=serve)
 
 
+# ---------------------------------------------------------- glyph rendering
+FONT_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "fonts")
+N_AUG_BATCH = 64
+
+
+def font_tools():
+    """tests/torch_fixtures/make_fonts.py: the goldens' flags, character
+    list and pipeline runner (numpy and the standard library only; Pillow
+    and JAX are imported only by its generator)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fixtures import make_fonts
+
+    return make_fonts
+
+
+# The fonts phase's commands, in a process of its own started with the
+# family phases: make-corpus -> make-charset -> format-dataset as
+# ``python -m effocr_torch`` subprocesses (host work), the digests of
+# their outputs, then coco-split and ``train-recognizer --device cuda
+# --adjacent_font_path`` on the tree (the flags in argv[4:]); one JSON
+# line at the end.
+FONT_PIPELINE = """
+import json, os, subprocess, sys, time
+root, work, font_dir, *train_flags = sys.argv[1:]
+sys.path.insert(0, os.path.join(root, "tests"))
+from torch_fixtures import make_fonts
+walls = {}
+def run(cmd, argv):
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "effocr_torch", cmd, *argv],
+                         cwd=root, capture_output=True, text=True)
+    walls[cmd] = time.perf_counter() - t0
+    with open(os.path.join(work, cmd + ".log"), "w") as f:
+        f.write(out.stdout + "--- stderr ---" + out.stderr)
+    if out.returncode:
+        sys.exit(f"{cmd}: exit {out.returncode}: {out.stderr[-3000:]}")
+    return out.stdout
+t0 = time.perf_counter()
+digests = make_fonts.pipeline_outputs(work, font_dir, run)
+seconds = time.perf_counter() - t0
+split = os.path.join(work, "split")
+run("coco-split", ["--coco_json", os.path.join(work, "corpus", "corpus.json"),
+                   "--out_prefix", split])
+run("train-recognizer", ["--root_dir_path", os.path.join(work, "tree"),
+                         "--train_ann_path", split + "_train.json",
+                         "--val_ann_path", split + "_val.json",
+                         "--test_ann_path", split + "_test.json",
+                         "--run_name", os.path.join(work, "rec"),
+                         *train_flags])
+print(json.dumps({"digests": digests, "walls": walls, "seconds": seconds,
+                  "total_s": time.perf_counter() - t0}))
+"""
+
+
+def start_font_pipeline():
+    """FONT_PIPELINE in the background over the committed fonts, training
+    with the en recipe's flags cut to 1 epoch and the committed serif's
+    neighbour-glyph bank; returns (process, work dir, font dir)."""
+    mf = font_tools()
+    work = os.path.join(WORK, "fonts")
+    shutil.rmtree(work, ignore_errors=True)
+    font_dir = os.path.join(work, "fonts")
+    os.makedirs(font_dir)
+    for fp in mf.font_files(FONT_FIXTURES):
+        shutil.copy(fp, font_dir)
+    serif = os.path.join(FONT_FIXTURES, mf.BANK_FONT)
+    train = ["--device", "cuda", *_with(TRAIN_FLAGS, num_epochs="1"),
+             "--adjacent_font_path", serif]
+    proc = subprocess.Popen([sys.executable, "-c", FONT_PIPELINE, ROOT,
+                             work, font_dir, *train], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, work, font_dir
+
+
+def _metrics_rates(run_dir):
+    recs = _metrics(run_dir)
+    epochs = [r for r in recs if "epoch/steps" in r]
+    steps = sum(r["epoch/steps"] for r in epochs)
+    secs = sum(r["epoch/seconds"] for r in epochs)
+    images = sum(r["epoch/images"] for r in epochs)
+    val = [r["val/accuracy"] for r in recs if "val/accuracy" in r]
+    losses = [(r["step"], r["train/loss"]) for r in recs
+              if "train/loss" in r]
+    return steps / secs, images / secs, val, losses, epochs
+
+
+def phase_fonts(dev, card, pipeline):
+    """The port's own glyph renderer where neither Pillow nor FreeType is
+    used:
+    1. ``draw_single_char`` (canvas 256) and ``draw_single_char_ascender``
+       of the 90 en characters in the three committed DejaVu fonts, and
+       both AddAdjacentChars banks, equal the JAX package's (Pillow 12.1)
+       golden digests bit for bit; renders/s on the host;
+    2. ``make-corpus`` (512 en lines, noise 8, blur 1), ``make-charset
+       --dedupe_renders`` and ``format-dataset`` through ``python -m
+       effocr_torch`` (``pipeline``: start_font_pipeline's process, run
+       in the background from the family phases on): the corpus JSON,
+       charset file, line pixels, crops and the whole recognizer tree
+       equal the JAX commands' goldens;
+    3. ``train-recognizer --device cuda --adjacent_font_path`` (the en
+       recipe's widths, 1 epoch) on that tree, by the same background
+       process after ``coco-split``: steps/s, images/s, val p@1 (taken
+       beside the family phases' device work);
+    4. one ``apply_augment`` batch with the bank on the card against the
+       same batch on the CPU, from the same draws: bit for bit with the
+       composite alone (every other stage's mask off), and the full stack
+       within its float32 error, logged."""
+    from effocr_torch.data import fonts as F
+    from effocr_torch.data.imaging import digest_image
+    from effocr_torch.data.transforms import apply_augment, draw_augment
+
+    mf = font_tools()
+    golden = np.load(os.path.join(FONT_FIXTURES, "golden.npz"))
+    want = dict(zip(golden["render_keys"].tolist(),
+                    golden["render_digests"].tolist()))
+    t0 = time.perf_counter()
+    n = 0
+    bad = []
+    for fp in mf.font_files(FONT_FIXTURES):
+        font = F.truetype(fp, mf.CANVAS)
+        name = os.path.basename(fp)
+        for c in mf.en_chars():
+            for kind, fn in (("single", F.draw_single_char),
+                             ("ascender", F.draw_single_char_ascender)):
+                img = fn(c, font, mf.CANVAS)
+                got = "none" if img is None else digest_image(
+                    img, "L" if img.ndim == 2 else "RGB")
+                n += 1
+                if got != want[f"{name}|{kind}|{ord(c)}"]:
+                    bad.append(f"{name} {kind} {c!r}")
+    render_s = time.perf_counter() - t0
+    if bad or n != len(want):
+        raise AssertionError(f"fonts: {len(bad)} of {n} renders differ from "
+                             f"the goldens (of {len(want)}): {bad[:8]}")
+    serif = os.path.join(FONT_FIXTURES, mf.BANK_FONT)
+    t0 = time.perf_counter()
+    banks = {lang: F.render_adjacent_bank(serif, mf.BANK_SIZE, lang)
+             for lang in ("en", "jp")}
+    bank_s = time.perf_counter() - t0
+    for lang, b in banks.items():
+        if digest_image(b, "L") != str(golden[f"bank_{lang}"]):
+            raise AssertionError(f"fonts: the {lang} bank differs from its "
+                                 "golden")
+    log(f"fonts: {n} renders (draw_single_char and "
+        f"draw_single_char_ascender of {len(mf.en_chars())} en characters "
+        f"at canvas {mf.CANVAS} in {len(mf.FONTS)} DejaVu fonts) and the en "
+        f"{tuple(banks['en'].shape)} / jp {tuple(banks['jp'].shape)} banks "
+        f"equal Pillow 12.1's golden digests bit for bit; host "
+        f"{n / render_s:.1f} renders/s (first renders of each size "
+        f"included), banks {bank_s:.2f} s ({card})")
+
+    proc, work, _ = pipeline
+    t0 = time.perf_counter()
+    stdout, stderr = proc.communicate(timeout=900)
+    waited = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"fonts: the pipeline exited {proc.returncode}:"
+                             f" {stderr[-3000:]}")
+    done = json.loads(stdout.strip().splitlines()[-1])
+    res, walls = done["digests"], done["walls"]
+    diff = [k for k, v in res.items() if v != str(golden[k])]
+    if diff:
+        raise AssertionError(f"fonts: {diff} differ from the JAX commands' "
+                             "goldens")
+    tree = os.path.join(work, "tree")
+    n_tree = sum(len(fs) for _, _, fs in os.walk(tree))
+    log(f"fonts: make-corpus (512 lines) {walls['make-corpus']:.1f} s, "
+        f"make-charset --dedupe_renders {walls['make-charset']:.1f} s, "
+        f"format-dataset {walls['format-dataset']:.1f} s (process walls; "
+        f"{done['seconds']:.1f} s with the digests; the whole process, "
+        f"training below included, {done['total_s']:.1f} s in the "
+        f"background from the family phases on; this phase waited "
+        f"{waited:.1f} s for it); "
+        f"corpus.json, the charset file, the line pixels, the crops and "
+        f"the {n_tree}-file tree equal the JAX commands' goldens")
+
+    run_dir = os.path.join(work, "rec")
+    wall = walls["train-recognizer"]
+    steps_s, images_s, val, losses, epochs = _metrics_rates(run_dir)
+    if not losses or not all(np.isfinite(v) for _, v in losses):
+        raise AssertionError(f"fonts: train-recognizer losses {losses}")
+    log(f"fonts: train-recognizer --device cuda --adjacent_font_path "
+        f"{mf.BANK_FONT} on the rendered tree (after coco-split; in the "
+        f"background, beside the family phases) exited 0 in {wall:.1f} s "
+        f"(process wall): 1 epoch of {int(epochs[-1]['epoch/steps'])} "
+        f"steps, {steps_s:.2f} optimizer steps/s = {images_s:.1f} images/s "
+        f"(first epoch, warm-up included); val p@1 by eval {val}; losses "
+        f"{losses} ({card})")
+
+    rng = np.random.default_rng(SEED + 14)
+    size = mf.BANK_SIZE
+    x = rng.integers(0, 256, (N_AUG_BATCH, size, size, 3), np.uint8)
+    x[:, :, : size // 3] = 255
+    x = torch.from_numpy(x)
+    paired = torch.from_numpy(rng.uniform(size=N_AUG_BATCH) < 0.3)
+    bank = torch.from_numpy(banks["en"])
+    draws = draw_augment(torch.Generator().manual_seed(SEED + 14),
+                         N_AUG_BATCH, size, lang="en", paired_jitter=0.1,
+                         adjacent=tuple(bank.shape[:2]))
+    alone = {k: (torch.zeros_like(v) if k.endswith("_apply") else v)
+             for k, v in draws.items()}
+    errs = {}
+    for tag, d in (("composite", alone), ("full", draws)):
+        kw = dict(lang="en", paired_jitter=0.1, out_channels=3)
+        cpu = apply_augment(x, paired, d, adjacent_bank=bank, **kw)
+        gpu = apply_augment(x.to(dev), paired.to(dev),
+                            {k: v.to(dev) for k, v in d.items()},
+                            adjacent_bank=bank.to(dev), **kw).cpu()
+        errs[tag] = float((gpu - cpu).abs().max())
+    active = int((draws["adj_n"] > 0).sum())
+    if errs["composite"] != 0.0:
+        raise AssertionError(f"fonts: the bank composite differs on the card "
+                             f"by {errs['composite']}")
+    log(f"fonts: apply_augment with the en bank, {N_AUG_BATCH} x {size}^2 "
+        f"({active} samples with neighbours): the composite alone equals "
+        f"the CPU's bit for bit on the card; the full stack within "
+        f"{errs['full']:.3g} of the CPU (float32)")
+    return dict(k1_launches=0, k2_launches=0, n_renders=n,
+                renders_s=n / render_s, walls=walls,
+                pipeline_s=done["seconds"], background_s=done["total_s"],
+                pipeline_wait_s=waited,
+                train_wall_s=wall,
+                steps_s=steps_s, images_s=images_s, val_p1=val,
+                losses=losses, augment_err=errs, n_tree_files=n_tree)
+
+
 def main(argv) -> int:
     import argparse
 
@@ -5273,11 +5528,23 @@ def main(argv) -> int:
 
     # every library built at once, one compiler process each
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         builds = [pool.submit(native.build), pool.submit(imgdec.build),
-                  pool.submit(cuda_nms.build), pool.submit(cuda_top1.build)]
+                  pool.submit(glyph.build), pool.submit(cuda_nms.build),
+                  pool.submit(cuda_top1.build)]
         libs = [f.result() for f in builds]
     log(f"build: {libs} in {time.perf_counter() - t0:.1f} s")
+    background = []
+    try:
+        return _main_phases(args, card, dev, t_start, background)
+    finally:
+        for proc, *_ in background:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _main_phases(args, card, dev, t_start, background) -> int:
     for name in ("nms", "top1"):
         with open(os.path.join(BUILD_DIR, f"{name}_ptxas.txt")) as f:
             ptxas = [ln.strip() for ln in f
@@ -5351,6 +5618,9 @@ def main(argv) -> int:
     # the other model families: XCiT, FCOS and R-CNN through the en
     # engine, trained here, and one float32 step of each against the CPU
     t_fam = time.perf_counter()
+    # the fonts phase's host pipeline (no card) runs from here, beside the
+    # device-bound family phases
+    background.append(start_font_pipeline())
     dirs = make_family_artifacts(dev, sl["paths"][:16])
     log(f"families: artifacts in {time.perf_counter() - t_fam:.1f} s")
     tl = train["train_localizer"]
@@ -5424,12 +5694,13 @@ def main(argv) -> int:
         ("trocr", lambda: phase_trocr(dev, card, train["train_localizer"])),
         ("image_formats", lambda: phase_image_formats(dev, card, en_loc,
                                                       en_rec)),
+        ("fonts", lambda: phase_fonts(dev, card, background[0])),
     ):
         t0 = time.perf_counter()
         tools[name] = run_phase()
         tools[name]["phase_s"] = time.perf_counter() - t0
         log(f"phase {name}: {tools[name]['phase_s']:.1f} s")
-    log(f"the tools, seq2seq, trocr and image_formats phases: "
+    log(f"the tools, seq2seq, trocr, image_formats and fonts phases: "
         f"{time.perf_counter() - t_tools:.1f} s")
     launched = {k: v for k, v in {**more, **train, **fam, **par,
                                   **interop, **tools}.items()

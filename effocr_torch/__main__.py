@@ -1,12 +1,13 @@
 """``python -m effocr_torch <command>``.
 
-Ported commands: ``infer``, ``serve``, ``train-recognizer``,
-``train-localizer``, ``build-index``, ``build-freq-dict``,
-``build-homoglyphs``, ``import-reference``, ``import-encoder``,
-``export``, ``coco-split``, ``coco-combine``, ``coco-subset``,
-``error-analysis``, ``viz``, ``train-seq2seq`` and ``import-trocr``.
-``NOT_PORTED`` names the JAX package's commands still to port
-(ROADMAP.md queue 1).
+Every command of the JAX package routes: ``infer``, ``serve``,
+``train-recognizer``, ``train-localizer``, ``build-index``,
+``build-freq-dict``, ``build-homoglyphs``, ``import-reference``,
+``import-encoder``, ``export``, ``coco-split``, ``coco-combine``,
+``coco-subset``, ``error-analysis``, ``viz``, ``train-seq2seq``,
+``import-trocr``, ``make-corpus``, ``make-charset`` and
+``format-dataset``.  ``NOT_PORTED`` (empty) would name the JAX
+package's commands still to port (ROADMAP.md queue 1).
 
 The JAX package's core/cache.py has no counterpart: it points JAX's
 persistent compilation cache at a directory, and this package compiles
@@ -35,15 +36,19 @@ COMMANDS = {
     "viz": "effocr_torch.cli.viz",
     "train_seq2seq": "effocr_torch.cli.train_seq2seq",
     "import_trocr": "effocr_torch.cli.import_trocr",
+    "make_corpus": "effocr_torch.cli.make_corpus",
+    "make_charset": "effocr_torch.cli.make_charset",
+    "format_dataset": "effocr_torch.cli.format_dataset",
 }
-NOT_PORTED = ("make-corpus", "make-charset", "format-dataset")
+NOT_PORTED: tuple = ()
 
 
 def main():
     if len(sys.argv) < 2 or sys.argv[1].replace("-", "_") not in COMMANDS:
         names = ",".join(c.replace("_", "-") for c in COMMANDS)
-        print(f"usage: python -m effocr_torch {{{names}}} ...; not ported "
-              f"yet: {', '.join(NOT_PORTED)} (ROADMAP.md queue 1)")
+        missing = (f"; not ported yet: {', '.join(NOT_PORTED)} (ROADMAP.md "
+                   f"queue 1)" if NOT_PORTED else "")
+        print(f"usage: python -m effocr_torch {{{names}}} ...{missing}")
         sys.exit(1)
     cmd = sys.argv.pop(1).replace("-", "_")
     mod = __import__(COMMANDS[cmd], fromlist=["main"])

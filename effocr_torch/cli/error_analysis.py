@@ -7,8 +7,8 @@ Buckets every edit in the corpus CER into case / space / substitution /
 insertion / deletion, prints the confusion table, and says which lever
 (case repair, word boxes, recognizer, detector) owns the residual.
 Reads the {key: text} artifact `infer --save_output` writes; no device.
-A copy of the JAX package's cli/error_analysis.py; ``--font_dir`` raises
-(the render distances need a font library this package does not have).
+A copy of the JAX package's cli/error_analysis.py; ``--font_dir``
+renders the confused characters with the port's own glyph renderer.
 """
 
 from __future__ import annotations
@@ -42,8 +42,6 @@ def main(argv=None) -> None:
                         "see make-charset --dedupe_renders)")
     p.add_argument("--save_json", type=str, default=None)
     args = p.parse_args(argv)
-    if args.font_dir:
-        confusion_render_distance([], [])
 
     with open(args.results) as f:
         results = json.load(f)
@@ -69,10 +67,40 @@ def main(argv=None) -> None:
     print(f"imperfect lines fixable by: case alone {f['case_alone']}, "
           f"spaces alone {f['spaces_alone']}, "
           f"substitutions alone {f['substitutions_alone']}")
+    dists = None
+    if args.font_dir:
+        from glob import glob
+
+        fonts = sorted(
+            fp for fp in glob(os.path.join(args.font_dir, "*"))
+            if fp.lower().endswith((".ttf", ".otf"))
+        )
+        dists = confusion_render_distance(list(bd.confusions), fonts)
+        ident = sum(
+            n for pair, n in bd.confusions.items()
+            if dists.get(pair, 1.0) == 0.0
+        )
+        near = sum(
+            n for pair, n in bd.confusions.items()
+            if 0.0 < dists.get(pair, 1.0) < 0.02
+        )
+        s["render_identical_sub_edits"] = ident
+        s["render_near_sub_edits"] = near
+        print(f"substitution edits render-identical in every corpus font: "
+              f"{ident} ({ident / max(s['edits'], 1):.1%} of all edits — "
+              f"charset ambiguity, unanswerable from pixels); "
+              f"near-identical (<2% pixel diff): {near}")
     if s["top_confusions"]:
         print("top confusions (gt -> pred):")
         for c in s["top_confusions"]:
-            print(f"  {c['gt']!r} -> {c['pred']!r}  x{c['count']}")
+            note = ""
+            if dists is not None:
+                d = dists.get((c["gt"], c["pred"]))
+                if d == d:  # not nan
+                    note = (" [render-identical]" if d == 0.0
+                            else f" [render dist {d:.3f}]")
+                c["render_dist"] = d
+            print(f"  {c['gt']!r} -> {c['pred']!r}  x{c['count']}{note}")
     if args.save_json:
         with open(args.save_json, "w") as fh:
             json.dump(s, fh, ensure_ascii=False, indent=1)

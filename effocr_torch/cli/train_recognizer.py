@@ -9,7 +9,8 @@ starts one rank per device itself; with one device nothing changes.
 Only the primary rank writes the run directory: args_log.json, model.json,
 enc_best.msgpack, ref.npz/ref.txt, hns.txt, class_map.json (classifier
 mode), metrics.jsonl, and last.msgpack/last_meta.json for --resume.
-``--adjacent_font_path`` is refused (it needs a font renderer).
+``--adjacent_font_path`` renders the neighbour-glyph bank with the port's
+own glyph renderer (data/fonts.py).
 """
 
 from __future__ import annotations
@@ -96,10 +97,6 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)   # fail before writing anything
-    if args.adjacent_font_path:
-        raise NotImplementedError(
-            "--adjacent_font_path renders a glyph bank with a font library "
-            "this package does not have (ROADMAP.md, queue 1 item 7)")
     rc = distributed.launch_if_multi_card(device, "train-recognizer", argv)
     if rc is not None:
         sys.exit(rc)

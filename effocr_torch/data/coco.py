@@ -1,15 +1,14 @@
 """COCO-format utilities (the JAX package's data/coco.py): the skeleton,
-entry builders, split/combine/subset and box helpers.
-
-The character-crop writer ``extract_char_crops`` needs PIL, which this
-package may not import; it raises and points at ROADMAP.md queue 1
-item 7.
+entry builders, split/combine/subset, box helpers and the character-crop
+writer ``extract_char_crops`` (Pillow's crop rounding, through
+data/imaging.py).
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -143,13 +142,61 @@ def clip_to_top_and_bottom(anno: Dict, lineheight: float, vertical: bool) -> Dic
 
 # -------------------------------------------------------------- crop extract
 
-def extract_char_crops(*args, **kwargs) -> int:
-    """Per-char crops of text lines (the JAX package's PIL crop writer):
-    not ported."""
-    raise NotImplementedError(
-        "extract_char_crops writes crops with PIL, which effocr_torch does "
-        "not import; it waits with format-dataset (ROADMAP.md queue 1, "
-        "item 7)")
+def extract_char_crops(
+    coco: Dict,
+    image_dir: str,
+    crops_save_dir: str,
+    cat_id: int = 0,
+    spaces: bool = False,
+    clip: bool = False,
+) -> int:
+    """Crop per-char images from text lines using reading-order-sorted
+    annos; file names {image_stem}_{anno_id}_{charhex}.png, in the line
+    image's mode.  Returns the crop count."""
+    from effocr_torch.data import imaging
+
+    os.makedirs(crops_save_dir, exist_ok=True)
+    count = 0
+    annos_by_image: Dict[int, List[Dict]] = {}
+    for a in coco["annotations"]:
+        if a["category_id"] == cat_id:
+            annos_by_image.setdefault(a["image_id"], []).append(a)
+
+    for coco_image in coco["images"]:
+        image_id = coco_image["id"]
+        image_name = coco_image["file_name"]
+        width, height = coco_image["width"], coco_image["height"]
+        vertical = width < height
+        image_chars = coco_image["text"]
+        image_stem = os.path.splitext(image_name)[0]
+        if spaces:
+            image_chars = image_chars.replace(" ", "")
+
+        img_annos = annos_by_image.get(image_id, [])
+        if clip:
+            lineheight = height if not vertical else width
+            img_annos = [
+                clip_to_top_and_bottom(a, lineheight, vertical)
+                for a in img_annos
+            ]
+        assert len(img_annos) == len(image_chars), (
+            f"{len(img_annos)} != {len(image_chars)}; "
+            f"{image_chars}; {image_stem}"
+        )
+        img_annos = sorted(
+            img_annos, key=lambda a: a["bbox"][1] if vertical else a["bbox"][0]
+        )
+        img, _ = imaging.open_image(os.path.join(image_dir, image_name))
+        H, W = img.shape[:2]
+        for char, anno in zip(image_chars, img_annos):
+            x, y, w, h = anno["bbox"]
+            crop = imaging.crop(
+                img, (max(x, 0), max(y, 0), min(x + w, W), min(y + h, H)))
+            imaging.save_image(os.path.join(
+                crops_save_dir,
+                f"{image_stem}_{anno['id']}_{hex(ord(char))}.png"), crop)
+            count += 1
+    return count
 
 
 def load_json(path: str) -> Dict:

@@ -323,9 +323,9 @@ def read_png_l(path: str) -> np.ndarray:
 _COLOR_TYPE = {1: 0, 3: 2, 4: 6}
 
 
-def encode(img: np.ndarray) -> bytes:
+def encode(img: np.ndarray, level: int = 6) -> bytes:
     """uint8 [H, W] or [H, W, 1 | 3 | 4] -> PNG bytes (8-bit gray, RGB or
-    RGBA; every row filter None)."""
+    RGBA; every row filter None; zlib at ``level``)."""
     a = np.asarray(img)
     if a.dtype != np.uint8:
         raise ValueError(f"PNG writer takes uint8, not {a.dtype}")
@@ -344,14 +344,14 @@ def encode(img: np.ndarray) -> bytes:
 
     ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
     return (PNG_MAGIC + chunk(b"IHDR", ihdr)
-            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
             + chunk(b"IEND", b""))
 
 
-def write(path: str, img: np.ndarray) -> str:
-    """``encode(img)`` into ``path`` (parent directories made); returns
-    the path."""
+def write(path: str, img: np.ndarray, level: int = 6) -> str:
+    """``encode(img, level)`` into ``path`` (parent directories made);
+    returns the path."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
-        f.write(encode(img))
+        f.write(encode(img, level))
     return path

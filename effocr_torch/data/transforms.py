@@ -24,15 +24,17 @@ probabilities are the JAX package's:
   paired crops: no augmentation, or (p=paired_jitter) a small affine
   ImageNet normalisation, after reducing to ``out_channels``
 
-``adjacent_bank`` (the neighbour-glyph composite) is not ported: it needs
-the font renderer.
+With ``adjacent_bank`` (uint8 [V, N, S, S] from data/fonts.py
+``render_adjacent_bank``) the neighbour-glyph composite runs first:
+slivers of adjacent glyphs at the crop edges (``_compose_adjacent``),
+its draws made by ``draw_augment(..., adjacent=(V, N))``.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -51,11 +53,15 @@ def _affine_params(lang: str) -> Tuple[float, float, float]:
 
 def draw_augment(generator: torch.Generator, b: int, size: int,
                  lang: str = "en", high_blur: bool = False,
-                 crop_sim: float = 0.0, paired_jitter: float = 0.0
+                 crop_sim: float = 0.0, paired_jitter: float = 0.0,
+                 adjacent: Optional[Tuple[int, int]] = None
                  ) -> Dict[str, torch.Tensor]:
     """Every random draw of one batch of ``b`` squares of side ``size``,
     on the generator's device, in the value ranges of ``augment_batch``
-    (uniforms already scaled to [min, max); masks as bool)."""
+    (uniforms already scaled to [min, max); masks as bool).  ``adjacent``
+    = (sides, glyphs) of a neighbour-glyph bank adds its draws: the
+    number of sides (``_ADJ_PROBS``), a uniform per side whose rank picks
+    the sides, and a glyph per side."""
     dev = generator.device
 
     def u(shape, lo=0.0, hi=1.0):
@@ -98,7 +104,72 @@ def draw_augment(generator: torch.Generator, b: int, size: int,
         d["pj_tx"] = u((b,), -0.05, 0.05)
         d["pj_ty"] = u((b,), -0.05, 0.05)
         d["pj_apply"] = bern(paired_jitter)
+    if adjacent is not None:
+        v, n = adjacent
+        cum = torch.tensor(_ADJ_PROBS[lang], dtype=torch.float64,
+                           device=dev).cumsum(0)
+        pick = torch.rand((b,), generator=generator, device=dev,
+                          dtype=torch.float64)
+        d["adj_n"] = torch.clamp(torch.searchsorted(cum, pick, right=True),
+                                 max=len(_ADJ_PROBS[lang]) - 1)
+        d["adj_u"] = u((b, v))
+        d["adj_glyph"] = torch.randint(0, n, (b, v), generator=generator,
+                                       device=dev)
     return d
+
+
+# the reference's categorical over how many sides get a neighbour
+_ADJ_PROBS = {"jp": (0.7, 0.2, 0.05, 0.05, 0.0), "en": (0.5, 0.25, 0.25)}
+
+
+@functools.lru_cache(maxsize=8)
+def _unit_lut(device: torch.device) -> torch.Tensor:
+    """uint8 value / 255 as float32, divided once on the host, so every
+    device gets the same bits (CUDA divides by a scalar through its
+    reciprocal, one ulp off the CPU's quotient)."""
+    return (torch.arange(256, dtype=torch.float32) / 255.0).to(device)
+
+
+def _to_unit(u8: torch.Tensor) -> torch.Tensor:
+    return _unit_lut(u8.device)[u8.long()]
+
+
+def _compose_adjacent(x: torch.Tensor, bank: torch.Tensor,
+                      draws: Dict[str, torch.Tensor], lang: str
+                      ) -> torch.Tensor:
+    """AddAdjacentChars / AddAdjacentCharsEng: composite neighbour-glyph
+    slivers at the crop edges (the JAX package's ``_compose_adjacent``).
+    Per sample ``adj_n`` sides, chosen by the ranks of ``adj_u``, one
+    glyph ``adj_glyph`` each, merged with min() (dark ink on white).
+    Sides: l, r (en) or l, r, t, b (jp); each glyph of ``bank`` [V, N, S,
+    S] sits flush against the edge it peeks in from."""
+    b, size = x.shape[0], x.shape[1]
+    v = bank.shape[0]
+    if lang == "jp":
+        offx = size // 10
+        peek = [offx, offx, max(offx // 2, 1), max(offx // 2, 1)]
+    else:
+        offx = size // 8
+        peek = [offx, offx]
+    ranks = torch.argsort(torch.argsort(draws["adj_u"], dim=1), dim=1)
+    active = ranks < draws["adj_n"][:, None]
+    gidx = draws["adj_glyph"]
+    for s_i in range(v):
+        g = _to_unit(bank[s_i][gidx[:, s_i]])
+        p = peek[s_i]
+        sliver = torch.ones((b, size, size), dtype=torch.float32,
+                            device=x.device)
+        if s_i == 0:
+            sliver[:, :, :p] = g[:, :, size - p:]
+        elif s_i == 1:
+            sliver[:, :, size - p:] = g[:, :, :p]
+        elif s_i == 2:
+            sliver[:, :p, :] = g[:, size - p:, :]
+        else:
+            sliver[:, size - p:, :] = g[:, :p, :]
+        merged = torch.minimum(x, sliver[..., None])
+        x = torch.where(active[:, s_i][:, None, None, None], merged, x)
+    return x
 
 
 def _affine_matrix(size: int, scale: torch.Tensor, tx: torch.Tensor,
@@ -203,16 +274,23 @@ def apply_augment(images_u8: torch.Tensor, is_paired: torch.Tensor,
                   draws: Dict[str, torch.Tensor], lang: str = "en",
                   high_blur: bool = False, no_aug: bool = False,
                   crop_sim: float = 0.0, paired_jitter: float = 0.0,
-                  out_channels: int = 3) -> torch.Tensor:
+                  out_channels: int = 3,
+                  adjacent_bank: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """uint8 [B, S, S, 3] white-padded squares -> normalised float32
     [B, S, S, out_channels].  Renders take the augmentation stack, paired
     crops (``is_paired``) the plain transform or the paired jitter;
-    ``no_aug`` skips augmentation for everyone (``draws`` unused)."""
-    x = images_u8.float() / 255.0
+    ``no_aug`` skips augmentation for everyone (``draws`` unused).
+    ``adjacent_bank`` composites neighbour glyphs first, so the slivers
+    ride through the rest of the stack."""
+    x = _to_unit(images_u8)
     if no_aug:
         return normalize_imagenet(_to_channels(x, out_channels))
     plain = x
     b, size = x.shape[0], x.shape[1]
+
+    if adjacent_bank is not None:
+        x = _compose_adjacent(x, adjacent_bank, draws, lang)
 
     if crop_sim > 0.0:
         cs = draws["crop_scale"]

@@ -1,6 +1,8 @@
 """CER error breakdown: attribute edit-distance errors to failure modes
 (a copy of the JAX package's eval/error_analysis.py, pinned to it by
-tests/test_torch_tools.py; ``confusion_render_distance`` raises).
+tests/test_torch_tools.py and tests/test_torch_fonts.py;
+``confusion_render_distance`` renders with the port's own glyph
+renderer, data/fonts.py).
 
 The reference prints one aggregate CER (utils/eval_utils.py:25-70) and
 incorrect lines; choosing the next accuracy lever (detector? recognizer?
@@ -125,13 +127,43 @@ def confusion_render_distance(
     font_paths: Sequence[str],
     canvas_size: int = 64,
 ) -> Dict[Tuple[str, str], float]:
-    """(gt, pred) -> worst-case render distance across the corpus fonts,
-    in the JAX package.  It renders glyphs through Pillow's FreeType,
-    which this package does not have: it raises."""
-    raise NotImplementedError(
-        "confusion_render_distance (error-analysis --font_dir) renders "
-        "glyphs with a font library effocr_torch does not have (ROADMAP.md, "
-        "queue 1 item 7)")
+    """(gt, pred) -> worst-case render distance across the corpus fonts.
+
+    Distance per font = mean |render(gt) - render(pred)| / 255 over the
+    canvas; the reported value is the MAX over fonts rendering both (a
+    pair is only truly unanswerable if no font distinguishes it).  0.0
+    means pixel-identical everywhere — a charset-ambiguity error, not a
+    recognizer error (see data/fonts.dedupe_render_identical).  Pairs
+    with no common font or multi-char entries get nan.
+    """
+    import numpy as _np
+
+    from effocr_torch.data.fonts import (
+        draw_single_char,
+        get_unicode_coverage_from_ttf,
+        truetype,
+    )
+
+    chars = sorted({c for p in pairs for c in p if len(c) == 1})
+    renders: List[Dict[str, _np.ndarray]] = []
+    for fp in font_paths:
+        font = truetype(fp, canvas_size)
+        _, covered = get_unicode_coverage_from_ttf(fp)
+        per = {}
+        for c in set(chars).intersection(covered):
+            img = draw_single_char(c, font, canvas_size)
+            if img is not None:
+                per[c] = _np.asarray(img, _np.float32)
+        renders.append(per)
+    out: Dict[Tuple[str, str], float] = {}
+    for g, p in pairs:
+        dists = [
+            float(_np.mean(_np.abs(per[g] - per[p]))) / 255.0
+            for per in renders
+            if g in per and p in per
+        ]
+        out[(g, p)] = max(dists) if dists else float("nan")
+    return out
 
 
 def analyze_pairs(

@@ -1,0 +1,203 @@
+"""ctypes binding for glyph.cpp: TrueType outlines scaled and hinted as
+FreeType 2.14 does by default (the v40 bytecode interpreter), FreeType's
+gray rasterizer, and Pillow's Gaussian blur.
+
+The library is compiled with g++ on first use into ``libglyph.so`` next
+to its source (git-ignored), rebuilt when the source is newer, written
+to a temporary file and renamed so that concurrent builds never load a
+half-written library.  A failed build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import tempfile
+import threading
+from typing import Tuple
+
+import numpy as np
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, "glyph.cpp")
+_LIB = os.path.join(_HERE, "libglyph.so")
+
+# error codes of glyph.cpp that are not program faults
+_UNSUPPORTED = 21
+_TOO_SMALL = -1
+
+_lib = None
+_lock = threading.Lock()
+
+
+def build() -> str:
+    """Compile libglyph.so if it is missing or older than its source;
+    returns its path.  Raises RuntimeError when it does not compile."""
+    if os.path.exists(_LIB) and os.path.getmtime(_LIB) >= os.path.getmtime(
+            _SRC):
+        return _LIB
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_HERE)
+    os.close(fd)
+    # no -march=native and no FMA contraction: the blur's float
+    # arithmetic must round as Pillow's C does
+    cmd = ["g++", "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
+           "-fPIC", _SRC, "-o", tmp]
+    try:
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, text=True)
+        except FileNotFoundError as e:
+            raise RuntimeError(
+                f"could not build the glyph renderer from {_SRC}: {e}") from e
+        except subprocess.CalledProcessError as e:
+            raise RuntimeError(
+                f"could not build the glyph renderer from {_SRC}: "
+                f"{e.stderr.strip()[-2000:]}") from e
+        os.replace(tmp, _LIB)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return _LIB
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(build())
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.eg_face_new.restype = P
+        lib.eg_face_new.argtypes = [P, L, P, I, P, I, P, I, I, I, I, P, I,
+                                    P, I, P, I, I, I, I, I, I]
+        lib.eg_face_free.argtypes = [P]
+        lib.eg_size_new.restype = P
+        lib.eg_size_new.argtypes = [P, I, ctypes.POINTER(I)]
+        lib.eg_size_free.argtypes = [P]
+        lib.eg_load.restype = I
+        lib.eg_load.argtypes = [P, I, I, P, P, P, I, I, ctypes.POINTER(I),
+                                ctypes.POINTER(I), ctypes.POINTER(L)]
+        lib.eg_render.argtypes = [P, P, P, I, I, I, I, P]
+        lib.eg_gaussian_blur.argtypes = [P, I, I, I, ctypes.c_float]
+        _lib = lib
+        return lib
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+class Face:
+    """One font's tables on the C++ side (fonts/sfnt.py ``Font``)."""
+
+    def __init__(self, font):
+        lib = _load()
+        self._keep = []
+
+        def arr(x, dt):
+            a = np.ascontiguousarray(np.asarray(x, dt))
+            if a.size == 0:
+                a = np.zeros(1, dt)
+            self._keep.append(a)
+            return a
+
+        glyf = arr(np.frombuffer(font.tables["glyf"], np.uint8), np.uint8)
+        loca = arr(font.loca, np.uint32)
+        adv = arr(font.advances, np.uint16)
+        lsb = arr(font.lsbs, np.int16)
+        cvt = arr(font.cvt, np.int16)
+        fpgm = arr(np.frombuffer(font.fpgm, np.uint8), np.uint8)
+        prep = arr(np.frombuffer(font.prep, np.uint8), np.uint8)
+        # TT_Get_VMetrics without vmtx: OS/2 typo metrics, else hhea
+        if font.os2_version is not None:
+            v_asc, v_desc = font.typo_ascender, font.typo_descender
+        else:
+            v_asc, v_desc = font.hhea_ascender, font.hhea_descender
+        self._lib = lib
+        self.handle = lib.eg_face_new(
+            _ptr(glyf), len(font.tables["glyf"]), _ptr(loca),
+            font.num_glyphs, _ptr(adv), len(font.advances), _ptr(lsb),
+            len(font.lsbs), font.units_per_em, v_asc, v_desc, _ptr(cvt),
+            len(font.cvt), _ptr(fpgm), len(font.fpgm), _ptr(prep),
+            len(font.prep), font.max_stack, font.max_storage,
+            font.max_fdefs, font.max_idefs, font.max_twilight)
+        self.font = font
+
+    def __del__(self):
+        if getattr(self, "handle", None):
+            self._lib.eg_face_free(self.handle)
+            self.handle = None
+
+
+class Size:
+    """A face at ``ppem`` pixels, its font and CVT programs run."""
+
+    def __init__(self, face: Face, ppem: int):
+        err = ctypes.c_int(0)
+        self.face = face
+        self._lib = face._lib
+        self.handle = self._lib.eg_size_new(face.handle, int(ppem),
+                                            ctypes.byref(err))
+        self.error = err.value
+        self.ppem = int(ppem)
+
+    def __del__(self):
+        if getattr(self, "handle", None):
+            self._lib.eg_size_free(self.handle)
+            self.handle = None
+
+    def outline(self, gid: int, hinted: bool = True
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(points int64 [N, 2] in 26.6, tags uint8 [N] (bit 0: on the
+        curve), contour end indices int16 [C]) of glyph ``gid``."""
+        cap_p, cap_c = 512, 64
+        while True:
+            xy = np.zeros((cap_p, 2), np.int64)
+            tags = np.zeros(cap_p, np.uint8)
+            cont = np.zeros(cap_c, np.int16)
+            n_p, n_c, pp1 = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int64(0)
+            rc = self._lib.eg_load(self.handle, int(gid), int(hinted),
+                                   _ptr(xy), _ptr(tags), _ptr(cont), cap_p,
+                                   cap_c, ctypes.byref(n_p), ctypes.byref(n_c),
+                                   ctypes.byref(pp1))
+            if rc == _TOO_SMALL:
+                cap_p, cap_c = max(cap_p, n_p.value), max(cap_c, n_c.value)
+                continue
+            if rc == _UNSUPPORTED:
+                from effocr_torch.fonts.sfnt import refuse
+
+                raise refuse("overlap-flagged or offset-scaled glyph "
+                             f"{gid}", self.face.font.path)
+            if rc:
+                raise OSError(f"glyph {gid} of {self.face.font.path} does not "
+                              f"load (error {rc})")
+            return (xy[: n_p.value].copy(), tags[: n_p.value].copy(),
+                    cont[: n_c.value].copy())
+
+
+def render(points: np.ndarray, tags: np.ndarray, contours: np.ndarray,
+           width: int, rows: int) -> np.ndarray:
+    """FreeType's gray rasterizer: the outline (26.6, bitmap coordinates,
+    y up) into a top-down uint8 [rows, width] coverage bitmap."""
+    lib = _load()
+    out = np.zeros((rows, width), np.uint8)
+    if rows == 0 or width == 0 or len(contours) == 0:
+        return out
+    pts = np.ascontiguousarray(points, np.int64)
+    tg = np.ascontiguousarray(tags, np.uint8)
+    ct = np.ascontiguousarray(contours, np.int16)
+    lib.eg_render(_ptr(pts), _ptr(tg), _ptr(ct), len(pts), len(ct),
+                  int(width), int(rows), _ptr(out))
+    return out
+
+
+def gaussian_blur(img: np.ndarray, radius: float) -> np.ndarray:
+    """Pillow's ``ImageFilter.GaussianBlur(radius)`` (three extended box
+    blurs per axis) on uint8 [H, W] or [H, W, C]."""
+    lib = _load()
+    out = np.ascontiguousarray(img, np.uint8).copy()
+    h, w = out.shape[:2]
+    ch = 1 if out.ndim == 2 else out.shape[2]
+    lib.eg_gaussian_blur(_ptr(out), w, h, ch,
+                         ctypes.c_float(np.float32(radius)))
+    return out

@@ -10,6 +10,10 @@ computes in its ``dtype`` (bfloat16 by default) over float32 parameters;
 autograd carries the gradient through the casts to the float32 master
 copy.  Losses and retrieval are float32 with TF32 off.
 
+``adjacent_font_path`` renders the AddAdjacentChars neighbour-glyph
+bank (data/fonts.py) at the encoder's size on every rank, on its device;
+the step composites it first (data/transforms.py ``_compose_adjacent``).
+
 ``data_device resident`` keeps the whole dataset on the device as a gray
 uint8 bank [N, S, S] and gathers each batch there from int64 indices;
 ``stream`` decodes batches on the host and uploads them.
@@ -85,7 +89,9 @@ def epoch_seed(seed: int, epoch: int) -> int:
 def make_train_step(model: torch.nn.Module, cfg: RecognizerTrainConfig,
                     optimizer, classifier_mode: bool,
                     aux: Optional[torch.Tensor] = None,
-                    bank_mode: bool = False) -> Callable:
+                    bank_mode: bool = False,
+                    adjacent_bank: Optional[torch.Tensor] = None
+                    ) -> Callable:
     """The step: augment -> forward -> loss -> backward ->
     ``optimizer.step()``; returns the loss (a device scalar).
 
@@ -106,7 +112,7 @@ def make_train_step(model: torch.nn.Module, cfg: RecognizerTrainConfig,
             images_u8, is_paired, draws, lang=cfg.lang,
             high_blur=cfg.high_blur, no_aug=cfg.no_aug,
             crop_sim=cfg.crop_sim, paired_jitter=cfg.paired_jitter,
-            out_channels=channels)
+            out_channels=channels, adjacent_bank=adjacent_bank)
 
     def body(x, targets):
         model.train()
@@ -139,11 +145,6 @@ class RecognizerTrainer:
     def __init__(self, cfg: RecognizerTrainConfig, model: torch.nn.Module,
                  run_dir: str, classifier_mode: bool = False,
                  device="cuda", use_wandb: bool = False):
-        if cfg.adjacent_font_path:
-            raise NotImplementedError(
-                "--adjacent_font_path renders a glyph bank with a font "
-                "library this package does not have (ROADMAP.md, queue 1 "
-                "item 7)")
         self.device = distributed.rank_device(resolve_device(device))
         use_full_f32()
         self.cfg = cfg
@@ -162,6 +163,15 @@ class RecognizerTrainer:
         self._bank_paired = None
         self.initialized = False
         self.best_acc = -1.0
+        # the AddAdjacentChars glyph bank, rendered on every rank and kept
+        # on this rank's device
+        self.adjacent_bank: Optional[torch.Tensor] = None
+        if cfg.adjacent_font_path:
+            from effocr_torch.data.fonts import render_adjacent_bank
+
+            self.adjacent_bank = torch.from_numpy(render_adjacent_bank(
+                cfg.adjacent_font_path, cfg.encoder.image_size,
+                cfg.lang)).to(self.device)
 
     # ----------------------------------------------------------------- init
     def init_state(self, seed: int) -> None:
@@ -201,7 +211,8 @@ class RecognizerTrainer:
         self._step_fn = make_train_step(
             self._net, cfg, self.optimizer, self.classifier_mode,
             aux=self.aux if self.use_aux else None,
-            bank_mode=self.bank is not None)
+            bank_mode=self.bank is not None,
+            adjacent_bank=self.adjacent_bank)
 
     def _aux_random(self, n_classes: int, d: int) -> np.ndarray:
         g = torch.Generator().manual_seed(self.cfg.seed)
@@ -412,7 +423,9 @@ class RecognizerTrainer:
                 draws = None if cfg.no_aug else draw_augment(
                     gen, len(global_idx), size, lang=cfg.lang,
                     high_blur=cfg.high_blur, crop_sim=cfg.crop_sim,
-                    paired_jitter=cfg.paired_jitter)
+                    paired_jitter=cfg.paired_jitter,
+                    adjacent=None if self.adjacent_bank is None
+                    else tuple(self.adjacent_bank.shape[:2]))
                 # this rank's rows of the global batch and of its draws
                 global_idx = distributed.local_rows(global_idx)
                 draws = distributed.local_rows(draws)

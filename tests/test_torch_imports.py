@@ -3,12 +3,15 @@
 In a fresh interpreter where importing ``jax``, ``flax``, ``optax``,
 ``msgpack``, ``PIL``, ``pytesseract``, ``cv2``, ``safetensors``,
 ``transformers``, ``tokenizers``, ``sentencepiece``, ``regex``, ``timm``,
-``onnx``, ``onnxruntime`` or ``faiss`` fails, every module of
+``onnx``, ``onnxruntime``, ``faiss``, ``fontTools`` or ``freetype``
+fails, every module of
 effocr_torch (the training slice's data, train and CLI modules included)
 and chip_smoke.py (imported, not run) must import, the artifact
 importers must read what the port's writers write (FAISS, ONNX,
-safetensors, a full module pickle), and no ``effocr_tpu`` module may get
-loaded.  Entry points with the
+safetensors, a full module pickle), the glyph renderer must draw text
+and write a make-corpus line without loading any shared library named
+like FreeType, HarfBuzz, raqm or Pillow's bundled libraries, and no
+``effocr_tpu`` module may get loaded.  Entry points with the
 default device (the engine, ``serve``'s engine loading) must raise when
 CUDA is absent instead of running on the CPU.
 """
@@ -27,7 +30,7 @@ _GUARD = textwrap.dedent("""
     for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL",
                  "pytesseract", "cv2", "safetensors", "transformers", "timm",
                  "onnx", "onnxruntime", "faiss", "tokenizers",
-                 "sentencepiece", "regex"):
+                 "sentencepiece", "regex", "fontTools", "freetype"):
         sys.modules[name] = None
     import effocr_torch
     # Python modules only: the built native libraries sit in the tree too
@@ -85,9 +88,21 @@ _GUARD = textwrap.dedent("""
         assert "no encoder.deit" in str(e), e
     else:
         raise AssertionError("a non-fairseq pickle was accepted")
+    # the glyph renderer: text, a corpus line, no font library loaded
+    from effocr_torch.cli import make_corpus
+    from effocr_torch.data import fonts as F
+    fdir = os.path.join("tests", "torch_fixtures", "fonts")
+    font = F.truetype(os.path.join(fdir, "DejaVuSerif.ttf"), 32)
+    assert F.draw_single_char("g", font, 32).shape == (32, 32)
+    make_corpus.main(["--out_dir", d + "/corpus", "--font_dir", fdir,
+                      "--n_lines", "2", "--blur_sigma", "1"])
+    with open("/proc/self/maps") as f:
+        maps = f.read().lower()
+    for lib in ("freetype", "harfbuzz", "raqm", "pillow.libs"):
+        assert lib not in maps, lib
     for name in ("safetensors", "transformers", "timm", "onnx",
                  "onnxruntime", "faiss", "tokenizers", "sentencepiece",
-                 "regex"):
+                 "regex", "fontTools", "freetype", "PIL"):
         assert sys.modules[name] is None, name
     leaked = sorted(k for k in sys.modules if k.startswith("effocr_tpu"))
     assert not leaked, leaked

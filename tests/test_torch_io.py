@@ -683,7 +683,7 @@ def _coco_corpus(rng, n_images=23):
     return out
 
 
-def test_coco_copy_matches():
+def test_coco_copy_matches(tmp_path):
     from effocr_tpu.data import coco as j_coco
     from effocr_torch.data import coco
 
@@ -710,8 +710,39 @@ def test_coco_copy_matches():
     for vertical in (False, True):
         assert coco.clip_to_top_and_bottom(anno, 48.0, vertical) == \
             j_coco.clip_to_top_and_bottom(anno, 48.0, vertical)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        coco.extract_char_crops(corpus, "images", "crops")
+    # the crop writer: float boxes (Pillow's round), L and RGB lines,
+    # horizontal and vertical, --spaces and --clip_to_top_and_bottom
+    from PIL import Image
+
+    rng = np.random.default_rng(5)
+    lines = {"images": [], "annotations": [], "categories": []}
+    img_dir = tmp_path / "images"
+    img_dir.mkdir()
+    for i, (w, h, mode) in enumerate([(90, 30, "RGB"), (70, 24, "L"),
+                                       (26, 80, "RGB")]):
+        px = rng.integers(0, 256, (h, w, 3) if mode == "RGB" else (h, w),
+                          np.uint8)
+        Image.fromarray(px).save(img_dir / f"line{i}.png")
+        text = "ab c" if w > h else "xyz"
+        lines["images"].append({"id": i, "file_name": f"line{i}.png",
+                                "width": w, "height": h, "text": text})
+        for k in range(len(text.replace(" ", ""))):
+            along = float(rng.uniform(0, 0.7 * max(w, h)))
+            box = ([along, 2.4, 11.5, h - 3.5] if w > h
+                   else [1.5, along, w - 2.5, 9.5])
+            lines["annotations"].append({"id": 10 * i + k, "image_id": i,
+                                         "category_id": 0, "bbox": box})
+    for clip in (False, True):
+        outs = {}
+        for tag, fn in (("j", j_coco.extract_char_crops),
+                        ("p", coco.extract_char_crops)):
+            d = tmp_path / f"crops_{tag}_{clip}"
+            n = fn(lines, str(img_dir), str(d), cat_id=0, spaces=True,
+                   clip=clip)
+            outs[tag] = (n, {f: (Image.open(d / f).mode,
+                                 np.asarray(Image.open(d / f)).tobytes())
+                             for f in sorted(os.listdir(d))})
+        assert outs["p"] == outs["j"] and outs["p"][0] == 9
 
 
 def test_coco_tools_write_the_jax_bytes(tmp_path, monkeypatch, capsys):

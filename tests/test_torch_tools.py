@@ -30,6 +30,7 @@ import io
 import json
 import os
 import stat
+import shutil
 import sys
 import urllib.parse
 from functools import partial
@@ -124,9 +125,34 @@ def test_error_analysis_cli_matches_jax(tmp_path, monkeypatch, capsys):
         outs[pkg] = (out.replace(f"{pkg}.json", ""),
                      (tmp_path / f"{pkg}.json").read_bytes())
     assert outs["port"] == outs["jax"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        t_ea_cli.main(["--results", "x", "--coco_json", "y", "--font_dir",
-                       str(tmp_path)])
+    # --font_dir: each confusion's render distance across the committed
+    # DejaVu fonts
+    fonts = tmp_path / "fonts"
+    fonts.mkdir()
+    for name in ("DejaVuSans.ttf", "DejaVuSerif.ttf"):
+        shutil.copy(os.path.join(os.path.dirname(__file__), "torch_fixtures",
+                                 "fonts", name), fonts)
+    pairs = pairs + [("Аб", "Ab"), ("lI", "Il"), ("Ж", "X")]
+    coco["images"] = [{"id": i, "file_name": f"l{i}.png", "text": gt}
+                      for i, (gt, _) in enumerate(pairs)]
+    (tmp_path / "coco.json").write_text(json.dumps(coco))
+    (tmp_path / "res.json").write_text(json.dumps(
+        {f"l{i}.png": pred for i, (_, pred) in enumerate(pairs)}))
+    for pkg, run in (("jax", j_ea_cli.main), ("port", t_ea_cli.main)):
+        argv = ["--results", str(tmp_path / "res.json"), "--coco_json",
+                str(tmp_path / "coco.json"), "--top", "30", "--font_dir",
+                str(fonts), "--save_json", str(tmp_path / f"{pkg}.json")]
+        if pkg == "jax":
+            monkeypatch.setattr(sys, "argv", ["error-analysis"] + argv)
+            run()
+        else:
+            run(argv)
+        out = capsys.readouterr().out
+        outs[pkg] = (out.replace(f"{pkg}.json", ""),
+                     (tmp_path / f"{pkg}.json").read_bytes())
+    assert outs["port"] == outs["jax"]
+    assert "render-identical in every corpus font" in outs["port"][0]
+    assert "render dist" in outs["port"][0]
 
 
 # ---------------------------------------------------------- comparators

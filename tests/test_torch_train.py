@@ -785,12 +785,28 @@ def test_training_clis_raise_without_cuda(tmp_path):
     assert not os.path.exists(tmp_path / "never")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_index.main(["--run_dir", "missing"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --adjacent_font_path: no refusal; the device check still comes
+    # first, and the trainer renders the JAX trainer's neighbour-glyph
+    # bank onto its own device
+    serif = os.path.join(os.path.dirname(__file__), "torch_fixtures",
+                         "fonts", "DejaVuSerif.ttf")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         train_recognizer.main([
-            "--device", "cpu", "--root_dir_path", "missing",
-            "--train_ann_path", "a", "--val_ann_path", "b",
-            "--test_ann_path", "c", "--run_name", str(tmp_path / "never"),
-            "--adjacent_font_path", "font.ttf"])
+            "--root_dir_path", "missing", "--train_ann_path", "a",
+            "--val_ann_path", "b", "--test_ann_path", "c", "--run_name",
+            str(tmp_path / "never"), "--adjacent_font_path", serif])
+    assert not os.path.exists(tmp_path / "never")
+    from effocr_tpu.data.fonts import render_adjacent_bank
+
+    for lang, size in (("en", 32), ("jp", 24)):
+        cfg = RecognizerTrainConfig(encoder=EncoderConfig(
+            arch="mobilenetv3_small_050", image_size=size), lang=lang,
+            adjacent_font_path=serif)
+        t = RecognizerTrainer(cfg, create_encoder("mobilenetv3_small_050"),
+                              str(tmp_path / f"run_{lang}"), device="cpu")
+        assert t.adjacent_bank.device.type == "cpu"
+        np.testing.assert_array_equal(t.adjacent_bank.numpy(),
+                                      render_adjacent_bank(serif, size, lang))
 
 
 # ------------------------------------------------ resume across packages
