@@ -264,12 +264,19 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      / .bmp requests through ``serve``, answered as ``engine.run``
      answers them (K1 checked in process).
    - fonts: the port's own glyph renderer (native/glyph.cpp: FreeType's
-     v40 hinting and gray rasterizer; fonts/: the sfnt reader, shaping,
-     Pillow's text drawing) on the host with no Pillow or FreeType: the
-     90 en characters in the three committed DejaVu fonts through
-     ``draw_single_char`` and ``draw_single_char_ascender`` at canvas
-     256 and both AddAdjacentChars banks against the JAX package's
-     golden digests (tests/torch_fixtures/fonts/golden.npz), renders/s;
+     v40 hinting, its Adobe engine for CFF and the gray rasterizer;
+     fonts/: the sfnt and CFF readers, shaping, Pillow's text drawing)
+     on the host with no Pillow or FreeType: the 90 en characters in the
+     three committed DejaVu fonts through ``draw_single_char`` and
+     ``draw_single_char_ascender`` at canvas 256 and both
+     AddAdjacentChars banks against the JAX package's golden digests
+     (tests/torch_fixtures/fonts/golden.npz), renders/s; the CFF
+     fixtures (tests/torch_fixtures/fonts_cff/: a name-keyed serif and a
+     65,535-glyph CID-keyed sans): the CID font's open time, the en
+     characters in both and 90 CJK codepoints of the CID font, and their
+     banks, against fonts_cff/golden.npz, renders/s per font; the jp
+     make-corpus -> make-charset -> format-dataset chain on the CID font
+     in the background process below, against its goldens;
      ``make-corpus`` (512 en lines, noise 8, blur 1), ``make-charset
      --dedupe_renders`` and ``format-dataset`` as subprocesses of a
      background process started with the family phases, each output
@@ -5274,6 +5281,7 @@ def phase_image_formats(dev, card, loc_dir, rec_dir):
 
 # ---------------------------------------------------------- glyph rendering
 FONT_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "fonts")
+CFF_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "fonts_cff")
 N_AUG_BATCH = 64
 
 
@@ -5287,14 +5295,24 @@ def font_tools():
     return make_fonts
 
 
+def cff_font_tools():
+    """tests/torch_fixtures/make_cff_fonts.py: the CFF fonts' goldens
+    (render cases, banks) and the jp pipeline runner (fontTools, Pillow
+    and JAX are imported only by its generators)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fixtures import make_cff_fonts
+
+    return make_cff_fonts
+
+
 # The fonts phase's commands, in a process of its own started with the
 # family phases: make-corpus -> make-charset -> format-dataset as
 # ``python -m effocr_torch`` subprocesses (host work), the digests of
-# their outputs, then coco-split and ``train-recognizer --device cuda
-# --adjacent_font_path`` on the tree (the flags in argv[4:]); one JSON
-# line at the end.
+# their outputs, the same jp chain on the CID-keyed CFF font, then
+# coco-split and ``train-recognizer --device cuda --adjacent_font_path``
+# on the en tree (the flags in argv[4:]); one JSON line at the end.
 FONT_PIPELINE = """
-import json, os, subprocess, sys, time
+import json, os, shutil, subprocess, sys, time
 root, work, font_dir, *train_flags = sys.argv[1:]
 sys.path.insert(0, os.path.join(root, "tests"))
 from torch_fixtures import make_fonts
@@ -5312,6 +5330,18 @@ def run(cmd, argv):
 t0 = time.perf_counter()
 digests = make_fonts.pipeline_outputs(work, font_dir, run)
 seconds = time.perf_counter() - t0
+# the jp chain on the CID-keyed CFF font alone
+from torch_fixtures import make_cff_fonts
+cff_work = os.path.join(work, "cff")
+cff_fonts = os.path.join(cff_work, "fonts")
+os.makedirs(cff_fonts)
+shutil.copy(os.path.join(root, "tests", "torch_fixtures", "fonts_cff",
+                         make_cff_fonts.CID), cff_fonts)
+en_walls, walls = walls, {}
+t1 = time.perf_counter()
+cff_digests = make_cff_fonts.pipeline_outputs(cff_work, cff_fonts, run)
+cff_seconds = time.perf_counter() - t1
+cff_walls, walls = walls, en_walls
 split = os.path.join(work, "split")
 run("coco-split", ["--coco_json", os.path.join(work, "corpus", "corpus.json"),
                    "--out_prefix", split])
@@ -5322,6 +5352,8 @@ run("train-recognizer", ["--root_dir_path", os.path.join(work, "tree"),
                          "--run_name", os.path.join(work, "rec"),
                          *train_flags])
 print(json.dumps({"digests": digests, "walls": walls, "seconds": seconds,
+                  "cff_digests": cff_digests, "cff_walls": cff_walls,
+                  "cff_seconds": cff_seconds,
                   "total_s": time.perf_counter() - t0}))
 """
 
@@ -5359,13 +5391,77 @@ def _metrics_rates(run_dir):
     return steps / secs, images / secs, val, losses, epochs
 
 
+def phase_fonts_cff(card):
+    """The CFF fixtures (name-keyed serif, 65,535-glyph CID-keyed sans)
+    through the port's Adobe engine on the card's host: the CID font's
+    open time (sfnt and CFF tables, the native face, one glyph rendered),
+    every golden render (the 90 en characters in both fonts at canvas
+    256, both draw functions; 90 CJK codepoints of the CID font) and the
+    two banks against the JAX package's golden digests; renders/s per
+    font."""
+    from effocr_torch.data import fonts as F
+    from effocr_torch.data.imaging import digest_image
+    from effocr_torch.fonts import imagefont, sfnt
+
+    mc = cff_font_tools()
+    golden = np.load(os.path.join(CFF_FIXTURES, "golden.npz"))
+    want = dict(zip(golden["render_keys"].tolist(),
+                    golden["render_digests"].tolist()))
+    cid = os.path.join(CFF_FIXTURES, mc.CID)
+    t0 = time.perf_counter()
+    first = imagefont.truetype(cid, 64).getmask2("\u4ee3")[0]
+    open_s = time.perf_counter() - t0
+    n_glyphs = sfnt.load(cid).num_glyphs
+    if not first.any() or n_glyphs != 65535:
+        raise AssertionError(f"fonts: the CID font opened with {n_glyphs} "
+                             "glyphs or rendered nothing")
+    bad, rates, n = [], {}, 0
+    for name in mc.FONTS:
+        font = F.truetype(os.path.join(CFF_FIXTURES, name), mc.CANVAS)
+        cases = [c for c in mc.render_cases() if c[0] == name]
+        t0 = time.perf_counter()
+        for _, kind, cp in cases:
+            fn = F.draw_single_char if kind == "single" else \
+                F.draw_single_char_ascender
+            img = fn(chr(cp), font, mc.CANVAS)
+            got = "none" if img is None else digest_image(
+                img, "L" if img.ndim == 2 else "RGB")
+            if got != want[f"{name}|{kind}|{cp}"]:
+                bad.append(f"{name} {kind} U+{cp:04X}")
+        rates[name] = len(cases) / (time.perf_counter() - t0)
+        n += len(cases)
+    if bad or n != len(want):
+        raise AssertionError(f"fonts: {len(bad)} of {n} CFF renders differ "
+                             f"from the goldens (of {len(want)}): {bad[:8]}")
+    t0 = time.perf_counter()
+    for name, lang in mc.BANKS:
+        b = F.render_adjacent_bank(os.path.join(CFF_FIXTURES, name),
+                                   mc.BANK_SIZE, lang)
+        if digest_image(b, "L") != str(golden[f"bank_{lang}"]):
+            raise AssertionError(f"fonts: the {name} {lang} bank differs "
+                                 "from its golden")
+    bank_s = time.perf_counter() - t0
+    log(f"fonts: CFF: the {n_glyphs}-glyph CID-keyed font opened and its "
+        f"first glyph rendered in {open_s * 1000:.1f} ms; {n} renders "
+        f"(the en characters in both CFF fonts, both draw functions, and "
+        f"{len(mc.cjk_sample())} CJK codepoints of the CID font, at canvas "
+        f"{mc.CANVAS}) and the serif en / CID jp banks ({bank_s:.2f} s) "
+        f"equal Pillow 12.1's golden digests bit for bit; host renders/s "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+        + f" ({card})")
+    return {"cid_open_ms": open_s * 1000, "renders": n,
+            "renders_per_s": rates, "bank_s": bank_s}
+
+
 def phase_fonts(dev, card, pipeline):
     """The port's own glyph renderer where neither Pillow nor FreeType is
     used:
     1. ``draw_single_char`` (canvas 256) and ``draw_single_char_ascender``
        of the 90 en characters in the three committed DejaVu fonts, and
        both AddAdjacentChars banks, equal the JAX package's (Pillow 12.1)
-       golden digests bit for bit; renders/s on the host;
+       golden digests bit for bit; renders/s on the host; then the CFF
+       fixtures (``phase_fonts_cff``) and, from the background process,
+       the jp chain on the CID font against its goldens;
     2. ``make-corpus`` (512 en lines, noise 8, blur 1), ``make-charset
        --dedupe_renders`` and ``format-dataset`` through ``python -m
        effocr_torch`` (``pipeline``: start_font_pipeline's process, run
@@ -5424,6 +5520,8 @@ def phase_fonts(dev, card, pipeline):
         f"{n / render_s:.1f} renders/s (first renders of each size "
         f"included), banks {bank_s:.2f} s ({card})")
 
+    cff = phase_fonts_cff(card)
+
     proc, work, _ = pipeline
     t0 = time.perf_counter()
     stdout, stderr = proc.communicate(timeout=900)
@@ -5437,6 +5535,22 @@ def phase_fonts(dev, card, pipeline):
     if diff:
         raise AssertionError(f"fonts: {diff} differ from the JAX commands' "
                              "goldens")
+    cff_golden = np.load(os.path.join(CFF_FIXTURES, "golden.npz"))
+    diff = [k for k, v in done["cff_digests"].items()
+            if v != str(cff_golden[k])]
+    if diff:
+        raise AssertionError(f"fonts: the CID font's jp chain: {diff} differ "
+                             "from the JAX commands' goldens")
+    cw = done["cff_walls"]
+    n_cff_tree = sum(len(fs) for _, _, fs in os.walk(
+        os.path.join(work, "cff", "tree")))
+    log(f"fonts: the jp chain on the CID-keyed CFF font (make-corpus "
+        f"{cw['make-corpus']:.1f} s, make-charset --dedupe_renders "
+        f"{cw['make-charset']:.1f} s, format-dataset "
+        f"{cw['format-dataset']:.1f} s; {done['cff_seconds']:.1f} s with "
+        f"the digests, in the background): corpus.json, the charset file, "
+        f"the line pixels, the crops and the {n_cff_tree}-file tree equal "
+        f"the JAX commands' goldens")
     tree = os.path.join(work, "tree")
     n_tree = sum(len(fs) for _, _, fs in os.walk(tree))
     log(f"fonts: make-corpus (512 lines) {walls['make-corpus']:.1f} s, "
@@ -5496,7 +5610,10 @@ def phase_fonts(dev, card, pipeline):
                 pipeline_wait_s=waited,
                 train_wall_s=wall,
                 steps_s=steps_s, images_s=images_s, val_p1=val,
-                losses=losses, augment_err=errs, n_tree_files=n_tree)
+                losses=losses, augment_err=errs, n_tree_files=n_tree,
+                cff=dict(cff, jp_chain_s=done["cff_seconds"],
+                         jp_chain_walls=done["cff_walls"],
+                         n_tree_files=n_cff_tree))
 
 
 def main(argv) -> int:

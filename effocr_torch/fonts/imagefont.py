@@ -3,8 +3,8 @@
 Pillow 12.1's numbers and pixels (raqm layout, FreeType 2.14):
 
 - ``getmetrics``: the size's ascender and descender (FreeType moves
-  them out to whole pixels for fonts whose ``head`` asks for integer
-  ppem);
+  them out to whole pixels for CFF fonts and for TrueType fonts whose
+  ``head`` asks for integer ppem);
 - ``getbbox`` / ``textbbox``: glyph control boxes in whole pixels and the
   pen line, relative to the anchor (Pillow's bounding_box_and_anchors);
 - ``getlength`` (``textlength``): the sum of the shaped advances / 64;
@@ -15,8 +15,8 @@ Pillow 12.1's numbers and pixels (raqm layout, FreeType 2.14):
   or [H, W, 3] ("RGB") array in place.
 
 Anchors: horizontal ``l``/``m``/``r`` with ``a``/``t``/``m``/``s``/``b``
-/``d``.  Glyphs come from native/glyph.cpp (hinted outlines, FreeType's
-gray rasterizer); shaping from fonts/shaping.py.
+/``d``.  Glyphs come from native/glyph.cpp (hinted TrueType or CFF
+outlines, FreeType's gray rasterizer); shaping from fonts/shaping.py.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from effocr_torch.fonts import sfnt, shaping
+from effocr_torch.fonts.cff import div_fix
 from effocr_torch.native import glyph as native
 
 
@@ -61,22 +62,16 @@ def _mul_fix(a: int, b: int) -> int:
     return (ab + 0x8000 + (-1 if ab < 0 else 0)) >> 16
 
 
-def _div_fix(a: int, b: int) -> int:
-    s = -1 if (a < 0) ^ (b < 0) else 1
-    a, b = abs(a), abs(b)
-    return s * (((a << 16) + (b >> 1)) // b)
-
-
 @functools.lru_cache(maxsize=16)
-def _face(path: str, mtime: float) -> native.Face:
-    return native.Face(sfnt.load(path))
+def _face(path: str, mtime: float):
+    return native.open_face(sfnt.load(path))
 
 
 class GlyphCache:
     """Hinted outlines' pixel boxes and rendered bitmaps of one size."""
 
-    def __init__(self, face: native.Face, ppem: int):
-        self.size = native.Size(face, ppem)
+    def __init__(self, face, ppem: int):
+        self.size = face.new_size(ppem)
         if self.size.error:
             raise OSError(f"the font program of {face.font.path} fails at "
                           f"{ppem} px (error {self.size.error})")
@@ -140,7 +135,7 @@ class FreeTypeFont:
         mtime = os.path.getmtime(self.path)
         self.glyphs = _glyphs(self.path, mtime, self.size)
         f = self.font
-        self.x_scale = _div_fix(self.size << 6, f.units_per_em)
+        self.x_scale = div_fix(self.size << 6, f.units_per_em)
         self.y_scale = self.x_scale
         asc, desc = f.hhea_ascender, f.hhea_descender
         if f.os2_version is not None and f.fs_selection & 128:
@@ -152,8 +147,10 @@ class FreeTypeFont:
                 asc, desc = f.win_ascent, -f.win_descent
         self.ascender = _mul_fix(asc, self.y_scale)
         self.descender = _mul_fix(desc, self.y_scale)
-        if f.head_flags & 8:
-            # tt_size_reset: ascender up, descender down to whole pixels
+        if f.head_flags & 8 or f.cff is not None:
+            # tt_size_reset (integer ppem), or FT_Request_Metrics for CFF
+            # (its grid-fitted metrics): ascender up, descender down to
+            # whole pixels
             self.ascender = (self.ascender + 63) & -64
             self.descender = self.descender & -64
         self._shape_cache: Dict[str, list] = {}

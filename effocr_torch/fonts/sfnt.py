@@ -1,4 +1,4 @@
-"""TrueType font file reader: the sfnt tables the glyph renderer, the
+"""OpenType font file reader: the sfnt tables the glyph renderer, the
 shaper and the charset tools need (what fontTools gives the JAX
 package's data/fonts.py, and what FreeType's sfnt loader gives Pillow).
 
@@ -6,14 +6,15 @@ Read: the table directory, ``head``, ``hhea``, ``maxp``, ``OS/2``,
 ``hmtx``, ``loca`` / ``glyf`` (raw; the glyph records are parsed by
 native/glyph.cpp), ``cvt ``, ``fpgm``, ``prep``, ``GDEF``'s glyph classes
 and ``cmap`` formats 0, 4, 6 and 12 (format 14 holds variation
-sequences, which add no codepoint).  ``gasp`` is not read: FreeType's
-TrueType loader and gray renderer do not consult it.  GSUB and GPOS are
-kept as bytes for fonts/shaping.py.
+sequences, which add no codepoint).  An ``OTTO`` font's ``CFF `` table
+(name-keyed or CID-keyed) is read by fonts/cff.py.  ``gasp`` is not
+read: FreeType's TrueType loader and gray renderer do not consult it.
+GSUB and GPOS are kept as bytes for fonts/shaping.py.
 
 Refused with ``NotImplementedError`` naming the feature and ROADMAP.md
-queue 1: CFF / CFF2 outlines (``OTTO``), TrueType collections, variable
-fonts, embedded bitmap strikes, and TrueType fonts without bytecode
-(FreeType renders those through its auto-hinter).
+queue 1: CFF2 outlines, TrueType collections, variable fonts, embedded
+bitmap strikes, and TrueType fonts without bytecode (FreeType renders
+those through its auto-hinter).
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ def refuse(feature: str, path: str) -> NotImplementedError:
 
 
 class Font:
-    """The parsed tables of one TrueType font file."""
+    """The parsed tables of one TrueType or CFF OpenType font file
+    (``cff`` is the parsed ``CFF `` table, None for TrueType)."""
 
     def __init__(self, path: str):
         self.path = path
@@ -42,12 +44,9 @@ class Font:
         if len(data) < 12:
             raise OSError(f"not a font file: {path}")
         tag = data[:4]
-        if tag == b"OTTO":
-            raise refuse("CFF outlines (OpenType 'OTTO', the Adobe hinting "
-                         "engine)", path)
         if tag == b"ttcf":
             raise refuse("TrueType collections (TTC)", path)
-        if tag not in (b"\x00\x01\x00\x00", b"true"):
+        if tag not in (b"\x00\x01\x00\x00", b"true", b"OTTO"):
             raise OSError(f"unknown font format {tag!r}: {path}")
         n_tables = struct.unpack(">H", data[4:6])[0]
         self.tables: Dict[str, bytes] = {}
@@ -56,30 +55,39 @@ class Font:
             t, _, off, length = struct.unpack(">4sIII", rec)
             self.tables[t.decode("latin-1")] = data[off: off + length]
         t = self.tables
-        for name in ("CFF ", "CFF2"):
-            if name in t:
-                raise refuse("CFF outlines", path)
+        if "CFF2" in t:
+            raise refuse("CFF2 outlines (OpenType 'CFF2')", path)
         if "fvar" in t or "gvar" in t:
             raise refuse("variable fonts (fvar / gvar)", path)
         for name in ("EBDT", "EBLC", "CBDT", "CBLC", "sbix", "bdat"):
             if name in t:
                 raise refuse(f"embedded bitmap strikes ({name.strip()})",
                              path)
-        for name in ("head", "hhea", "maxp", "hmtx", "loca", "glyf", "cmap"):
+        self.cff = None
+        outlines = ("loca", "glyf") if "glyf" in t or "CFF " not in t \
+            else ("CFF ",)
+        for name in ("head", "hhea", "maxp", "hmtx", "cmap") + outlines:
             if name not in t:
                 raise OSError(f"font without a '{name}' table: {path}")
         self._read_head()
         self._read_maxp()
         self._read_hhea_hmtx()
         self._read_os2()
-        self._read_loca()
-        self.cvt = np.frombuffer(t.get("cvt ", b""), ">i2").astype(np.int16)
-        self.fpgm = t.get("fpgm", b"")
-        self.prep = t.get("prep", b"")
-        if self.max_size_of_instructions == 0 and not self.fpgm \
-                and not self.prep:
-            raise refuse("TrueType fonts without bytecode (FreeType's "
-                         "auto-hinter)", path)
+        if outlines == ("CFF ",):
+            from effocr_torch.fonts.cff import CFF
+
+            self.cff = CFF(t["CFF "], self.units_per_em, path)
+            self.num_glyphs = self.cff.num_glyphs
+        else:
+            self._read_loca()
+            self.cvt = np.frombuffer(t.get("cvt ", b""),
+                                     ">i2").astype(np.int16)
+            self.fpgm = t.get("fpgm", b"")
+            self.prep = t.get("prep", b"")
+            if self.max_size_of_instructions == 0 and not self.fpgm \
+                    and not self.prep:
+                raise refuse("TrueType fonts without bytecode (FreeType's "
+                             "auto-hinter)", path)
         self.gsub = t.get("GSUB")
         self.gpos = t.get("GPOS")
         self.glyph_class = self._read_gdef_classes()

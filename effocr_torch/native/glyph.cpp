@@ -1,5 +1,5 @@
-// Glyph outlines and bitmaps of TrueType fonts, as FreeType 2.14 gives
-// them to Pillow (FT_LOAD_DEFAULT, FT_RENDER_MODE_NORMAL):
+// Glyph outlines and bitmaps of TrueType and CFF fonts, as FreeType 2.14
+// gives them to Pillow (FT_LOAD_DEFAULT, FT_RENDER_MODE_NORMAL):
 //
 //   - scaling to 26.6 with FreeType's FT_MulFix / FT_MulDiv / FT_DivFix
 //     rounding;
@@ -10,14 +10,20 @@
 //     glyphs with their own instructions, and the backward-compatibility
 //     rules (no x movement, no y movement after IUP on both axes) unless
 //     `prep' turns them off with INSTCTRL;
+//   - CFF charstrings through FreeType's CFF module and its default Adobe engine
+//     (namespace cf2): the Type 2 interpreter, the hint map built from
+//     the stems and the blue zones, hint replacement mid-contour, and
+//     psaux's outline assembly, whose outlines carry cubic tags;
 //   - FreeType's gray rasterizer (ftgrays.c): cell cover and area,
-//     quadratic arcs flattened by its DDA, non-zero winding, 256 levels;
+//     quadratic arcs flattened by its DDA, cubic arcs by bisection,
+//     non-zero winding, 256 levels;
 //   - Pillow's extended box blur (libImaging/BoxBlur.c), whose float
 //     arithmetic must be C's.
 //
-// The sfnt tables are parsed in Python (effocr_torch/fonts/sfnt.py) and
-// handed over as arrays.  Built with g++ at first use (glyph.py).
+// The sfnt and CFF tables are parsed in Python (effocr_torch/fonts/sfnt.py,
+// cff.py) and handed over as arrays.  Built with g++ at first use (glyph.py).
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstdlib>
@@ -2557,6 +2563,64 @@ struct Raster {
     }
   }
 
+  // gray_render_cubic: bisection until the control points lie within
+  // half a pixel of the chord's trisection points
+  void render_cubic(const Vec& control1, const Vec& control2, const Vec& to) {
+    Vec bez_stack[16 * 3 + 1];
+    Vec* arc = bez_stack;
+    arc[0] = {UPSCALE(to.x), UPSCALE(to.y)};
+    arc[1] = {UPSCALE(control2.x), UPSCALE(control2.y)};
+    arc[2] = {UPSCALE(control1.x), UPSCALE(control1.y)};
+    arc[3] = {x, y};
+    if ((TRUNC(arc[0].y) >= rows && TRUNC(arc[1].y) >= rows && TRUNC(arc[2].y) >= rows &&
+         TRUNC(arc[3].y) >= rows) ||
+        (TRUNC(arc[0].y) < 0 && TRUNC(arc[1].y) < 0 && TRUNC(arc[2].y) < 0 &&
+         TRUNC(arc[3].y) < 0)) {
+      x = arc[0].x;
+      y = arc[0].y;
+      return;
+    }
+    for (;;) {
+      if (std::labs(2 * arc[0].x - 3 * arc[1].x + arc[3].x) > ONE_PIXEL / 2 ||
+          std::labs(2 * arc[0].y - 3 * arc[1].y + arc[3].y) > ONE_PIXEL / 2 ||
+          std::labs(arc[0].x - 3 * arc[2].x + 2 * arc[3].x) > ONE_PIXEL / 2 ||
+          std::labs(arc[0].y - 3 * arc[2].y + 2 * arc[3].y) > ONE_PIXEL / 2) {
+        split_cubic(arc);
+        arc += 3;
+        continue;
+      }
+      render_line(arc[0].x, arc[0].y);
+      if (arc == bez_stack) return;
+      arc -= 3;
+    }
+  }
+
+  static void split_cubic(Vec* base) {
+    Long a, b, c;
+    base[6].x = base[3].x;
+    a = base[0].x + base[1].x;
+    b = base[1].x + base[2].x;
+    c = base[2].x + base[3].x;
+    base[5].x = c >> 1;
+    c += b;
+    base[4].x = c >> 2;
+    base[1].x = a >> 1;
+    a += b;
+    base[2].x = a >> 2;
+    base[3].x = (a + c) >> 3;
+    base[6].y = base[3].y;
+    a = base[0].y + base[1].y;
+    b = base[1].y + base[2].y;
+    c = base[2].y + base[3].y;
+    base[5].y = c >> 1;
+    c += b;
+    base[4].y = c >> 2;
+    base[1].y = a >> 1;
+    a += b;
+    base[2].y = a >> 2;
+    base[3].y = (a + c) >> 3;
+  }
+
   void move_to(const Vec& to) {
     Long nx = UPSCALE(to.x), ny = UPSCALE(to.y);
     set_cell(TRUNC(nx), TRUNC(ny));
@@ -2598,6 +2662,18 @@ static void decompose(Raster& r, const Vec* pts, const uint8_t* tags,
         r.render_line(gray::UPSCALE(vec.x), gray::UPSCALE(vec.y));
         continue;
       }
+      if (tag == 2) {  // cubic: two controls, then the end point
+        Vec vec1 = point[0], vec2 = point[1];
+        point += 2;
+        tp += 2;
+        if (point <= limit) {
+          r.render_cubic(vec1, vec2, *point);
+          continue;
+        }
+        r.render_cubic(vec1, vec2, v_start);
+        closed = true;
+        break;
+      }
       v_control = *point;
     Do_Conic:
       if (point < limit) {
@@ -2624,6 +2700,1423 @@ static void decompose(Raster& r, const Vec* pts, const uint8_t* tags,
 }
 
 }  // namespace gray
+
+// ------------------------------------------------------------ CFF
+// CFF outlines as FreeType 2.14's CFF module gives them with its
+// default Adobe engine (psaux's `cf2' code): the Type 2 charstring
+// interpreter, the hint map built from the active stems and the blue
+// zones (no stem darkening: FreeType's default), the glyph path that
+// applies a hint map per element and changes maps mid-contour, and
+// psaux's outline assembly, which turns the 16.16 device-space path into a 26.6
+// outline with cubic tags.
+namespace cf2 {
+
+typedef int32_t Fixed;
+static inline Fixed add32(Fixed a, Fixed b) { return (Fixed)((uint32_t)a + (uint32_t)b); }
+static inline Fixed sub32(Fixed a, Fixed b) { return (Fixed)((uint32_t)a - (uint32_t)b); }
+static inline Fixed i2f(int32_t i) { return (Fixed)((uint32_t)i << 16); }
+static inline Fixed fmul(Fixed a, Fixed b) { return (Fixed)mul_fix(a, b); }
+static inline Fixed fdiv(Fixed a, Fixed b) { return (Fixed)div_fix(a, b); }
+static inline Fixed fround(Fixed x) { return (Fixed)(((uint32_t)x + 0x8000u) & 0xFFFF0000u); }
+static inline Fixed ffloor(Fixed x) { return (Fixed)((uint32_t)x & 0xFFFF0000u); }
+static inline Fixed ffrac(Fixed x) { return x - ffloor(x); }
+static inline Fixed fabs_(Fixed x) { return x < 0 ? -x : x; }
+
+const Fixed MIN_COUNTER = 0x8000;     // cf2_doubleToFixed(0.5)
+const Fixed ICF_TOP = 880 << 16, ICF_BOTTOM = -(120 << 16);
+const int MAX_HINTS = 96, MAX_HINT_EDGES = 192, MAX_SUBR = 16, STACK = 48;
+const int STORAGE = 32;
+
+enum { GhostBottom = 1, GhostTop = 2, PairBottom = 4, PairTop = 8, Locked = 16,
+       Synthetic = 32 };
+
+enum Err { OK = 0, E_SYNTAX = 1, E_STACK = 2, E_GLYPH = 3, E_STREAM = 4 };
+
+// one FD's Private DICT, as cf2 reads it
+struct FDParams {
+  int n_blue, n_other, n_family, n_family_other;
+  int32_t blue[14], other[10], family[14], family_other[10];
+  int32_t blue_scale, blue_shift, blue_fuzz, language_group;
+  int32_t default_width, nominal_width, top_upm, sub_upm;
+};
+
+struct Face {
+  std::vector<uint8_t> data;
+  std::vector<int64_t> cs_off, gsubr_off;
+  std::vector<uint8_t> fd_of_glyph;
+  std::vector<std::vector<int64_t>> lsubr_off;
+  std::vector<FDParams> fds;
+  int32_t seac[256];
+  std::vector<uint16_t> adv;
+  int n_glyphs, upem;
+};
+
+struct Buf { const uint8_t *start, *end, *ptr; };
+
+struct StemHint { bool used; Fixed min, max, minDS, maxDS; };
+
+struct Hint { uint32_t flags; size_t index; Fixed csCoord, dsCoord, scale; };
+static inline bool h_valid(const Hint* h) { return h->flags != 0; }
+static inline bool h_pair(const Hint* h) { return (h->flags & (PairBottom | PairTop)) != 0; }
+static inline bool h_pairtop(const Hint* h) { return (h->flags & PairTop) != 0; }
+static inline bool h_top(const Hint* h) { return (h->flags & (PairTop | GhostTop)) != 0; }
+static inline bool h_bottom(const Hint* h) { return (h->flags & (PairBottom | GhostBottom)) != 0; }
+static inline bool h_locked(const Hint* h) { return (h->flags & Locked) != 0; }
+static inline bool h_synth(const Hint* h) { return (h->flags & Synthetic) != 0; }
+
+struct HintMask {
+  bool isValid, isNew;
+  size_t bitCount, byteCount;
+  uint8_t mask[(MAX_HINTS + 7) / 8];
+};
+
+static bool mask_setcounts(HintMask* m, size_t bitCount, int* err) {
+  if (bitCount > (size_t)MAX_HINTS) {
+    if (!*err) *err = E_GLYPH;
+    return false;
+  }
+  m->bitCount = bitCount;
+  m->byteCount = (bitCount + 7) / 8;
+  m->isValid = true;
+  m->isNew = true;
+  return bitCount != 0;
+}
+
+static void mask_setall(HintMask* m, size_t bitCount, int* err) {
+  unsigned lastmask = (1u << ((-(int)bitCount) & 7)) - 1;
+  if (!mask_setcounts(m, bitCount, err)) return;
+  for (size_t i = 0; i < m->byteCount; i++) m->mask[i] = 0xFF;
+  m->mask[m->byteCount - 1] &= (uint8_t)~lastmask;
+}
+
+struct HintMove { size_t j; Fixed moveUp; };
+
+struct BlueZone { bool bottomZone; Fixed csBottomEdge, csTopEdge, csFlatEdge, dsFlatEdge; };
+
+struct Blues {
+  Fixed scale;
+  unsigned count;
+  bool suppressOvershoot, doEmBoxHints;
+  Fixed blueScale, blueShift, blueFuzz, boost;
+  Hint emBoxTopEdge, emBoxBottomEdge;
+  BlueZone zone[12];
+};
+
+struct Font {
+  bool hinted;
+  Fixed a, d;   // innerTransform: a (x scale) and d (y scale); b = c = 0
+  Blues blues;
+  const FDParams* fd;
+  Face* face;
+  const std::vector<int64_t>* lsubrs;
+  int err;
+};
+
+struct HintMap {
+  Font* font;
+  HintMap* initial;
+  std::vector<HintMove>* moves;
+  bool isValid, hinted;
+  Fixed scale;
+  unsigned count, lastIndex;
+  Hint edge[MAX_HINT_EDGES];
+};
+
+static void hintmap_init(HintMap* m, Font* font, HintMap* initial,
+                         std::vector<HintMove>* moves, Fixed scale) {
+  memset((void*)m, 0, sizeof(*m));
+  m->hinted = font->hinted;
+  m->scale = scale;
+  m->font = font;
+  m->initial = initial;
+  m->moves = moves;
+}
+
+// ---------------------------------------------------------- blues
+static void blues_init(Blues* b, Font* font) {
+  const FDParams* p = font->fd;
+  Fixed maxZoneHeight = 0;
+  memset((void*)b, 0, sizeof(*b));
+  b->scale = font->d;
+  b->blueScale = fdiv(p->blue_scale, i2f(1000));
+  b->blueShift = i2f(p->blue_shift);
+  b->blueFuzz = i2f(p->blue_fuzz);
+  Fixed emBoxBottom = ICF_BOTTOM, emBoxTop = ICF_TOP;
+  if (p->language_group == 1 &&
+      (p->n_blue == 0 ||
+       (p->n_blue == 4 && i2f(p->blue[0]) < emBoxBottom && i2f(p->blue[1]) < emBoxBottom &&
+        i2f(p->blue[2]) > emBoxTop && i2f(p->blue[3]) > emBoxTop))) {
+    b->emBoxBottomEdge.csCoord = emBoxBottom - 1;
+    b->emBoxBottomEdge.dsCoord = fround(fmul(b->emBoxBottomEdge.csCoord, b->scale)) - MIN_COUNTER;
+    b->emBoxBottomEdge.scale = b->scale;
+    b->emBoxBottomEdge.flags = GhostBottom | Locked | Synthetic;
+    b->emBoxTopEdge.csCoord = emBoxTop + 1;
+    b->emBoxTopEdge.dsCoord = fround(fmul(b->emBoxTopEdge.csCoord, b->scale)) + MIN_COUNTER;
+    b->emBoxTopEdge.scale = b->scale;
+    b->emBoxTopEdge.flags = GhostTop | Locked | Synthetic;
+    b->doEmBoxHints = true;
+    return;
+  }
+  for (int i = 0; i < p->n_blue; i += 2) {
+    BlueZone* z = &b->zone[b->count];
+    z->csBottomEdge = i2f(p->blue[i]);
+    z->csTopEdge = i2f(p->blue[i + 1]);
+    Fixed zh = sub32(z->csTopEdge, z->csBottomEdge);
+    if (zh < 0) continue;
+    if (zh > maxZoneHeight) maxZoneHeight = zh;
+    if (i == 0) {
+      z->bottomZone = true;
+      z->csFlatEdge = z->csTopEdge;
+    } else {
+      z->bottomZone = false;
+      z->csFlatEdge = z->csBottomEdge;
+    }
+    b->count++;
+  }
+  for (int i = 0; i < p->n_other; i += 2) {
+    BlueZone* z = &b->zone[b->count];
+    z->csBottomEdge = i2f(p->other[i]);
+    z->csTopEdge = i2f(p->other[i + 1]);
+    Fixed zh = sub32(z->csTopEdge, z->csBottomEdge);
+    if (zh < 0) continue;
+    if (zh > maxZoneHeight) maxZoneHeight = zh;
+    z->bottomZone = true;
+    z->csFlatEdge = z->csTopEdge;
+    b->count++;
+  }
+  Fixed csUnitsPerPixel = fdiv(i2f(1), b->scale);
+  for (unsigned i = 0; i < b->count; i++) {
+    Fixed flatEdge = b->zone[i].csFlatEdge;
+    if (b->zone[i].bottomZone) {
+      Fixed minDiff = 0x7FFFFFFF;
+      for (int j = 0; j < p->n_family_other; j += 2) {
+        Fixed ffe = i2f(p->family_other[j + 1]);
+        Fixed diff = fabs_(sub32(flatEdge, ffe));
+        if (diff < minDiff && diff < csUnitsPerPixel) {
+          b->zone[i].csFlatEdge = ffe;
+          minDiff = diff;
+          if (diff == 0) break;
+        }
+      }
+      if (p->n_family >= 2) {
+        Fixed ffe = i2f(p->family[1]);
+        Fixed diff = fabs_(sub32(flatEdge, ffe));
+        if (diff < minDiff && diff < csUnitsPerPixel) b->zone[i].csFlatEdge = ffe;
+      }
+    } else {
+      Fixed minDiff = 0x7FFFFFFF;
+      for (int j = 2; j < p->n_family; j += 2) {
+        Fixed ffe = i2f(p->family[j]);
+        Fixed diff = fabs_(sub32(flatEdge, ffe));
+        if (diff < minDiff && diff < csUnitsPerPixel) {
+          b->zone[i].csFlatEdge = ffe;
+          minDiff = diff;
+          if (diff == 0) break;
+        }
+      }
+    }
+  }
+  if (maxZoneHeight > 0) {
+    if (b->blueScale > fdiv(i2f(1), maxZoneHeight)) b->blueScale = fdiv(i2f(1), maxZoneHeight);
+  }
+  if (b->scale < b->blueScale) {
+    b->suppressOvershoot = true;
+    b->boost = 39321 - (Fixed)mul_div(39321, b->scale, b->blueScale);
+    if (b->boost > 0x7FFF) b->boost = 0x7FFF;
+  }
+  for (unsigned i = 0; i < b->count; i++) {
+    if (b->zone[i].bottomZone)
+      b->zone[i].dsFlatEdge = fround(fmul(b->zone[i].csFlatEdge, b->scale) - b->boost);
+    else
+      b->zone[i].dsFlatEdge = fround(fmul(b->zone[i].csFlatEdge, b->scale) + b->boost);
+  }
+}
+
+static bool blues_capture(const Blues* b, Hint* bottom, Hint* top) {
+  Fixed csFuzz = b->blueFuzz, dsNew, dsMove = 0;
+  bool captured = false;
+  for (unsigned i = 0; i < b->count; i++) {
+    const BlueZone* z = &b->zone[i];
+    if (z->bottomZone && h_bottom(bottom)) {
+      if (sub32(z->csBottomEdge, csFuzz) <= bottom->csCoord &&
+          bottom->csCoord <= add32(z->csTopEdge, csFuzz)) {
+        if (b->suppressOvershoot)
+          dsNew = z->dsFlatEdge;
+        else if (sub32(z->csTopEdge, bottom->csCoord) >= b->blueShift)
+          dsNew = std::min(fround(bottom->dsCoord), sub32(z->dsFlatEdge, i2f(1)));
+        else
+          dsNew = fround(bottom->dsCoord);
+        dsMove = sub32(dsNew, bottom->dsCoord);
+        captured = true;
+        break;
+      }
+    }
+    if (!z->bottomZone && h_top(top)) {
+      if (sub32(z->csBottomEdge, csFuzz) <= top->csCoord &&
+          top->csCoord <= add32(z->csTopEdge, csFuzz)) {
+        if (b->suppressOvershoot)
+          dsNew = z->dsFlatEdge;
+        else if (sub32(top->csCoord, z->csBottomEdge) >= b->blueShift)
+          dsNew = std::max(fround(top->dsCoord), add32(z->dsFlatEdge, i2f(1)));
+        else
+          dsNew = fround(top->dsCoord);
+        dsMove = sub32(dsNew, top->dsCoord);
+        captured = true;
+        break;
+      }
+    }
+  }
+  if (captured) {
+    if (h_valid(bottom)) {
+      bottom->dsCoord = add32(bottom->dsCoord, dsMove);
+      bottom->flags |= Locked;
+    }
+    if (h_valid(top)) {
+      top->dsCoord = add32(top->dsCoord, dsMove);
+      top->flags |= Locked;
+    }
+  }
+  return captured;
+}
+
+// ---------------------------------------------------------- hints
+// cf2_hint_init (darkenY is 0: top edges are not moved)
+static void hint_init(Hint* hint, std::vector<StemHint>& stems, size_t idx,
+                      Fixed hintOrigin, Fixed scale, bool bottom) {
+  memset((void*)hint, 0, sizeof(*hint));
+  const StemHint* sh = &stems[idx];
+  Fixed width = sub32(sh->max, sh->min);
+  if (width == i2f(-21)) {
+    if (bottom) {
+      hint->csCoord = sh->max;
+      hint->flags = GhostBottom;
+    } else
+      hint->flags = 0;
+  } else if (width == i2f(-20)) {
+    if (bottom)
+      hint->flags = 0;
+    else {
+      hint->csCoord = sh->min;
+      hint->flags = GhostTop;
+    }
+  } else if (width < 0) {
+    if (bottom) {
+      hint->csCoord = sh->max;
+      hint->flags = PairBottom;
+    } else {
+      hint->csCoord = sh->min;
+      hint->flags = PairTop;
+    }
+  } else {
+    if (bottom) {
+      hint->csCoord = sh->min;
+      hint->flags = PairBottom;
+    } else {
+      hint->csCoord = sh->max;
+      hint->flags = PairTop;
+    }
+  }
+  hint->csCoord = add32(hint->csCoord, hintOrigin);
+  hint->scale = scale;
+  hint->index = idx;
+  if (hint->flags != 0 && sh->used) {
+    hint->dsCoord = h_top(hint) ? sh->maxDS : sh->minDS;
+    hint->flags |= Locked;
+  } else
+    hint->dsCoord = fmul(hint->csCoord, scale);
+}
+
+static Fixed hintmap_map(HintMap* m, Fixed cs) {
+  if (m->count == 0 || !m->hinted) return fmul(cs, m->scale);
+  unsigned i = m->lastIndex;
+  while (i < m->count - 1 && cs >= m->edge[i + 1].csCoord) i++;
+  while (i > 0 && cs < m->edge[i].csCoord) i--;
+  m->lastIndex = i;
+  if (i == 0 && cs < m->edge[0].csCoord)
+    return add32(fmul(sub32(cs, m->edge[0].csCoord), m->scale), m->edge[0].dsCoord);
+  return add32(fmul(sub32(cs, m->edge[i].csCoord), m->edge[i].scale), m->edge[i].dsCoord);
+}
+
+static void hintmap_adjust(HintMap* m) {
+  m->moves->clear();
+  for (size_t i = 0; i < m->count; i++) {
+    bool isPair = h_pair(&m->edge[i]);
+    size_t j = isPair ? i + 1 : i;
+    if (!h_locked(&m->edge[i])) {
+      Fixed fracDown = ffrac(m->edge[i].dsCoord);
+      Fixed fracUp = ffrac(m->edge[j].dsCoord);
+      Fixed downMoveDown = 0 - fracDown;
+      Fixed upMoveDown = 0 - fracUp;
+      Fixed downMoveUp = fracDown == 0 ? 0 : i2f(1) - fracDown;
+      Fixed upMoveUp = fracUp == 0 ? 0 : i2f(1) - fracUp;
+      Fixed moveUp = std::min(downMoveUp, upMoveUp);
+      Fixed moveDown = std::max(downMoveDown, upMoveDown);
+      Fixed downMinCounter = MIN_COUNTER, upMinCounter = MIN_COUNTER;
+      bool saveEdge = false;
+      Fixed move;
+      if (j >= m->count - 1 ||
+          m->edge[j + 1].dsCoord >= add32(m->edge[j].dsCoord, moveUp + upMinCounter)) {
+        if (i == 0 ||
+            m->edge[i - 1].dsCoord <= add32(m->edge[i].dsCoord, moveDown - downMinCounter))
+          move = (-moveDown < moveUp) ? moveDown : moveUp;
+        else
+          move = moveUp;
+      } else {
+        if (i == 0 ||
+            m->edge[i - 1].dsCoord <= add32(m->edge[i].dsCoord, moveDown - downMinCounter)) {
+          move = moveDown;
+          saveEdge = moveUp < -moveDown;
+        } else {
+          move = 0;
+          saveEdge = true;
+        }
+      }
+      if (saveEdge && j < m->count - 1 && !h_locked(&m->edge[j + 1]))
+        m->moves->push_back(HintMove{j, moveUp - move});
+      m->edge[i].dsCoord = add32(m->edge[i].dsCoord, move);
+      if (isPair) m->edge[j].dsCoord = add32(m->edge[j].dsCoord, move);
+    }
+    if (i > 0) {
+      if (m->edge[i].csCoord != m->edge[i - 1].csCoord)
+        m->edge[i - 1].scale = fdiv(sub32(m->edge[i].dsCoord, m->edge[i - 1].dsCoord),
+                                    sub32(m->edge[i].csCoord, m->edge[i - 1].csCoord));
+    }
+    if (isPair) {
+      if (m->edge[j].csCoord != m->edge[j - 1].csCoord)
+        m->edge[j - 1].scale = fdiv(sub32(m->edge[j].dsCoord, m->edge[j - 1].dsCoord),
+                                    sub32(m->edge[j].csCoord, m->edge[j - 1].csCoord));
+      i += 1;
+    }
+  }
+  for (size_t i = m->moves->size(); i > 0; i--) {
+    const HintMove& hm = (*m->moves)[i - 1];
+    size_t j = hm.j;
+    if (m->edge[j + 1].dsCoord >= add32(m->edge[j].dsCoord, hm.moveUp + MIN_COUNTER)) {
+      m->edge[j].dsCoord = add32(m->edge[j].dsCoord, hm.moveUp);
+      if (h_pair(&m->edge[j])) m->edge[j - 1].dsCoord = add32(m->edge[j - 1].dsCoord, hm.moveUp);
+    }
+  }
+}
+
+static void hintmap_insert(HintMap* m, Hint* bottom, Hint* top) {
+  bool isPair = true;
+  Hint* first = bottom;
+  Hint* second = top;
+  if (!h_valid(bottom)) {
+    first = top;
+    isPair = false;
+  } else if (!h_valid(top)) {
+    isPair = false;
+  }
+  if (isPair && top->csCoord < bottom->csCoord) return;
+  unsigned ins = 0;
+  for (; ins < m->count; ins++)
+    if (m->edge[ins].csCoord >= first->csCoord) break;
+  if (ins < m->count) {
+    if (m->edge[ins].csCoord == first->csCoord) return;
+    if (isPair && m->edge[ins].csCoord <= second->csCoord) return;
+    if (h_pairtop(&m->edge[ins])) return;
+  }
+  if (m->initial->isValid && !h_locked(first)) {
+    if (isPair) {
+      Fixed midpoint = hintmap_map(m->initial, add32(second->csCoord, first->csCoord) / 2);
+      Fixed halfWidth = fmul(sub32(second->csCoord, first->csCoord) / 2, m->scale);
+      first->dsCoord = sub32(midpoint, halfWidth);
+      second->dsCoord = add32(midpoint, halfWidth);
+    } else
+      first->dsCoord = hintmap_map(m->initial, first->csCoord);
+  }
+  if (ins > 0) {
+    if (first->dsCoord < m->edge[ins - 1].dsCoord) return;
+  }
+  if (ins < m->count) {
+    if (isPair) {
+      if (second->dsCoord > m->edge[ins].dsCoord) return;
+    } else {
+      if (first->dsCoord > m->edge[ins].dsCoord) return;
+    }
+  }
+  {
+    int iSrc = (int)m->count - 1;
+    int iDst = isPair ? (int)m->count + 1 : (int)m->count;
+    unsigned count = m->count - ins;
+    if (iDst >= MAX_HINT_EDGES) return;
+    while (count--) m->edge[iDst--] = m->edge[iSrc--];
+    m->edge[ins] = *first;
+    m->count += 1;
+    if (isPair) {
+      m->edge[ins + 1] = *second;
+      m->count += 1;
+    }
+  }
+}
+
+static void hintmap_build(HintMap* m, std::vector<StemHint>& hstems,
+                          std::vector<StemHint>& vstems, HintMask* hintMask,
+                          Fixed hintOrigin, bool initialMap) {
+  Font* font = m->font;
+  HintMask temp;
+  if (!initialMap && !m->initial->isValid) {
+    memset((void*)&temp, 0, sizeof(temp));
+    hintmap_build(m->initial, hstems, vstems, &temp, hintOrigin, true);
+  }
+  if (!hintMask->isValid) {
+    mask_setall(hintMask, hstems.size() + vstems.size(), &font->err);
+    if (!hintMask->isValid) return;
+  }
+  m->count = 0;
+  m->lastIndex = 0;
+  temp = *hintMask;
+  uint8_t* maskPtr = temp.mask;
+  size_t bitCount = hstems.size();
+  if (bitCount > hintMask->bitCount) return;
+  if (font->blues.doEmBoxHints) {
+    Hint dummy;
+    memset((void*)&dummy, 0, sizeof(dummy));
+    hintmap_insert(m, &font->blues.emBoxBottomEdge, &dummy);
+    hintmap_insert(m, &dummy, &font->blues.emBoxTopEdge);
+  }
+  uint8_t maskByte = 0x80;
+  for (size_t i = 0; i < bitCount; i++) {
+    if (maskByte & *maskPtr) {
+      Hint bottomE, topE;
+      hint_init(&bottomE, hstems, i, hintOrigin, m->scale, true);
+      hint_init(&topE, hstems, i, hintOrigin, m->scale, false);
+      if (h_locked(&bottomE) || h_locked(&topE) || blues_capture(&font->blues, &bottomE, &topE)) {
+        hintmap_insert(m, &bottomE, &topE);
+        *maskPtr &= (uint8_t)~maskByte;
+      }
+    }
+    if ((i & 7) == 7) {
+      maskPtr++;
+      maskByte = 0x80;
+    } else
+      maskByte >>= 1;
+  }
+  if (initialMap) {
+    if (m->count == 0 || m->edge[0].csCoord > 0 || m->edge[m->count - 1].csCoord < 0) {
+      Hint edge, invalid;
+      memset((void*)&edge, 0, sizeof(edge));
+      edge.flags = GhostBottom | Locked | Synthetic;
+      edge.scale = m->scale;
+      memset((void*)&invalid, 0, sizeof(invalid));
+      hintmap_insert(m, &edge, &invalid);
+    }
+  } else {
+    maskPtr = temp.mask;
+    maskByte = 0x80;
+    for (size_t i = 0; i < bitCount; i++) {
+      if (maskByte & *maskPtr) {
+        Hint bottomE, topE;
+        hint_init(&bottomE, hstems, i, hintOrigin, m->scale, true);
+        hint_init(&topE, hstems, i, hintOrigin, m->scale, false);
+        hintmap_insert(m, &bottomE, &topE);
+      }
+      if ((i & 7) == 7) {
+        maskPtr++;
+        maskByte = 0x80;
+      } else
+        maskByte >>= 1;
+    }
+  }
+  hintmap_adjust(m);
+  if (!initialMap) {
+    for (unsigned i = 0; i < m->count; i++) {
+      if (!h_synth(&m->edge[i])) {
+        StemHint* sh = &hstems[m->edge[i].index];
+        if (h_top(&m->edge[i]))
+          sh->maxDS = m->edge[i].dsCoord;
+        else
+          sh->minDS = m->edge[i].dsCoord;
+        sh->used = true;
+      }
+    }
+  }
+  m->isValid = true;
+  hintMask->isNew = false;
+}
+
+// ---------------------------------------------------------- outline assembly
+// psaux's outline assembly as FreeType's cf2 callbacks drive it
+struct PathOut {
+  std::vector<Vec> pts;
+  std::vector<uint8_t> tags;
+  std::vector<int16_t> contours;
+  bool path_begun = false;
+
+  void add_point(Fixed x, Fixed y, bool on) {
+    pts.push_back(Vec{(Long)(x >> 10), (Long)(y >> 10)});
+    tags.push_back(on ? 1 : 2);
+  }
+  void add_contour() {
+    if (!contours.empty()) contours.back() = (int16_t)(pts.size() - 1);
+    contours.push_back(0);
+  }
+  void start_point(Fixed x, Fixed y) {
+    if (!path_begun) {
+      path_begun = true;
+      add_contour();
+      add_point(x, y, true);
+    }
+  }
+  void close_contour() {
+    int nc = (int)contours.size(), np = (int)pts.size();
+    int first = nc <= 1 ? 0 : contours[nc - 2] + 1;
+    if (nc && first == np) {
+      contours.pop_back();
+      return;
+    }
+    if (np > 1) {
+      const Vec& p1 = pts[first];
+      const Vec& p2 = pts[np - 1];
+      if (p1.x == p2.x && p1.y == p2.y && tags[np - 1] == 1) {
+        pts.pop_back();
+        tags.pop_back();
+        np--;
+      }
+    }
+    if (nc > 0) {
+      if (first == np - 1) {
+        contours.pop_back();
+        pts.pop_back();
+        tags.pop_back();
+      } else
+        contours.back() = (int16_t)(np - 1);
+    }
+  }
+};
+
+struct Params { Vec pt0, pt1, pt2, pt3; };
+struct FV { Fixed x, y; };
+
+// ---------------------------------------------------------- glyph path
+enum { OpLineTo = 1, OpCubeTo = 2 };
+
+struct GlyphPath {
+  Font* font;
+  PathOut* out;
+  HintMap initialHintMap, firstHintMap, hintMap;
+  std::vector<HintMove> hintMoves;
+  Fixed scaleX, scaleY;
+  std::vector<StemHint>* hstems;
+  std::vector<StemHint>* vstems;
+  HintMask* hintMask;
+  Fixed hintOriginY;
+  bool moveIsPending, pathIsOpen, pathIsClosing, elemIsQueued;
+  FV currentCS, start, currentDS, offsetStart0, offsetStart1;
+  int prevElemOp;
+  FV prevElemP0, prevElemP1, prevElemP2, prevElemP3;
+};
+
+static void gp_init(GlyphPath* g, Font* font, PathOut* out, Fixed scaleY,
+                    std::vector<StemHint>* hs, std::vector<StemHint>* vs, HintMask* mask,
+                    Fixed hintOriginY) {
+  g->font = font;
+  g->out = out;
+  hintmap_init(&g->initialHintMap, font, &g->initialHintMap, &g->hintMoves, scaleY);
+  hintmap_init(&g->firstHintMap, font, &g->initialHintMap, &g->hintMoves, scaleY);
+  hintmap_init(&g->hintMap, font, &g->initialHintMap, &g->hintMoves, scaleY);
+  g->scaleX = font->a;
+  g->scaleY = font->d;
+  g->hstems = hs;
+  g->vstems = vs;
+  g->hintMask = mask;
+  g->hintOriginY = hintOriginY;
+  g->moveIsPending = true;
+  g->pathIsOpen = g->pathIsClosing = g->elemIsQueued = false;
+  g->currentCS = g->start = g->currentDS = g->offsetStart0 = g->offsetStart1 = FV{0, 0};
+  g->prevElemOp = 0;
+}
+
+static void gp_hintpoint(GlyphPath* g, HintMap* m, FV* ppt, Fixed x, Fixed y) {
+  // outerTransform is the identity and the fractional translation zero
+  ppt->x = fmul(g->scaleX, x);
+  ppt->y = hintmap_map(m, y);
+}
+
+static void cb_move(GlyphPath* g) {
+  g->out->close_contour();
+  g->out->path_begun = false;
+}
+
+static void cb_line(GlyphPath* g, FV pt0, FV pt1) {
+  if (!g->out->path_begun) g->out->start_point(pt0.x, pt0.y);
+  g->out->add_point(pt1.x, pt1.y, true);
+}
+
+static void cb_cube(GlyphPath* g, FV pt0, FV p1, FV p2, FV p3) {
+  if (!g->out->path_begun) g->out->start_point(pt0.x, pt0.y);
+  g->out->add_point(p1.x, p1.y, false);
+  g->out->add_point(p2.x, p2.y, false);
+  g->out->add_point(p3.x, p3.y, true);
+}
+
+static void gp_moveto(GlyphPath* g, Fixed x, Fixed y);
+
+static void gp_pushmove(GlyphPath* g, FV start) {
+  if (!g->hintMap.isValid) gp_moveto(g, g->start.x, g->start.y);
+  FV pt1;
+  gp_hintpoint(g, &g->hintMap, &pt1, start.x, start.y);
+  cb_move(g);
+  g->currentDS = pt1;
+  g->offsetStart0 = start;
+}
+
+static void gp_pushprev(GlyphPath* g, HintMap* m, FV* nextP0, FV nextP1, bool close) {
+  (void)nextP1;
+  FV pt1, pt2, pt3;
+  // no darkening: elements always join, no intersection is computed
+  FV pt0 = g->currentDS;
+  if (g->prevElemOp == OpLineTo) {
+    gp_hintpoint(g, close ? &g->firstHintMap : m, &pt1, g->prevElemP1.x, g->prevElemP1.y);
+    if (pt0.x != pt1.x || pt0.y != pt1.y) {
+      cb_line(g, pt0, pt1);
+      g->currentDS = pt1;
+    }
+  } else {
+    gp_hintpoint(g, m, &pt1, g->prevElemP1.x, g->prevElemP1.y);
+    gp_hintpoint(g, m, &pt2, g->prevElemP2.x, g->prevElemP2.y);
+    gp_hintpoint(g, m, &pt3, g->prevElemP3.x, g->prevElemP3.y);
+    cb_cube(g, pt0, pt1, pt2, pt3);
+    g->currentDS = pt3;
+  }
+  // the connecting line (useIntersection is false)
+  gp_hintpoint(g, close ? &g->firstHintMap : m, &pt1, nextP0->x, nextP0->y);
+  if (pt1.x != g->currentDS.x || pt1.y != g->currentDS.y) {
+    cb_line(g, g->currentDS, pt1);
+    g->currentDS = pt1;
+  }
+}
+
+static void gp_lineto(GlyphPath* g, Fixed x, Fixed y);
+
+static void gp_closeopen(GlyphPath* g) {
+  if (g->pathIsOpen) {
+    g->pathIsClosing = true;
+    gp_lineto(g, g->start.x, g->start.y);
+    if (g->elemIsQueued) gp_pushprev(g, &g->hintMap, &g->offsetStart0, g->offsetStart1, true);
+    g->moveIsPending = true;
+    g->pathIsOpen = false;
+    g->pathIsClosing = false;
+    g->elemIsQueued = false;
+  }
+}
+
+static void gp_moveto(GlyphPath* g, Fixed x, Fixed y) {
+  gp_closeopen(g);
+  g->currentCS.x = g->start.x = x;
+  g->currentCS.y = g->start.y = y;
+  g->moveIsPending = true;
+  if (!g->hintMap.isValid || g->hintMask->isNew)
+    hintmap_build(&g->hintMap, *g->hstems, *g->vstems, g->hintMask, g->hintOriginY, false);
+  g->firstHintMap = g->hintMap;
+}
+
+static void gp_lineto(GlyphPath* g, Fixed x, Fixed y) {
+  bool newHintMap = g->hintMask->isNew && !g->pathIsClosing;
+  if (g->currentCS.x == x && g->currentCS.y == y && !newHintMap) return;
+  FV P0 = g->currentCS, P1{x, y};
+  if (g->moveIsPending) {
+    gp_pushmove(g, P0);
+    g->moveIsPending = false;
+    g->pathIsOpen = true;
+    g->offsetStart1 = P1;
+  }
+  if (g->elemIsQueued) gp_pushprev(g, &g->hintMap, &P0, P1, false);
+  g->elemIsQueued = true;
+  g->prevElemOp = OpLineTo;
+  g->prevElemP0 = P0;
+  g->prevElemP1 = P1;
+  if (newHintMap)
+    hintmap_build(&g->hintMap, *g->hstems, *g->vstems, g->hintMask, g->hintOriginY, false);
+  g->currentCS.x = x;
+  g->currentCS.y = y;
+}
+
+static void gp_curveto(GlyphPath* g, Fixed x1, Fixed y1, Fixed x2, Fixed y2, Fixed x3,
+                       Fixed y3) {
+  FV P0 = g->currentCS, P1{x1, y1}, P2{x2, y2}, P3{x3, y3};
+  if (g->moveIsPending) {
+    gp_pushmove(g, P0);
+    g->moveIsPending = false;
+    g->pathIsOpen = true;
+    g->offsetStart1 = P1;
+  }
+  if (g->elemIsQueued) gp_pushprev(g, &g->hintMap, &P0, P1, false);
+  g->elemIsQueued = true;
+  g->prevElemOp = OpCubeTo;
+  g->prevElemP0 = P0;
+  g->prevElemP1 = P1;
+  g->prevElemP2 = P2;
+  g->prevElemP3 = P3;
+  if (g->hintMask->isNew)
+    hintmap_build(&g->hintMap, *g->hstems, *g->vstems, g->hintMask, g->hintOriginY, false);
+  g->currentCS.x = x3;
+  g->currentCS.y = y3;
+}
+
+// ---------------------------------------------------------- operand stack
+struct Num { bool is_int; int32_t v; };
+
+struct Stack {
+  Num buf[STACK];
+  int top = 0;
+  int* err;
+  void push_int(int32_t v) {
+    if (top < STACK) buf[top++] = Num{true, v};
+    else if (!*err) *err = E_STACK;
+  }
+  void push_fixed(Fixed v) {
+    if (top < STACK) buf[top++] = Num{false, v};
+    else if (!*err) *err = E_STACK;
+  }
+  int32_t pop_int() {
+    if (top == 0) {
+      if (!*err) *err = E_STACK;
+      return 0;
+    }
+    if (!buf[top - 1].is_int) {
+      if (!*err) *err = E_SYNTAX;
+      return 0;
+    }
+    return buf[--top].v;
+  }
+  Fixed pop_fixed() {
+    if (top == 0) {
+      if (!*err) *err = E_STACK;
+      return 0;
+    }
+    --top;
+    return buf[top].is_int ? i2f(buf[top].v) : buf[top].v;
+  }
+  Fixed get(int idx) {
+    if (idx < 0 || idx >= top) {
+      if (!*err) *err = E_STACK;
+      return 0;
+    }
+    return buf[idx].is_int ? i2f(buf[idx].v) : buf[idx].v;
+  }
+  int count() const { return top; }
+  void clear() { top = 0; }
+  // cf2_stack_roll rotates the bottom `count' entries of the stack
+  void roll(int count, int shift) {
+    if (count < 2) return;
+    if (count > top) {
+      if (!*err) *err = E_STACK;
+      return;
+    }
+    if (shift < 0)
+      shift = -((-shift) % count);
+    else
+      shift %= count;
+    if (shift == 0) return;
+    Num last{true, 0};
+    int start_idx = -1, idx = -1;
+    for (int i = 0; i < count; i++) {
+      if (start_idx == idx) {
+        start_idx++;
+        idx = start_idx;
+        last = buf[idx];
+      }
+      idx += shift;
+      if (idx >= count)
+        idx -= count;
+      else if (idx < 0)
+        idx += count;
+      Num tmp = buf[idx];
+      buf[idx] = last;
+      last = tmp;
+    }
+  }
+};
+
+static inline uint8_t rd(Buf* b, int* err) {
+  if (b->ptr < b->end) return *b->ptr++;
+  if (!*err) *err = E_STREAM;
+  return 0;
+}
+
+static void mask_read(HintMask* m, Buf* cs, size_t bitCount, int* err) {
+  if (!mask_setcounts(m, bitCount, err)) return;
+  for (size_t i = 0; i < m->byteCount; i++) m->mask[i] = rd(cs, err);
+}
+
+static void do_stems(Font* font, Stack& st, std::vector<StemHint>& arr, Fixed* width,
+                     bool* haveWidth) {
+  int count = st.count();
+  bool hasWidthArg = (count & 1) != 0;
+  Fixed position = 0;
+  if (hasWidthArg && !*haveWidth) *width = add32(st.get(0), i2f(font->fd->nominal_width));
+  for (int i = hasWidthArg ? 1 : 0; i < count; i += 2) {
+    StemHint sh;
+    sh.min = position = add32(st.get(i), position);
+    sh.max = position = add32(st.get(i + 1), position);
+    sh.used = false;
+    sh.maxDS = sh.minDS = 0;
+    arr.push_back(sh);
+  }
+  st.clear();
+  *haveWidth = true;
+}
+
+static void do_flex(Stack& st, Fixed* curX, Fixed* curY, GlyphPath* gp, const bool* rfs,
+                    bool conditional) {
+  Fixed vals[14];
+  int idx = 0;
+  vals[0] = *curX;
+  vals[1] = *curY;
+  bool isHFlex = !rfs[9];
+  int top = isHFlex ? 9 : 10;
+  for (int i = 0; i < top; i++) {
+    vals[i + 2] = vals[i];
+    if (rfs[i]) vals[i + 2] = add32(vals[i + 2], st.get(idx++));
+  }
+  if (isHFlex) vals[9 + 2] = *curY;
+  if (conditional) {
+    bool lastIsX = fabs_(sub32(vals[10], *curX)) > fabs_(sub32(vals[11], *curY));
+    Fixed lastVal = st.get(idx);
+    if (lastIsX) {
+      vals[12] = add32(vals[10], lastVal);
+      vals[13] = *curY;
+    } else {
+      vals[12] = *curX;
+      vals[13] = add32(vals[11], lastVal);
+    }
+  } else {
+    vals[12] = rfs[10] ? add32(vals[10], st.get(idx++)) : *curX;
+    vals[13] = rfs[11] ? add32(vals[11], st.get(idx)) : *curY;
+  }
+  for (int j = 0; j < 2; j++)
+    gp_curveto(gp, vals[j * 6 + 2], vals[j * 6 + 3], vals[j * 6 + 4], vals[j * 6 + 5],
+               vals[j * 6 + 6], vals[j * 6 + 7]);
+  st.clear();
+  *curX = vals[12];
+  *curY = vals[13];
+}
+
+static int bias(size_t n) { return n < 1240 ? 107 : n < 33900 ? 1131 : 32768; }
+
+static bool subr_buf(const std::vector<int64_t>& off, const std::vector<uint8_t>& data,
+                     int num, Buf* b) {
+  size_t n = off.empty() ? 0 : off.size() - 1;
+  int64_t idx = (int64_t)num + bias(n);
+  if (idx < 0 || (size_t)idx >= n) return false;
+  b->start = b->ptr = data.data() + off[idx];
+  b->end = data.data() + off[idx + 1];
+  return true;
+}
+
+static bool glyph_buf(Face* f, int gid, Buf* b) {
+  if (gid < 0 || gid >= f->n_glyphs) return false;
+  b->start = b->ptr = f->data.data() + f->cs_off[gid];
+  b->end = f->data.data() + f->cs_off[gid + 1];
+  return true;
+}
+
+// cf2_interpT2CharString
+static void interp(Font* font, Buf* start_buf, PathOut* out, bool doingSeac, Fixed curX,
+                   Fixed curY, Fixed* width) {
+  Face* face = font->face;
+  int* err = &font->err;
+  Stack st;
+  st.err = err;
+  std::vector<StemHint> hstems, vstems;
+  HintMask hintMask;
+  memset((void*)&hintMask, 0, sizeof(hintMask));
+  bool haveWidth = false;
+  Fixed storage[STORAGE] = {0};
+  Fixed hintOriginY = curY;
+  Fixed nominalWidthX = i2f(font->fd->nominal_width);
+  Buf subrStack[MAX_SUBR + 1];
+  int csIndex = 0;
+  subrStack[0] = *start_buf;
+  Buf* cs = &subrStack[0];
+  GlyphPath* gp = new GlyphPath();
+  gp_init(gp, font, out, font->d, &hstems, &vstems, &hintMask, hintOriginY);
+  *width = i2f(font->fd->default_width);
+  for (;;) {
+    if (*err) break;
+    int op1;
+    if (cs->ptr >= cs->end)
+      op1 = csIndex ? 11 : 14;
+    else
+      op1 = *cs->ptr++;
+    bool clear = true;
+    switch (op1) {
+      case 1:    // hstem
+      case 18:   // hstemhm
+        if (hintMask.isValid) break;
+        do_stems(font, st, hstems, width, &haveWidth);
+        break;
+      case 3:    // vstem
+      case 23:   // vstemhm
+        if (hintMask.isValid) break;
+        do_stems(font, st, vstems, width, &haveWidth);
+        break;
+      case 19:   // hintmask
+      case 20: { // cntrmask
+        if (st.count() > 1 && hintMask.isValid) break;
+        do_stems(font, st, vstems, width, &haveWidth);
+        if (op1 == 19) {
+          mask_read(&hintMask, cs, hstems.size() + vstems.size(), err);
+        } else {
+          HintMask counterMask;
+          memset((void*)&counterMask, 0, sizeof(counterMask));
+          mask_read(&counterMask, cs, hstems.size() + vstems.size(), err);
+          HintMap* counterMap = new HintMap();
+          hintmap_init(counterMap, font, &gp->initialHintMap, &gp->hintMoves, font->d);
+          hintmap_build(counterMap, hstems, vstems, &counterMask, 0, false);
+          delete counterMap;
+        }
+        break;
+      }
+      case 21:   // rmoveto
+        if (st.count() > 2 && !haveWidth) *width = add32(st.get(0), nominalWidthX);
+        haveWidth = true;
+        curY = add32(curY, st.pop_fixed());
+        curX = add32(curX, st.pop_fixed());
+        gp_moveto(gp, curX, curY);
+        break;
+      case 22:   // hmoveto
+        if (st.count() > 1 && !haveWidth) *width = add32(st.get(0), nominalWidthX);
+        haveWidth = true;
+        curX = add32(curX, st.pop_fixed());
+        gp_moveto(gp, curX, curY);
+        break;
+      case 4:    // vmoveto
+        if (st.count() > 1 && !haveWidth) *width = add32(st.get(0), nominalWidthX);
+        haveWidth = true;
+        curY = add32(curY, st.pop_fixed());
+        gp_moveto(gp, curX, curY);
+        break;
+      case 5: {  // rlineto
+        int count = st.count();
+        for (int idx = 0; idx < count; idx += 2) {
+          curX = add32(curX, st.get(idx));
+          curY = add32(curY, st.get(idx + 1));
+          gp_lineto(gp, curX, curY);
+        }
+        st.clear();
+        clear = false;
+        break;
+      }
+      case 6:    // hlineto
+      case 7: {  // vlineto
+        int count = st.count();
+        bool isX = op1 == 6;
+        for (int idx = 0; idx < count; idx++) {
+          Fixed v = st.get(idx);
+          if (isX)
+            curX = add32(curX, v);
+          else
+            curY = add32(curY, v);
+          isX = !isX;
+          gp_lineto(gp, curX, curY);
+        }
+        st.clear();
+        clear = false;
+        break;
+      }
+      case 24:   // rcurveline
+      case 8: {  // rrcurveto
+        int count = st.count(), idx = 0;
+        while (idx + 6 <= count) {
+          Fixed x1 = add32(st.get(idx + 0), curX);
+          Fixed y1 = add32(st.get(idx + 1), curY);
+          Fixed x2 = add32(st.get(idx + 2), x1);
+          Fixed y2 = add32(st.get(idx + 3), y1);
+          Fixed x3 = add32(st.get(idx + 4), x2);
+          Fixed y3 = add32(st.get(idx + 5), y2);
+          gp_curveto(gp, x1, y1, x2, y2, x3, y3);
+          curX = x3;
+          curY = y3;
+          idx += 6;
+        }
+        if (op1 == 24) {
+          curX = add32(curX, st.get(idx + 0));
+          curY = add32(curY, st.get(idx + 1));
+          gp_lineto(gp, curX, curY);
+        }
+        st.clear();
+        clear = false;
+        break;
+      }
+      case 25: { // rlinecurve
+        int count = st.count(), idx = 0;
+        while (idx + 6 < count) {
+          curX = add32(curX, st.get(idx + 0));
+          curY = add32(curY, st.get(idx + 1));
+          gp_lineto(gp, curX, curY);
+          idx += 2;
+        }
+        while (idx < count) {
+          Fixed x1 = add32(st.get(idx + 0), curX);
+          Fixed y1 = add32(st.get(idx + 1), curY);
+          Fixed x2 = add32(st.get(idx + 2), x1);
+          Fixed y2 = add32(st.get(idx + 3), y1);
+          Fixed x3 = add32(st.get(idx + 4), x2);
+          Fixed y3 = add32(st.get(idx + 5), y2);
+          gp_curveto(gp, x1, y1, x2, y2, x3, y3);
+          curX = x3;
+          curY = y3;
+          idx += 6;
+        }
+        st.clear();
+        clear = false;
+        break;
+      }
+      case 26:   // vvcurveto
+      case 27: { // hhcurveto
+        int count1 = st.count();
+        int count = count1 & ~2, idx = count1 - count;
+        while (idx < count) {
+          Fixed x1, y1, x2, y2, x3, y3;
+          if (op1 == 26) {
+            if ((count - idx) & 1) {
+              x1 = add32(st.get(idx), curX);
+              idx++;
+            } else
+              x1 = curX;
+            y1 = add32(st.get(idx + 0), curY);
+            x2 = add32(st.get(idx + 1), x1);
+            y2 = add32(st.get(idx + 2), y1);
+            x3 = x2;
+            y3 = add32(st.get(idx + 3), y2);
+          } else {
+            if ((count - idx) & 1) {
+              y1 = add32(st.get(idx), curY);
+              idx++;
+            } else
+              y1 = curY;
+            x1 = add32(st.get(idx + 0), curX);
+            x2 = add32(st.get(idx + 1), x1);
+            y2 = add32(st.get(idx + 2), y1);
+            x3 = add32(st.get(idx + 3), x2);
+            y3 = y2;
+          }
+          gp_curveto(gp, x1, y1, x2, y2, x3, y3);
+          curX = x3;
+          curY = y3;
+          idx += 4;
+        }
+        st.clear();
+        clear = false;
+        break;
+      }
+      case 30:   // vhcurveto
+      case 31: { // hvcurveto
+        int count1 = st.count();
+        int count = count1 & ~2, idx = count1 - count;
+        bool alternate = op1 == 31;
+        while (idx < count) {
+          Fixed x1, x2, x3, y1, y2, y3;
+          if (alternate) {
+            x1 = add32(st.get(idx + 0), curX);
+            y1 = curY;
+            x2 = add32(st.get(idx + 1), x1);
+            y2 = add32(st.get(idx + 2), y1);
+            y3 = add32(st.get(idx + 3), y2);
+            if (count - idx == 5) {
+              x3 = add32(st.get(idx + 4), x2);
+              idx++;
+            } else
+              x3 = x2;
+            alternate = false;
+          } else {
+            x1 = curX;
+            y1 = add32(st.get(idx + 0), curY);
+            x2 = add32(st.get(idx + 1), x1);
+            y2 = add32(st.get(idx + 2), y1);
+            x3 = add32(st.get(idx + 3), x2);
+            if (count - idx == 5) {
+              y3 = add32(st.get(idx + 4), y2);
+              idx++;
+            } else
+              y3 = y2;
+            alternate = true;
+          }
+          gp_curveto(gp, x1, y1, x2, y2, x3, y3);
+          curX = x3;
+          curY = y3;
+          idx += 4;
+        }
+        st.clear();
+        clear = false;
+        break;
+      }
+      case 10:   // callsubr
+      case 29: { // callgsubr
+        if (csIndex > MAX_SUBR - 1) {
+          if (!*err) *err = E_GLYPH;
+          break;
+        }
+        int num = st.pop_int();
+        Buf* next = &subrStack[csIndex + 1];
+        bool ok = op1 == 29 ? subr_buf(face->gsubr_off, face->data, num, next)
+                            : subr_buf(*font->lsubrs, face->data, num, next);
+        if (!ok) {
+          if (!*err) *err = E_GLYPH;
+          break;
+        }
+        csIndex++;
+        cs = next;
+        clear = false;
+        break;
+      }
+      case 11:   // return
+        if (csIndex < 1) {
+          if (!*err) *err = E_GLYPH;
+          break;
+        }
+        cs = &subrStack[--csIndex];
+        clear = false;
+        break;
+      case 14: { // endchar
+        if (st.count() == 1 || st.count() == 5) {
+          if (!haveWidth) *width = add32(st.get(0), nominalWidthX);
+        }
+        haveWidth = true;
+        gp_closeopen(gp);
+        if (st.count() > 1) {
+          if (doingSeac) {
+            if (!*err) *err = E_GLYPH;
+            goto exit;
+          }
+          int achar = st.pop_int();
+          int bchar = st.pop_int();
+          Fixed sy = st.pop_fixed();
+          Fixed sx = st.pop_fixed();
+          Fixed dummy;
+          Buf comp;
+          int ga = achar >= 0 && achar < 256 ? face->seac[achar] : -1;
+          if (ga < 0 || !glyph_buf(face, ga, &comp)) {
+            if (!*err) *err = E_GLYPH;
+            goto exit;
+          }
+          interp(font, &comp, out, true, sx, sy, &dummy);
+          int gb = bchar >= 0 && bchar < 256 ? face->seac[bchar] : -1;
+          if (gb < 0 || !glyph_buf(face, gb, &comp)) {
+            if (!*err) *err = E_GLYPH;
+            goto exit;
+          }
+          interp(font, &comp, out, true, 0, 0, &dummy);
+        }
+        goto exit;
+      }
+      case 28: {  // shortint
+        uint8_t b1 = rd(cs, err), b2 = rd(cs, err);
+        st.push_int((int16_t)((b1 << 8) | b2));
+        clear = false;
+        break;
+      }
+      case 12: {  // escape
+        int op2 = rd(cs, err);
+        clear = false;
+        switch (op2) {
+          case 34: {
+            static const bool r[12] = {true, false, true, true, true, false,
+                                       true, false, true, false, true, false};
+            do_flex(st, &curX, &curY, gp, r, true);
+            break;
+          }
+          case 35: {
+            static const bool r[12] = {true, true, true, true, true, true,
+                                       true, true, true, true, true, true};
+            do_flex(st, &curX, &curY, gp, r, false);
+            clear = true;
+            break;
+          }
+          case 36: {
+            static const bool r[12] = {true, true, true, true, true, false,
+                                       true, false, true, true, true, false};
+            do_flex(st, &curX, &curY, gp, r, true);
+            break;
+          }
+          case 37: {
+            static const bool r[12] = {true, true, true, true, true, true,
+                                       true, true, true, true, false, false};
+            do_flex(st, &curX, &curY, gp, r, true);
+            break;
+          }
+          case 3: {  // and
+            Fixed b = st.pop_fixed(), a = st.pop_fixed();
+            st.push_int(a && b);
+            break;
+          }
+          case 4: {  // or
+            Fixed b = st.pop_fixed(), a = st.pop_fixed();
+            st.push_int(a || b);
+            break;
+          }
+          case 5: {  // not
+            Fixed a = st.pop_fixed();
+            st.push_int(!a);
+            break;
+          }
+          case 9: {  // abs
+            Fixed a = st.pop_fixed();
+            st.push_fixed(a < -0x7FFFFFFF ? 0x7FFFFFFF : (a < 0 ? -a : a));
+            break;
+          }
+          case 10: {  // add
+            Fixed b = st.pop_fixed(), a = st.pop_fixed();
+            st.push_fixed(add32(a, b));
+            break;
+          }
+          case 11: {  // sub
+            Fixed b = st.pop_fixed(), a = st.pop_fixed();
+            st.push_fixed(sub32(a, b));
+            break;
+          }
+          case 12: {  // div
+            Fixed b = st.pop_fixed(), a = st.pop_fixed();
+            st.push_fixed(fdiv(a, b));
+            break;
+          }
+          case 14: {  // neg
+            Fixed a = st.pop_fixed();
+            st.push_fixed(a < -0x7FFFFFFF ? 0x7FFFFFFF : -a);
+            break;
+          }
+          case 15: {  // eq
+            Fixed b = st.pop_fixed(), a = st.pop_fixed();
+            st.push_int(a == b);
+            break;
+          }
+          case 18:  // drop
+            (void)st.pop_fixed();
+            break;
+          case 20: {  // put
+            int idx = st.pop_int();
+            Fixed v = st.pop_fixed();
+            if (idx >= 0 && idx < STORAGE) storage[idx] = v;
+            break;
+          }
+          case 21: {  // get
+            int idx = st.pop_int();
+            if (idx >= 0 && idx < STORAGE) st.push_fixed(storage[idx]);
+            break;
+          }
+          case 22: {  // ifelse
+            Fixed c2 = st.pop_fixed(), c1 = st.pop_fixed();
+            Fixed a2 = st.pop_fixed(), a1 = st.pop_fixed();
+            st.push_fixed(c1 <= c2 ? a1 : a2);
+            break;
+          }
+          case 24: {  // mul
+            Fixed b = st.pop_fixed(), a = st.pop_fixed();
+            st.push_fixed(fmul(a, b));
+            break;
+          }
+          case 27: {  // dup
+            Fixed a = st.pop_fixed();
+            st.push_fixed(a);
+            st.push_fixed(a);
+            break;
+          }
+          case 28: {  // exch
+            Fixed b = st.pop_fixed(), a = st.pop_fixed();
+            st.push_fixed(b);
+            st.push_fixed(a);
+            break;
+          }
+          case 29: {  // index
+            int idx = st.pop_int();
+            int size = st.count();
+            if (size > 0) {
+              int gi = idx < 0 ? size - 1 : idx >= size ? 0 : size - 1 - idx;
+              st.push_fixed(st.get(gi));
+            }
+            break;
+          }
+          case 30: {  // roll
+            int idx = st.pop_int();
+            int count = st.pop_int();
+            st.roll(count, idx);
+            break;
+          }
+          default:  // dotsection and the reserved / unsupported escapes
+            clear = true;
+            break;
+        }
+        break;
+      }
+      default:
+        if (op1 >= 32 && op1 <= 246) {
+          st.push_int(op1 - 139);
+          clear = false;
+        } else if (op1 >= 247 && op1 <= 250) {
+          int v = (op1 - 247) * 256 + rd(cs, err) + 108;
+          st.push_int(v);
+          clear = false;
+        } else if (op1 >= 251 && op1 <= 254) {
+          int v = (op1 - 251) * 256 + rd(cs, err);
+          st.push_int(-v - 108);
+          clear = false;
+        } else if (op1 == 255) {
+          uint32_t v = (uint32_t)rd(cs, err) << 24;
+          v |= (uint32_t)rd(cs, err) << 16;
+          v |= (uint32_t)rd(cs, err) << 8;
+          v |= (uint32_t)rd(cs, err);
+          st.push_fixed((Fixed)v);
+          clear = false;
+        }
+        // reserved operators clear the stack
+        break;
+    }
+    if (clear) st.clear();
+  }
+exit:
+  delete gp;
+}
+
+// cff_slot_load for one glyph: its outline (26.6) and advances
+struct Size { Face* face; int ppem; Long x_scale, y_scale; };
+
+static int load(Size* sz, int gid, bool hinted, PathOut* out, Long* adv, Long* linear) {
+  Face* f = sz->face;
+  Buf b;
+  if (!glyph_buf(f, gid, &b)) return 6;  // Invalid_Argument
+  int fdi = f->fd_of_glyph.empty() ? 0 : f->fd_of_glyph[gid];
+  if (fdi >= (int)f->fds.size()) return 3;
+  const FDParams* fd = &f->fds[fdi];
+  Long x_scale = sz->x_scale, y_scale = sz->y_scale;
+  if (fd->top_upm != fd->sub_upm) {
+    x_scale = mul_div(x_scale, fd->top_upm, fd->sub_upm);
+    y_scale = mul_div(y_scale, fd->top_upm, fd->sub_upm);
+  }
+  Font font;
+  memset((void*)&font, 0, sizeof(font));
+  font.face = f;
+  font.fd = fd;
+  font.lsubrs = &f->lsubr_off[fdi];
+  font.hinted = hinted;
+  if (hinted) {
+    font.a = (Fixed)((int32_t)add_long(x_scale, 32) / 64);
+    font.d = (Fixed)((int32_t)add_long(y_scale, 32) / 64);
+  } else {
+    font.a = font.d = 0x400;
+  }
+  blues_init(&font.blues, &font);
+  Fixed width;
+  interp(&font, &b, out, false, 0, 0, &width);
+  if (font.err) return 20 + font.err;
+  out->close_contour();
+  if (!hinted)
+    for (auto& p : out->pts) {
+      p.x = mul_fix(p.x, x_scale);
+      p.y = mul_fix(p.y, y_scale);
+    }
+  // the hmtx advance (cff_slot_load prefers it to the charstring width)
+  Long a = f->adv.empty() ? (width + 0x8000) >> 16
+                          : (Long)f->adv[gid < (int)f->adv.size() ? gid : f->adv.size() - 1];
+  *linear = mul_div(a, sz->x_scale, 64);
+  a = mul_fix(a, x_scale);
+  *adv = hinted ? pix_round(a) : a;
+  return 0;
+}
+
+}  // namespace cf2
 
 // ------------------------------------------------------------ C API
 extern "C" {
@@ -2873,6 +4366,94 @@ void eg_gaussian_blur(uint8_t* img, int xsize, int ysize, int ch, float radius) 
       for (int x = 0; x < xsize; x++)
         memcpy(&img[((size_t)y * xsize + x) * ch], &t[((size_t)x * ysize + y) * ch], ch);
   }
+}
+
+// A CFF face: the table's bytes, the CharStrings / Global Subrs / each
+// FD's local Subrs offsets (absolute, count + 1 each; an FD without
+// Subrs has none), the FD of each glyph (NULL: one FD), each FD's
+// Private values (CFF_FD_PARAMS int32 each, laid out as
+// fonts/cff.py's fd_params), the glyph of each StandardEncoding code for
+// seac (-1: none) and the hmtx advances.
+enum { CFF_FD_PARAMS = 64 };
+
+void* eg_cff_face_new(const uint8_t* data, int64_t len, int n_glyphs, const int64_t* cs_off,
+                      int n_gsubrs, const int64_t* gsubr_off, const uint8_t* fd_of_glyph,
+                      int n_fds, const int64_t* lsubr_off, const int32_t* lsubr_n,
+                      const int32_t* fd_params, const int32_t* seac, const uint16_t* adv,
+                      int n_adv, int upem) {
+  cf2::Face* f = new cf2::Face();
+  f->data.assign(data, data + len);
+  f->n_glyphs = n_glyphs;
+  f->cs_off.assign(cs_off, cs_off + n_glyphs + 1);
+  if (n_gsubrs > 0) f->gsubr_off.assign(gsubr_off, gsubr_off + n_gsubrs + 1);
+  if (fd_of_glyph) f->fd_of_glyph.assign(fd_of_glyph, fd_of_glyph + n_glyphs);
+  const int64_t* lo = lsubr_off;
+  for (int i = 0; i < n_fds; i++) {
+    f->lsubr_off.emplace_back(lo, lo + lsubr_n[i]);
+    lo += lsubr_n[i];
+    const int32_t* q = fd_params + (size_t)i * CFF_FD_PARAMS;
+    cf2::FDParams p;
+    memset((void*)&p, 0, sizeof(p));
+    p.n_blue = q[0];
+    for (int k = 0; k < 14; k++) p.blue[k] = q[1 + k];
+    p.n_other = q[15];
+    for (int k = 0; k < 10; k++) p.other[k] = q[16 + k];
+    p.n_family = q[26];
+    for (int k = 0; k < 14; k++) p.family[k] = q[27 + k];
+    p.n_family_other = q[41];
+    for (int k = 0; k < 10; k++) p.family_other[k] = q[42 + k];
+    p.blue_scale = q[52];
+    p.blue_shift = q[53];
+    p.blue_fuzz = q[54];
+    p.language_group = q[55];
+    p.default_width = q[56];
+    p.nominal_width = q[57];
+    p.top_upm = q[58];
+    p.sub_upm = q[59];
+    f->fds.push_back(p);
+  }
+  memcpy(f->seac, seac, sizeof(f->seac));
+  f->adv.assign(adv, adv + n_adv);
+  f->upem = upem;
+  return f;
+}
+
+void eg_cff_face_free(void* f) { delete (cf2::Face*)f; }
+
+void* eg_cff_size_new(void* face, int ppem) {
+  cf2::Size* sz = new cf2::Size();
+  sz->face = (cf2::Face*)face;
+  sz->ppem = ppem;
+  sz->x_scale = sz->y_scale = div_fix((Long)ppem << 6, sz->face->upem);
+  return sz;
+}
+
+void eg_cff_size_free(void* s) { delete (cf2::Size*)s; }
+
+// The outline of glyph `gid' in 26.6 (FT_LOAD_DEFAULT when `hinted',
+// else FT_LOAD_NO_HINTING) and adv[0] = advance.x (26.6, rounded when
+// hinted), adv[1] = linearHoriAdvance (16.16).  Returns 0, -1 when the
+// buffers are too small (the sizes are in *n_pts / *n_contours), or an
+// error code.
+int eg_cff_load(void* size, int gid, int hinted, int64_t* xy, uint8_t* tags,
+                int16_t* contours, int cap_pts, int cap_contours, int* n_pts,
+                int* n_contours, int64_t* adv) {
+  cf2::PathOut out;
+  Long a = 0, lin = 0;
+  int err = cf2::load((cf2::Size*)size, gid, hinted != 0, &out, &a, &lin);
+  if (err) return err;
+  *n_pts = (int)out.pts.size();
+  *n_contours = (int)out.contours.size();
+  adv[0] = a;
+  adv[1] = lin;
+  if (*n_pts > cap_pts || *n_contours > cap_contours) return -1;
+  for (int i = 0; i < *n_pts; i++) {
+    xy[2 * i] = out.pts[i].x;
+    xy[2 * i + 1] = out.pts[i].y;
+    tags[i] = out.tags[i];
+  }
+  for (int i = 0; i < *n_contours; i++) contours[i] = out.contours[i];
+  return 0;
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """ctypes binding for glyph.cpp: TrueType outlines scaled and hinted as
-FreeType 2.14 does by default (the v40 bytecode interpreter), FreeType's
-gray rasterizer, and Pillow's Gaussian blur.
+FreeType 2.14 does by default (the v40 bytecode interpreter), CFF
+outlines through its default Adobe engine (``CFFFace``), FreeType's gray
+rasterizer, and Pillow's Gaussian blur.
 
 The library is compiled with g++ on first use into ``libglyph.so`` next
 to its source (git-ignored), rebuilt when the source is newer, written
@@ -78,6 +79,16 @@ def _load():
         lib.eg_load.argtypes = [P, I, I, P, P, P, I, I, ctypes.POINTER(I),
                                 ctypes.POINTER(I), ctypes.POINTER(L)]
         lib.eg_render.argtypes = [P, P, P, I, I, I, I, P]
+        lib.eg_cff_face_new.restype = P
+        lib.eg_cff_face_new.argtypes = [P, L, I, P, I, P, P, I, P, P, P, P,
+                                        P, I, I]
+        lib.eg_cff_face_free.argtypes = [P]
+        lib.eg_cff_size_new.restype = P
+        lib.eg_cff_size_new.argtypes = [P, I]
+        lib.eg_cff_size_free.argtypes = [P]
+        lib.eg_cff_load.restype = I
+        lib.eg_cff_load.argtypes = [P, I, I, P, P, P, I, I, ctypes.POINTER(I),
+                                    ctypes.POINTER(I), P]
         lib.eg_gaussian_blur.argtypes = [P, I, I, I, ctypes.c_float]
         _lib = lib
         return lib
@@ -128,6 +139,9 @@ class Face:
             self._lib.eg_face_free(self.handle)
             self.handle = None
 
+    def new_size(self, ppem: int) -> "Size":
+        return Size(self, ppem)
+
 
 class Size:
     """A face at ``ppem`` pixels, its font and CVT programs run."""
@@ -173,6 +187,119 @@ class Size:
                               f"load (error {rc})")
             return (xy[: n_p.value].copy(), tags[: n_p.value].copy(),
                     cont[: n_c.value].copy())
+
+
+# fd_params layout of eg_cff_face_new (CFF_FD_PARAMS int32 per FD)
+CFF_FD_PARAMS = 64
+
+
+def _fd_params(cff) -> np.ndarray:
+    out = np.zeros((len(cff.privates), CFF_FD_PARAMS), np.int32)
+    for i, p in enumerate(cff.privates):
+        row = out[i]
+        for base, vals, cap in ((0, p.blue_values, 14),
+                                (15, p.other_blues, 10),
+                                (26, p.family_blues, 14),
+                                (41, p.family_other_blues, 10)):
+            vals = vals[:cap]
+            row[base] = len(vals)
+            row[base + 1: base + 1 + len(vals)] = vals
+        row[52:60] = [p.blue_scale, p.blue_shift, p.blue_fuzz,
+                      p.language_group, p.default_width, p.nominal_width,
+                      cff.top_upm, cff.sub_upm[i]]
+    return out
+
+
+class CFFFace:
+    """One CFF font's charstrings, subroutines and Private values on the
+    C++ side (fonts/cff.py ``CFF``)."""
+
+    def __init__(self, font):
+        lib = _load()
+        c = font.cff
+
+        def arr(x, dt):
+            # eg_cff_face_new copies every array it is given
+            a = np.ascontiguousarray(np.asarray(x, dt))
+            return a if a.size else np.zeros(1, dt)
+
+        data = np.frombuffer(c.data, np.uint8)
+        cs = arr(c.charstrings.offsets, np.int64)
+        gs = arr(c.gsubrs.offsets, np.int64)
+        lsubrs = [p.subrs.offsets if p.subrs is not None and p.subrs.count
+                  else np.zeros(0, np.int64) for p in c.privates]
+        lsub = arr(np.concatenate(lsubrs), np.int64)
+        lsub_n = arr([len(x) for x in lsubrs], np.int32)
+        params = arr(_fd_params(c), np.int32)
+        seac = arr(c.seac, np.int32)
+        adv = arr(font.advances, np.uint16)
+        fd = None if c.fd_of_glyph is None else arr(c.fd_of_glyph, np.uint8)
+        self._lib = lib
+        self.handle = lib.eg_cff_face_new(
+            _ptr(data), len(c.data), c.num_glyphs, _ptr(cs), c.gsubrs.count,
+            _ptr(gs), None if fd is None else _ptr(fd), len(c.privates),
+            _ptr(lsub), _ptr(lsub_n), _ptr(params), _ptr(seac), _ptr(adv),
+            len(font.advances), font.units_per_em)
+        self.font = font
+
+    def __del__(self):
+        if getattr(self, "handle", None):
+            self._lib.eg_cff_face_free(self.handle)
+            self.handle = None
+
+    def new_size(self, ppem: int) -> "CFFSize":
+        return CFFSize(self, ppem)
+
+
+class CFFSize:
+    """A CFF face at ``ppem`` pixels (``Size``'s interface; no font
+    program runs, so ``error`` is always 0)."""
+
+    error = 0
+
+    def __init__(self, face: CFFFace, ppem: int):
+        self.face = face
+        self._lib = face._lib
+        self.handle = self._lib.eg_cff_size_new(face.handle, int(ppem))
+        self.ppem = int(ppem)
+
+    def __del__(self):
+        if getattr(self, "handle", None):
+            self._lib.eg_cff_size_free(self.handle)
+            self.handle = None
+
+    def load(self, gid: int, hinted: bool = True):
+        """(points int64 [N, 2] in 26.6, tags uint8 [N] (1: on the curve,
+        2: cubic control), contour ends int16 [C], (advance.x 26.6,
+        linearHoriAdvance 16.16))."""
+        cap_p, cap_c = 512, 64
+        adv = np.zeros(2, np.int64)
+        while True:
+            xy = np.zeros((cap_p, 2), np.int64)
+            tags = np.zeros(cap_p, np.uint8)
+            cont = np.zeros(cap_c, np.int16)
+            n_p, n_c = ctypes.c_int(0), ctypes.c_int(0)
+            rc = self._lib.eg_cff_load(self.handle, int(gid), int(hinted),
+                                       _ptr(xy), _ptr(tags), _ptr(cont),
+                                       cap_p, cap_c, ctypes.byref(n_p),
+                                       ctypes.byref(n_c), _ptr(adv))
+            if rc == _TOO_SMALL:
+                cap_p, cap_c = max(cap_p, n_p.value), max(cap_c, n_c.value)
+                continue
+            if rc:
+                raise OSError(f"glyph {gid} of {self.face.font.path} does not "
+                              f"load (error {rc})")
+            return (xy[: n_p.value].copy(), tags[: n_p.value].copy(),
+                    cont[: n_c.value].copy(), (int(adv[0]), int(adv[1])))
+
+    def outline(self, gid: int, hinted: bool = True):
+        return self.load(gid, hinted)[:3]
+
+
+def open_face(font):
+    """The native face of a parsed font: ``CFFFace`` for CFF outlines,
+    else the TrueType ``Face``."""
+    return CFFFace(font) if font.cff is not None else Face(font)
 
 
 def render(points: np.ndarray, tags: np.ndarray, contours: np.ndarray,

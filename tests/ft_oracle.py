@@ -2,10 +2,12 @@
 Pillow ships (pillow.libs), never imported by effocr_torch.
 
 ``FTFace(path, ppem)`` loads glyphs with FreeType's flags and returns
-outline points, rendered bitmaps and advances, so each stage of the
-port's renderer (fonts/, native/glyph.cpp) can be held to FreeType
-2.14 exactly.  ``hb_shape`` runs HarfBuzz through its FreeType font
-functions, as raqm does for Pillow.
+outline points, rendered bitmaps and advances (and a CFF font's
+ItalicAngle as FreeType parsed it), so each stage of the port's
+renderer (fonts/, native/glyph.cpp) can be held to FreeType
+2.14 exactly.  ``FTFace.hb_shape`` runs HarfBuzz through its FreeType
+font functions (HarfBuzz's default load flags, as raqm leaves them for
+Pillow).
 """
 
 from __future__ import annotations
@@ -99,7 +101,30 @@ class _Face(ctypes.Structure):
                 ("charmap", ctypes.c_void_p)]
 
 
+class _PSFontInfo(ctypes.Structure):
+    _fields_ = [("version", ctypes.c_char_p), ("notice", ctypes.c_char_p),
+                ("full_name", ctypes.c_char_p),
+                ("family_name", ctypes.c_char_p),
+                ("weight", ctypes.c_char_p), ("italic_angle", ctypes.c_long),
+                ("is_fixed_pitch", ctypes.c_ubyte),
+                ("underline_position", ctypes.c_short),
+                ("underline_thickness", ctypes.c_ushort)]
+
+
+class _HBInfo(ctypes.Structure):
+    _fields_ = [("codepoint", ctypes.c_uint32), ("mask", ctypes.c_uint32),
+                ("cluster", ctypes.c_uint32), ("var1", ctypes.c_uint32),
+                ("var2", ctypes.c_uint32)]
+
+
+class _HBPos(ctypes.Structure):
+    _fields_ = [("x_advance", ctypes.c_int32), ("y_advance", ctypes.c_int32),
+                ("x_offset", ctypes.c_int32), ("y_offset", ctypes.c_int32),
+                ("var", ctypes.c_uint32)]
+
+
 _ft = None
+_hb = None
 _library = None
 
 
@@ -126,6 +151,31 @@ def _freetype():
         _ft.FT_Get_Char_Index.restype = ctypes.c_uint
         _ft.FT_Done_Face.argtypes = [ctypes.POINTER(_Face)]
     return _ft
+
+
+def _harfbuzz():
+    global _hb
+    if _hb is None:
+        _freetype()
+        hb = ctypes.CDLL(_pillow_lib("harfbuzz"))
+        P = ctypes.c_void_p
+        hb.hb_ft_font_create_referenced.restype = P
+        hb.hb_ft_font_create_referenced.argtypes = [P]
+        hb.hb_buffer_create.restype = P
+        hb.hb_buffer_add_utf8.argtypes = [P, ctypes.c_char_p, ctypes.c_int,
+                                          ctypes.c_uint, ctypes.c_int]
+        hb.hb_buffer_guess_segment_properties.argtypes = [P]
+        hb.hb_shape.argtypes = [P, P, P, ctypes.c_uint]
+        hb.hb_buffer_get_glyph_infos.restype = ctypes.POINTER(_HBInfo)
+        hb.hb_buffer_get_glyph_infos.argtypes = [
+            P, ctypes.POINTER(ctypes.c_uint)]
+        hb.hb_buffer_get_glyph_positions.restype = ctypes.POINTER(_HBPos)
+        hb.hb_buffer_get_glyph_positions.argtypes = [
+            P, ctypes.POINTER(ctypes.c_uint)]
+        hb.hb_buffer_destroy.argtypes = [P]
+        hb.hb_font_destroy.argtypes = [P]
+        _hb = hb
+    return _hb
 
 
 class FTFace:
@@ -160,6 +210,44 @@ class FTFace:
         tags = np.array([o.tags[i] for i in range(n)], np.uint8)
         cont = np.array([o.contours[i] for i in range(c)], np.int64)
         return pts, tags, cont
+
+    def advance(self, gid: int, hinted: bool = True):
+        """(advance.x in 26.6, linearHoriAdvance in 16.16) of a glyph
+        load."""
+        flags = FT_LOAD_DEFAULT if hinted else FT_LOAD_NO_HINTING
+        assert _ft.FT_Load_Glyph(self.face, gid, flags) == 0
+        g = self.face.contents.glyph.contents
+        return g.advance.x, g.linearHoriAdvance
+
+    def italic_angle(self) -> int:
+        """FT_Get_PS_Font_Info's italic_angle: a CFF Top DICT real as
+        FreeType's cff_parse_real made it 16.16 (the one DICT real that
+        FreeType reports for a CFF face)."""
+        info = _PSFontInfo()
+        _ft.FT_Get_PS_Font_Info.argtypes = [ctypes.POINTER(_Face),
+                                            ctypes.POINTER(_PSFontInfo)]
+        assert _ft.FT_Get_PS_Font_Info(self.face, ctypes.byref(info)) == 0
+        return info.italic_angle
+
+    def hb_shape(self, text: str):
+        """[(glyph id, x_advance, y_advance, x_offset, y_offset)] in 26.6
+        from hb_shape over hb_ft's font functions."""
+        hb = _harfbuzz()
+        font = hb.hb_ft_font_create_referenced(
+            ctypes.cast(self.face, ctypes.c_void_p))
+        buf = hb.hb_buffer_create()
+        data = text.encode("utf-8")
+        hb.hb_buffer_add_utf8(buf, data, len(data), 0, len(data))
+        hb.hb_buffer_guess_segment_properties(buf)
+        hb.hb_shape(font, buf, None, 0)
+        n = ctypes.c_uint(0)
+        info = hb.hb_buffer_get_glyph_infos(buf, ctypes.byref(n))
+        pos = hb.hb_buffer_get_glyph_positions(buf, ctypes.byref(n))
+        out = [(info[i].codepoint, pos[i].x_advance, pos[i].y_advance,
+                pos[i].x_offset, pos[i].y_offset) for i in range(n.value)]
+        hb.hb_buffer_destroy(buf)
+        hb.hb_font_destroy(font)
+        return out
 
     def bitmap(self, gid: int):
         """(uint8 [rows, width], left, top) of FT_LOAD_DEFAULT |

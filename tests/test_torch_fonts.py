@@ -588,6 +588,12 @@ def test_train_step_with_adjacent_bank_matches_jax(cut_mobilenet_fonts):
     """One train-recognizer step with --adjacent_font_path (float32,
     32 px, mobilenetv3_small_050): loss and gradients against the JAX
     step at test_torch_train.py's tolerances."""
+    adjacent_step_matches_jax(font_path("DejaVuSerif.ttf"))
+
+
+def adjacent_step_matches_jax(serif):
+    """The step of test_train_step_with_adjacent_bank_matches_jax with
+    the bank of the font at ``serif``."""
     import jax
     import jax.numpy as jnp
     import torch
@@ -610,7 +616,6 @@ def test_train_step_with_adjacent_bank_matches_jax(cut_mobilenet_fonts):
     from effocr_torch.train.recognizer import make_train_step
 
     arch, channels, b, size, n_cls = "mobilenetv3_small_050", 1, 8, 32, 4
-    serif = font_path("DejaVuSerif.ttf")
     bank = render_adjacent_bank(serif, size, "en")
     np.testing.assert_array_equal(bank, j_bank(serif, size, "en"))
     cfg_kw = dict(batch_size=b, lang="en", paired_jitter=0.5,
@@ -688,15 +693,15 @@ def _sfnt(tag: bytes, tables):
 
 
 @pytest.mark.parametrize("case,feature", [
-    ("cff", "CFF outlines"), ("ttc", "TrueType collections"),
+    ("cff2", "CFF2 outlines"), ("ttc", "TrueType collections"),
     ("variable", "variable fonts"), ("bitmap", "embedded bitmap strikes"),
     ("no_bytecode", "without bytecode"), ("complex", "complex shaper")])
 def test_refusals_name_their_feature(case, feature, tmp_path):
     from effocr_torch.data import fonts as P
 
     p = tmp_path / "f.ttf"
-    if case == "cff":
-        p.write_bytes(_sfnt(b"OTTO", {b"CFF ": b"\0" * 8}))
+    if case == "cff2":
+        p.write_bytes(_sfnt(b"OTTO", {b"CFF2": b"\0" * 8}))
     elif case == "ttc":
         p.write_bytes(b"ttcf" + b"\0" * 16)
     elif case == "variable":
