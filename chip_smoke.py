@@ -276,7 +276,15 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      characters in both and 90 CJK codepoints of the CID font, and their
      banks, against fonts_cff/golden.npz, renders/s per font; the jp
      make-corpus -> make-charset -> format-dataset chain on the CID font
-     in the background process below, against its goldens;
+     in the background process below, against its goldens; the bitmap
+     fixtures (tests/torch_fixtures/fonts_bitmap/: EBLC / EBDT strikes,
+     a strikes-only font, overlap-flagged glyphs, scaled component
+     offsets): the en characters in the three fonts with outlines and
+     their banks against fonts_bitmap/golden.npz, renders/s per font,
+     the strike fonts swept over sizes 8-64 against the committed refused
+     sizes, and ``format-dataset`` over the group 4 TIFF and palette PNG
+     page fixtures (tests/torch_fixtures/mode_pages/) in two processes,
+     against the JAX command's tree digests;
      ``make-corpus`` (512 en lines, noise 8, blur 1), ``make-charset
      --dedupe_renders`` and ``format-dataset`` as subprocesses of a
      background process started with the family phases, each output
@@ -5453,15 +5461,159 @@ def phase_fonts_cff(card):
             "renders_per_s": rates, "bank_s": bank_s}
 
 
-def phase_fonts(dev, card, pipeline):
+def bitmap_font_tools():
+    """tests/torch_fixtures/make_bitmap_fonts.py and make_images.py: the
+    strike, overlap and scaled-offset fonts' goldens and refused sizes,
+    and the mode pages' format-dataset flags (fontTools, Pillow and JAX
+    are imported only by their generators)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fixtures import make_bitmap_fonts, make_images
+
+    return make_bitmap_fonts, make_images
+
+
+# the mode pages format-dataset runs over on the card's host
+CHIP_MODE_PAGES = ("g4", "palette")
+
+
+def start_mode_pages():
+    """``python -m effocr_torch format-dataset --spaces
+    --clip_to_top_and_bottom`` over each of CHIP_MODE_PAGES, one process
+    a page, started beside the family phases (as the font pipeline is)
+    so that the fonts phase only reads their trees: {page: (work dir,
+    process)}."""
+    _, mi = bitmap_font_tools()
+    work = os.path.join(WORK, "mode_pages")
+    shutil.rmtree(work, ignore_errors=True)
+    procs = {}
+    for page in CHIP_MODE_PAGES:
+        w = os.path.join(work, page)
+        os.makedirs(w)
+        procs[page] = (w, subprocess.Popen(
+            [sys.executable, "-m", "effocr_torch", "format-dataset",
+             *mi.mode_page_argv(page, w)], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def phase_fonts_bitmap(card, procs=None):
+    """Bitmap strikes, overlap-flagged glyphs, scaled component offsets
+    and every image mode in the dataset tools, on the card's host:
+    1. every golden render of the three fixture fonts with outlines (the
+       90 en characters, both draw functions, canvas 256) and their en / jp
+       banks against the JAX package's golden digests; renders/s per font;
+    2. the strike font and the strikes-only font swept over sizes 8-64:
+       the sizes refused (FreeType hands back a strike's bitmaps there)
+       equal the committed list, and the strikes-only font fails with
+       "invalid pixel size" at every other size, as Pillow does;
+    3. ``python -m effocr_torch format-dataset --spaces
+       --clip_to_top_and_bottom`` over the group 4 bilevel TIFF and the
+       palette PNG (tRNS) page fixtures, in the processes of
+       ``start_mode_pages`` (``procs``; started here when not given):
+       crops and tree equal the JAX command's golden digests."""
+    from effocr_torch.data import fonts as F
+    from effocr_torch.data.imaging import digest_image, digest_tree
+    from effocr_torch.fonts import imagefont
+
+    mb, mi = bitmap_font_tools()
+    if procs is None:
+        procs = start_mode_pages()
+
+    golden = np.load(os.path.join(mb.OUT_DIR, "golden.npz"))
+    want = dict(zip(golden["render_keys"].tolist(),
+                    golden["render_digests"].tolist()))
+    bad, rates, n = [], {}, 0
+    for name in mb.FONTS:
+        font = F.truetype(os.path.join(mb.OUT_DIR, name), mb.CANVAS)
+        cases = [c for c in mb.render_cases() if c[0] == name]
+        t0 = time.perf_counter()
+        for _, kind, cp in cases:
+            fn = F.draw_single_char if kind == "single" else \
+                F.draw_single_char_ascender
+            img = fn(chr(cp), font, mb.CANVAS)
+            got = "none" if img is None else digest_image(
+                img, "L" if img.ndim == 2 else "RGB")
+            if got != want[f"{name}|{kind}|{cp}"]:
+                bad.append(f"{name} {kind} U+{cp:04X}")
+        rates[name] = len(cases) / (time.perf_counter() - t0)
+        n += len(cases)
+    for name, lang in mb.BANKS:
+        b = F.render_adjacent_bank(os.path.join(mb.OUT_DIR, name),
+                                   mb.BANK_SIZE, lang)
+        if digest_image(b, "L") != str(golden[f"bank|{name}|{lang}"]):
+            bad.append(f"bank {name} {lang}")
+    if bad or n != len(want):
+        raise AssertionError(f"fonts: {len(bad)} of {n} strike / overlap / "
+                             f"scaled-offset renders or banks differ from "
+                             f"the goldens (of {len(want)}): {bad[:8]}")
+
+    t0 = time.perf_counter()
+    sweep = {}
+    for name in (mb.STRIKES_FONT, mb.STRIKES_ONLY):
+        refused, failed = [], []
+        for size in mb.SWEEP:
+            try:
+                imagefont.truetype(os.path.join(mb.OUT_DIR, name), size)
+            except NotImplementedError:
+                refused.append(size)
+            except OSError as e:
+                if "invalid pixel size" not in str(e):
+                    raise
+                failed.append(size)
+        sweep[name] = (refused, failed)
+        others = [s for s in mb.SWEEP if s not in mb.REFUSED_SIZES]
+        if tuple(refused) != mb.REFUSED_SIZES or failed != (
+                others if name == mb.STRIKES_ONLY else []):
+            raise AssertionError(f"fonts: {name} refused sizes {refused} and "
+                                 f"failed at {failed}; the committed list "
+                                 f"is {mb.REFUSED_SIZES}")
+    sweep_s = time.perf_counter() - t0
+
+    pages = {}
+    mode_golden = np.load(os.path.join(mi.MODE_PAGES_DIR, "golden.npz"))
+    t_pages = time.perf_counter()
+    for page, (w, proc) in procs.items():
+        _, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"fonts: format-dataset over the {page} page "
+                                 f"exited {proc.returncode}: {err[-2000:]}")
+        for part in ("tree", "crops"):
+            if digest_tree(os.path.join(w, part)) != str(
+                    mode_golden[f"{page}|{part}"]):
+                raise AssertionError(f"fonts: format-dataset over the {page} "
+                                     f"page: its {part} differs from the JAX "
+                                     "command's golden")
+        pages[page] = len(os.listdir(os.path.join(w, "crops")))
+    pages_s = time.perf_counter() - t_pages
+    log(f"fonts: bitmap strikes, overlap flags, scaled offsets: {n} renders "
+        f"(the en characters at canvas {mb.CANVAS}, both draw functions, in "
+        f"{', '.join(mb.FONTS)}) and their en / jp banks equal Pillow 12.1's "
+        f"golden digests bit for bit; host renders/s "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+        + f"; sizes {mb.SWEEP.start}-{mb.SWEEP.stop - 1} swept in "
+        f"{sweep_s:.2f} s: refused {sweep[mb.STRIKES_FONT][0]} (the "
+        f"committed list), the strikes-only font 'invalid pixel size' at "
+        f"the {len(sweep[mb.STRIKES_ONLY][1])} others; format-dataset "
+        f"--spaces --clip_to_top_and_bottom over the "
+        + ", ".join(f"{p} page ({k} crops)" for p, k in pages.items())
+        + f" equals the JAX command's tree and crops (this phase waited "
+        f"{pages_s:.1f} s for them and their digests) ({card})")
+    return {"renders": n, "renders_per_s": rates, "sweep_s": sweep_s,
+            "refused_sizes": sweep[mb.STRIKES_FONT][0],
+            "mode_page_crops": pages, "mode_pages_s": pages_s}
+
+
+def phase_fonts(dev, card, pipeline, mode_pages):
     """The port's own glyph renderer where neither Pillow nor FreeType is
     used:
     1. ``draw_single_char`` (canvas 256) and ``draw_single_char_ascender``
        of the 90 en characters in the three committed DejaVu fonts, and
        both AddAdjacentChars banks, equal the JAX package's (Pillow 12.1)
        golden digests bit for bit; renders/s on the host; then the CFF
-       fixtures (``phase_fonts_cff``) and, from the background process,
-       the jp chain on the CID font against its goldens;
+       fixtures (``phase_fonts_cff``), the strike, overlap and
+       scaled-offset fixtures and the mode pages (``phase_fonts_bitmap``)
+       and, from the background process, the jp chain on the CID font
+       against its goldens;
     2. ``make-corpus`` (512 en lines, noise 8, blur 1), ``make-charset
        --dedupe_renders`` and ``format-dataset`` through ``python -m
        effocr_torch`` (``pipeline``: start_font_pipeline's process, run
@@ -5521,6 +5673,7 @@ def phase_fonts(dev, card, pipeline):
         f"included), banks {bank_s:.2f} s ({card})")
 
     cff = phase_fonts_cff(card)
+    bitmap = phase_fonts_bitmap(card, mode_pages)
 
     proc, work, _ = pipeline
     t0 = time.perf_counter()
@@ -5613,7 +5766,8 @@ def phase_fonts(dev, card, pipeline):
                 losses=losses, augment_err=errs, n_tree_files=n_tree,
                 cff=dict(cff, jp_chain_s=done["cff_seconds"],
                          jp_chain_walls=done["cff_walls"],
-                         n_tree_files=n_cff_tree))
+                         n_tree_files=n_cff_tree),
+                bitmap=bitmap)
 
 
 def main(argv) -> int:
@@ -5738,6 +5892,8 @@ def _main_phases(args, card, dev, t_start, background) -> int:
     # the fonts phase's host pipeline (no card) runs from here, beside the
     # device-bound family phases
     background.append(start_font_pipeline())
+    mode_pages = start_mode_pages()
+    background.extend((proc, w) for w, proc in mode_pages.values())
     dirs = make_family_artifacts(dev, sl["paths"][:16])
     log(f"families: artifacts in {time.perf_counter() - t_fam:.1f} s")
     tl = train["train_localizer"]
@@ -5811,7 +5967,8 @@ def _main_phases(args, card, dev, t_start, background) -> int:
         ("trocr", lambda: phase_trocr(dev, card, train["train_localizer"])),
         ("image_formats", lambda: phase_image_formats(dev, card, en_loc,
                                                       en_rec)),
-        ("fonts", lambda: phase_fonts(dev, card, background[0])),
+        ("fonts", lambda: phase_fonts(dev, card, background[0],
+                                      mode_pages)),
     ):
         t0 = time.perf_counter()
         tools[name] = run_phase()

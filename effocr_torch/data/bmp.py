@@ -122,9 +122,7 @@ def _mode(f: dict, data: bytes) -> Tuple[str, Optional[np.ndarray]]:
         if bits != 8:
             raise refuse(f"a grey palette at {bits} bits a pixel")
         return "L", None
-    full = np.zeros((256, 3), np.uint8)
-    full[:min(colors, 256)] = pal[:256]
-    return "P", full
+    return "P", np.ascontiguousarray(pal[:256])
 
 
 def _rle(data: bytes, pos: int, w: int, h: int, rle4: bool) -> np.ndarray:
@@ -183,7 +181,8 @@ def bmp_header(data: bytes) -> Tuple[int, int, str]:
 
 def decode(data: bytes) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
     """BMP bytes -> (pixels, mode, palette): uint8 [H, W] for ``1`` (0 /
-    255), ``L`` and ``P`` (palette [256, 3]), [H, W, 3 | 4] for ``RGB`` /
+    255), ``L`` and ``P`` (palette [n, 3], the file's n colours, as
+    Pillow keeps them), [H, W, 3 | 4] for ``RGB`` /
     ``RGBA``."""
     f = _info(data)
     mode, palette = _mode(f, data)

@@ -1,7 +1,7 @@
 """COCO-format utilities (the JAX package's data/coco.py): the skeleton,
 entry builders, split/combine/subset, box helpers and the character-crop
-writer ``extract_char_crops`` (Pillow's crop rounding, through
-data/imaging.py).
+writer ``extract_char_crops`` (Pillow's crop rounding, each crop in its
+page's mode, palette and transparency, through data/imaging.py).
 """
 
 from __future__ import annotations
@@ -186,15 +186,16 @@ def extract_char_crops(
         img_annos = sorted(
             img_annos, key=lambda a: a["bbox"][1] if vertical else a["bbox"][0]
         )
-        img, _ = imaging.open_image(os.path.join(image_dir, image_name))
-        H, W = img.shape[:2]
+        img = imaging.open_image(os.path.join(image_dir, image_name))
+        H, W = img.px.shape[:2]
         for char, anno in zip(image_chars, img_annos):
             x, y, w, h = anno["bbox"]
             crop = imaging.crop(
-                img, (max(x, 0), max(y, 0), min(x + w, W), min(y + h, H)))
+                img.px, (max(x, 0), max(y, 0), min(x + w, W), min(y + h, H)))
             imaging.save_image(os.path.join(
                 crops_save_dir,
-                f"{image_stem}_{anno['id']}_{hex(ord(char))}.png"), crop)
+                f"{image_stem}_{anno['id']}_{hex(ord(char))}.png"),
+                *img._replace(px=crop))
             count += 1
     return count
 

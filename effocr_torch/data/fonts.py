@@ -356,12 +356,8 @@ def paired_chars(dir_paths: Sequence[str], save_path: str, omit: str = "",
             dst = os.path.join(save_path, str(ord(c)),
                                f"PAIRED_{stem}_{idx}.png")
             if square:
-                img, mode = imaging.open_image(fpath)
-                if mode == "RGBA":
-                    raise NotImplementedError(
-                        f"{fpath}: resizing RGBA (Pillow premultiplies "
-                        f"alpha) is not ported (ROADMAP.md, queue 1)")
-                imaging.save_image(dst, imaging.resize(img, (224, 224)))
+                imaging.save_image(dst, *imaging.resize_picture(
+                    imaging.open_image(fpath), (224, 224)))
             else:
                 imaging.copy_image(fpath, dst)
             idx += 1

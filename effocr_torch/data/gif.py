@@ -22,14 +22,13 @@ MAGICS = (b"GIF87a", b"GIF89a")
 
 
 def _palette(raw: bytes) -> Optional[np.ndarray]:
-    """[256, 3] colour table, or None for the grey ramp (Pillow's
-    ``_is_palette_needed`` is False: the image reads as L)."""
+    """[n, 3] colour table (n entries, as Pillow keeps them), or None for
+    the grey ramp (Pillow's ``_is_palette_needed`` is False: the image
+    reads as L)."""
     p = np.frombuffer(raw, np.uint8).reshape(-1, 3)
     if (p == np.arange(len(p), dtype=np.uint8)[:, None]).all():
         return None
-    full = np.zeros((256, 3), np.uint8)
-    full[:len(p)] = p[:256]
-    return full
+    return p[:256].copy()
 
 
 def _sub_blocks(data: bytes, pos: int) -> Tuple[bytes, int]:
@@ -94,6 +93,12 @@ def _first_frame(data: bytes) -> dict:
     raise OSError("GIF: image file is truncated (before the first frame)")
 
 
+def transparency(data: bytes) -> Optional[int]:
+    """Pillow's ``info["transparency"]`` of the first frame: the index
+    its graphic control extension marks transparent, or None."""
+    return _first_frame(data)["transparency"]
+
+
 def gif_header(data: bytes) -> Tuple[int, int, str]:
     """(h, w, Pillow's mode) of the first frame."""
     f = _first_frame(data)
@@ -102,7 +107,7 @@ def gif_header(data: bytes) -> Tuple[int, int, str]:
 
 
 def decode(data: bytes) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
-    """GIF bytes -> (indices uint8 [H, W], mode, palette [256, 3] for
+    """GIF bytes -> (indices uint8 [H, W], mode, palette [n, 3] for
     ``P``, None for ``L``)."""
     f = _first_frame(data)
     sw, sh = f["screen"]

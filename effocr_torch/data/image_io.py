@@ -130,11 +130,19 @@ def decode(path: str, data: Optional[bytes] = None
     return _named(path, fmt, mod.decode, data)
 
 
+def full_palette(palette: np.ndarray) -> np.ndarray:
+    """A palette of n entries as [256, 3]: the entries a file does not
+    give read black, as in Pillow."""
+    full = np.zeros((256, 3), np.uint8)
+    full[:min(len(palette), 256)] = palette[:256]
+    return full
+
+
 def to_rgb(px: np.ndarray, mode: str, palette: Optional[np.ndarray]
            ) -> np.ndarray:
     """Pixels of a mode -> uint8 [H, W, 3], Pillow's ``convert("RGB")``."""
     if mode == "P":
-        return palette[px]
+        return full_palette(palette)[px]
     if mode in ("1", "L"):
         return np.repeat(px[..., None], 3, axis=-1)
     if mode in ("I;16", "I;16B"):
@@ -162,7 +170,7 @@ def to_l(px: np.ndarray, mode: str, palette: Optional[np.ndarray]
     if mode == "LA":
         return np.ascontiguousarray(px[..., 0])
     if mode == "P":
-        return png.to_l(palette)[px]
+        return png.to_l(full_palette(palette))[px]
     return png.to_l(to_rgb(px, mode, palette))
 
 

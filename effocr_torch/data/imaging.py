@@ -12,9 +12,17 @@ the glyph tools' processes start fast):
 - ``getbbox``: ``Image.getbbox`` (any band non-zero);
 - ``crop``: ``Image.crop`` with a float box (Python's ``round``, black
   outside the image);
-- ``open_image`` / ``save_image`` / ``copy_image``: ``Image.open`` and
-  ``Image.save`` of a PNG in its own mode (L, RGB or RGBA), through
-  data/png.py (pixels and modes are Pillow's; the bytes are not).
+- ``open_image`` / ``save_image`` / ``copy_image``: ``Image.open`` (a
+  ``Picture``: pixels, mode, palette and ``info["transparency"]``) of
+  any file the port decodes, in any of its modes (1, L, P, LA, RGB,
+  RGBA, I;16, I;16B, CMYK), and ``Image.save`` of it as PNG through
+  data/png.py (pixels, modes, palettes and transparency are Pillow's;
+  the bytes are not; CMYK raises Pillow's ``OSError``);
+- ``resize_picture``: ``Image.resize(size)`` with its default filter,
+  mode by mode (NEAREST for 1 and P, BICUBIC through premultiplied alpha
+  for LA and RGBA, 16-bit BICUBIC for I;16, 8-bit BICUBIC otherwise);
+- ``digest_image`` / ``digest_tree``: SHA-256 of an image's mode,
+  samples, palette and transparency, and of a directory.
 """
 
 from __future__ import annotations
@@ -22,11 +30,11 @@ from __future__ import annotations
 import functools
 import math
 import os
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from effocr_torch.data import image_io, png
+from effocr_torch.data import gif, image_io, png
 
 # Pillow's fixed-point resampling precision (libImaging/Resample.c)
 _PRECISION_BITS = 32 - 8 - 2
@@ -64,14 +72,13 @@ _FILTERS = {"bilinear": (_bilinear, 1.0), "bicubic": (_bicubic, 2.0),
 
 
 @functools.lru_cache(maxsize=64)
-def _pil_coeffs(in_size: int, out_size: int, kind: str = "bilinear"
+def _pil_kernel(in_size: int, out_size: int, kind: str = "bilinear"
                 ) -> Tuple[np.ndarray, np.ndarray]:
     """Pillow's resample weights along one axis (libImaging/Resample.c
-    precompute_coeffs + normalize_coeffs_8bpc): output xx reads inputs
-    ``start[xx] + j`` with integer weight ``weights[xx, j]``, j < ksize.
-    The filter is widened by the scale on a downscale, each output's
-    weights are summed in input order and normalised in float64, then
-    rounded half away from zero to 22-bit fixed point."""
+    precompute_coeffs): output xx reads inputs ``start[xx] + j`` with
+    float64 weight ``k[xx, j]``, j < ksize (0 past the window).  The
+    filter is widened by the scale on a downscale, and each output's
+    weights are summed in input order and normalised."""
     kernel, support = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
@@ -91,6 +98,15 @@ def _pil_coeffs(in_size: int, out_size: int, kind: str = "bilinear"
         total += k[:, j]
     k = np.where(total[:, None] != 0.0,
                  k / np.where(total == 0.0, 1.0, total)[:, None], k)
+    return xmin, k
+
+
+@functools.lru_cache(maxsize=64)
+def _pil_coeffs(in_size: int, out_size: int, kind: str = "bilinear"
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """``_pil_kernel``'s weights as normalize_coeffs_8bpc makes them:
+    rounded half away from zero to 22-bit fixed point."""
+    xmin, k = _pil_kernel(in_size, out_size, kind)
     w = k * (1 << _PRECISION_BITS)
     return xmin, np.where(w < 0, np.trunc(w - 0.5), np.trunc(w + 0.5))
 
@@ -111,6 +127,72 @@ def _pil_pass(x: np.ndarray, coeffs: Tuple[np.ndarray, np.ndarray],
             np.int32).reshape(shape)
     acc = np.moveaxis(acc >> _PRECISION_BITS, 0, axis)
     return np.clip(acc, 0, 255).astype(np.uint8)
+
+
+def _pil_pass16(x: np.ndarray, kernel: Tuple[np.ndarray, np.ndarray],
+                axis: int) -> np.ndarray:
+    """One 16-bit pass along ``axis`` of uint16 [H, W]
+    (ImagingResample{Horizontal,Vertical}_16bpc): float64 sums in input
+    order, rounded half away from zero (ROUND_UP), then stored as
+    ``CLIP8(v % 256)`` low and ``CLIP8(v >> 8)`` high byte."""
+    start, k = kernel
+    src = np.moveaxis(x, axis, 0).astype(np.float64)
+    last = src.shape[0] - 1
+    acc = np.zeros((len(start),) + src.shape[1:], np.float64)
+    for j in range(k.shape[1]):
+        acc += src[np.minimum(start + j, last)] * k[:, j:j + 1]
+    v = np.where(acc >= 0, acc + 0.5, acc - 0.5).astype(np.int64)
+    lo = np.where(v < 0, 0, v & 255)
+    hi = np.clip(v >> 8, 0, 255)
+    return np.moveaxis((hi << 8 | lo).astype(np.uint16), 0, axis)
+
+
+def _nearest_rows(n_in: int, n_out: int) -> np.ndarray:
+    """ImagingScaleAffine's source index of each output row or column
+    (-1: none): the position steps by n_in / n_out from half a step, in
+    float64 added step by step, truncated."""
+    a = n_in / n_out
+    pos = a * 0.5
+    out = np.empty(n_out, np.int64)
+    for i in range(n_out):
+        v = -1 if pos < 0.0 else int(pos)
+        out[i] = v if v < n_in else -1
+        pos += a
+    return out
+
+
+def _nearest(px: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """``Image.resize(..., NEAREST)`` (ImagingScaleAffine, filling with 0
+    where no source pixel maps)."""
+    h, w = px.shape[:2]
+    xs, ys = _nearest_rows(w, out_w), _nearest_rows(h, out_h)
+    out = px[np.maximum(ys, 0)][:, np.maximum(xs, 0)]
+    out[ys < 0] = 0
+    out[:, xs < 0] = 0
+    return out
+
+
+def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    t = a.astype(np.uint32) * b.astype(np.uint32) + 128
+    return (((t >> 8) + t) >> 8).astype(np.uint8)
+
+
+def _premultiply(px: np.ndarray) -> np.ndarray:
+    """LA -> La / RGBA -> RGBa (Convert.c lA2la, rgbA2rgba)."""
+    a = px[..., -1:]
+    return np.concatenate([_muldiv255(px[..., :-1], a), a], axis=-1)
+
+
+def _unpremultiply(px: np.ndarray) -> np.ndarray:
+    """La -> LA / RGBa -> RGBA (Convert.c la2lA, rgba2rgbA): each colour
+    255 * c / alpha, truncated and clipped, where alpha is neither 0 nor
+    255."""
+    a = px[..., -1:].astype(np.uint32)
+    c = px[..., :-1].astype(np.uint32)
+    div = np.minimum(255 * c // np.maximum(a, 1), 255)
+    keep = (a == 0) | (a == 255)
+    return np.concatenate([np.where(keep, c, div).astype(np.uint8),
+                           px[..., -1:]], axis=-1)
 
 
 def pil_resize(img: np.ndarray, out_w: int, out_h: int,
@@ -186,35 +268,70 @@ def crop(img: np.ndarray, box: Sequence[float]) -> np.ndarray:
     return out
 
 
-def open_image(path: str) -> Tuple[np.ndarray, str]:
-    """(pixels, mode) as ``Image.open(path)`` holds them, for L, RGB and
-    RGBA images (PNG, or any format data/image_io.py decodes)."""
+class Picture(NamedTuple):
+    """An image as ``Image.open`` holds it.  ``px``: uint8 [H, W] for 1
+    (0 / 255), L and P (indices), uint8 [H, W, C] for LA, RGB, RGBA and
+    CMYK, uint16 [H, W] for I;16 and I;16B (the sample values);
+    ``palette``: [n, 3] uint8 of P (n entries, as Pillow keeps them);
+    ``transparency``: Pillow's ``info["transparency"]`` (an int, an
+    (r, g, b) tuple or P's alpha bytes), None without one."""
+    px: np.ndarray
+    mode: str
+    palette: Optional[np.ndarray] = None
+    transparency: Union[None, int, Tuple[int, ...], bytes] = None
+
+
+def _png_picture(data: bytes) -> Picture:
+    """PngImagePlugin's modes and rawmodes: gray below 8 bits scaled to
+    0-255 (1 bit opens as mode 1), 16-bit gray kept whole (I;16), 16-bit
+    colour and alpha cut to their high byte (gray + alpha at 16 bits opens
+    as RGBA)."""
+    px, hdr = png.decode(data)
+    ct, depth = hdr["color_type"], hdr["bit_depth"]
+    mode = png.pillow_mode(ct, depth)
+    if ct in (0, 3):
+        px = px[..., 0]
+        if ct == 0 and depth < 8:
+            px = px * np.uint8(255 // ((1 << depth) - 1))
+    elif depth == 16:
+        px = (px >> 8).astype(np.uint8)
+        if ct == 4:
+            px = px[..., [0, 0, 0, 1]]
+    return Picture(np.ascontiguousarray(px), mode,
+                   hdr["palette"] if ct == 3 else None,
+                   png.trns_info(hdr["trns"], mode))
+
+
+def open_image(path: str) -> Picture:
+    """``Image.open(path)``: pixels, mode, palette and transparency of a
+    PNG, or of any file data/image_io.py decodes, in the mode Pillow
+    opens it in."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(png.PNG_MAGIC):
-        px, hdr = png.decode(data)
-        mode = png.pillow_mode(hdr["color_type"], hdr["bit_depth"])
-        if mode == "L":
-            px = px[..., 0]
-    else:
-        px, mode, _ = image_io.decode(path, data)
-    if mode not in ("L", "RGB", "RGBA"):
-        raise NotImplementedError(
-            f"{path} opens in mode {mode}; keeping that mode on save is not "
-            f"ported (ROADMAP.md, queue 1)")
-    return np.ascontiguousarray(px, np.uint8), mode
+        return _png_picture(data)
+    px, mode, palette = image_io.decode(path, data)
+    trans = gif.transparency(data) if image_io.sniff(data[:16]) == "GIF" \
+        else None
+    return Picture(np.ascontiguousarray(px), mode, palette, trans)
 
 
-def save_image(path: str, img: np.ndarray) -> str:
-    """``Image.save`` as PNG: the same pixels and mode (zlib level 1, for
-    speed: the bytes are not Pillow's either way)."""
-    return png.write(path, img, level=1)
+def save_image(path: str, img: np.ndarray, mode: Optional[str] = None,
+               palette: Optional[np.ndarray] = None, transparency=None
+               ) -> str:
+    """``Image.save(path)`` as PNG: the same pixels, mode, palette and
+    transparency (zlib level 1, for speed: the bytes are not Pillow's
+    either way).  ``mode`` defaults to L, RGB or RGBA by the array's
+    channels; ``save_image(path, *picture)`` saves a ``Picture``.  A mode
+    PNG cannot hold (CMYK) raises ``OSError`` before the file is made."""
+    return png.write(path, img, level=1, mode=mode, palette=palette,
+                     transparency=transparency)
 
 
 def copy_image(src: str, dst: str) -> str:
     """``Image.open(src).save(dst)`` of a PNG: a file Pillow would open in
-    mode L, RGB or RGBA is copied as it is (the same pixels and mode);
-    anything else is decoded and written."""
+    mode L, RGB or RGBA at 8 bits is copied as it is (the same pixels,
+    mode and transparency); anything else is decoded and written."""
     import shutil
 
     with open(src, "rb") as f:
@@ -224,23 +341,60 @@ def copy_image(src: str, dst: str) -> str:
         os.makedirs(os.path.dirname(dst) or ".", exist_ok=True)
         shutil.copyfile(src, dst)
         return dst
-    return save_image(dst, open_image(src)[0])
+    return save_image(dst, *open_image(src))
 
 
-def digest_image(px: np.ndarray, mode: str) -> str:
-    """SHA-256 of an image's mode, shape and pixels (PNG bytes may differ
-    between writers; these may not)."""
+def resize_picture(pic: Picture, size: Tuple[int, int]) -> Picture:
+    """``Image.resize(size)`` with Pillow 12.1's default filter, mode by
+    mode: 1 and P with NEAREST (palette and transparency kept), LA and
+    RGBA through La / RGBa (premultiplied alpha) with BICUBIC, I;16 with
+    the 16-bit BICUBIC passes, every other mode with the 8-bit BICUBIC
+    passes.  The same size is a copy."""
+    w, h = size
+    px, mode = pic.px, pic.mode
+    if px.shape[1] == w and px.shape[0] == h:
+        return pic._replace(px=px.copy())
+    if mode in ("1", "P"):
+        return pic._replace(px=_nearest(px, w, h))
+    if mode in ("I;16", "I;16B"):
+        # Resample.c reads I;16B's bytes as little-endian too
+        v = px.byteswap() if mode == "I;16B" else px
+        if v.shape[1] != w:
+            v = _pil_pass16(v, _pil_kernel(v.shape[1], w, "bicubic"), 1)
+        if v.shape[0] != h:
+            v = _pil_pass16(v, _pil_kernel(v.shape[0], h, "bicubic"), 0)
+        return pic._replace(px=v.byteswap() if mode == "I;16B" else v)
+    if mode in ("LA", "RGBA"):
+        out = _unpremultiply(pil_resize(_premultiply(px), w, h, "bicubic"))
+        return pic._replace(px=out)
+    return pic._replace(px=resize(px, size, "bicubic"))
+
+
+def digest_image(px: np.ndarray, mode: str,
+                 palette: Optional[np.ndarray] = None,
+                 transparency=None) -> str:
+    """SHA-256 of an image's mode, shape and samples at their own dtype
+    (16-bit little-endian), then of its palette and transparency where
+    it has them (PNG bytes may differ between writers; these may not).
+    An L, RGB or RGBA image without transparency hashes as it always
+    has."""
     import hashlib
 
     h = hashlib.sha256(mode.encode())
     h.update(repr(tuple(px.shape)).encode())
-    h.update(np.ascontiguousarray(px, np.uint8).tobytes())
+    dt = "<u2" if px.dtype == np.uint16 else np.uint8
+    h.update(np.ascontiguousarray(px, dt).tobytes())
+    if palette is not None:
+        h.update(b"palette" + np.ascontiguousarray(palette, np.uint8)
+                 .tobytes())
+    if transparency is not None:
+        h.update(b"transparency" + repr(transparency).encode())
     return h.hexdigest()
 
 
 def digest_tree(root: str) -> str:
     """SHA-256 over a directory: every file's relative path, then for a
-    PNG its ``digest_image``, for anything else its bytes."""
+    PNG its ``digest_image`` (every mode), for anything else its bytes."""
     import hashlib
 
     h = hashlib.sha256()

@@ -20,9 +20,17 @@ native one for the files it takes, this module for the rest.
 ``read_png_l(path)`` is Pillow's ``convert("L")`` (``to_l``: ITU-R 601-2
 luma in Pillow's integer form), which is not the channel mean.
 
-``encode(img)`` / ``write(path, img)`` write gray, RGB and RGBA uint8
-arrays as 8-bit PNGs (filter None, zlib level 6): the pixels decode to
-the array, in Pillow too; the bytes are not Pillow's.
+``encode(img, mode=...)`` / ``write(path, img, mode=...)`` write an image
+in each mode ``Image.save`` writes as PNG, in Pillow's layout: ``1`` at
+bit depth 1, ``L``, ``LA``, ``RGB`` and ``RGBA`` at 8 bits, ``I;16`` /
+``I;16B`` as 16-bit gray, ``P`` at 1, 2, 4 or 8 bits by its palette's
+length, with ``PLTE`` and, from the transparency Pillow keeps in
+``info``, ``tRNS`` (every row filter None, zlib at ``level``).  The
+pixels, mode, palette and transparency reopen as Pillow's file's do; the
+bytes are not Pillow's.  Any other mode raises Pillow's ``OSError``
+("cannot write mode CMYK as PNG").  ``decode`` hands back the ``tRNS``
+chunk as it is (``trns``) and ``trns_info`` reads it as Pillow's
+``info["transparency"]``.
 
 Files that are not PNG raise: data/image_io.py reads JPEG, TIFF, BMP and
 GIF; anything else is refused (``not_png_error``), naming its format.
@@ -31,6 +39,7 @@ GIF; anything else is refused (``not_png_error``), naming its format.
 from __future__ import annotations
 
 import os
+import re
 import struct
 import zlib
 from typing import List, Optional, Sequence, Tuple
@@ -101,10 +110,32 @@ def not_png_error(path: str, head: bytes) -> Exception:
 
 
 def pillow_mode(color_type: int, bit_depth: int) -> str:
-    """The mode Pillow opens a PNG in."""
+    """The mode Pillow opens a PNG in (16-bit gray + alpha opens as
+    RGBA, through Pillow's rawmode ``LA;16B``)."""
     if color_type == 0:
         return {1: "1", 16: "I;16"}.get(bit_depth, "L")
+    if color_type == 4 and bit_depth == 16:
+        return "RGBA"
     return {2: "RGB", 3: "P", 4: "LA", 6: "RGBA"}[color_type]
+
+
+def trns_info(trns: Optional[bytes], mode: str):
+    """Pillow's ``info["transparency"]`` from a ``tRNS`` chunk in a PNG of
+    ``mode`` (PngImagePlugin's chunk_tRNS): the gray sample for 1, L and
+    I;16, the (r, g, b) samples for RGB, and for P the index of the one
+    fully transparent entry when every other entry is opaque, else the
+    alpha bytes; None when there is none."""
+    if trns is None:
+        return None
+    if mode == "P":
+        if re.fullmatch(rb"\xff*\x00\xff*", trns):
+            return trns.find(b"\0")
+        return trns
+    if mode in ("1", "L", "I;16"):
+        return struct.unpack(">H", trns[:2])[0]
+    if mode == "RGB":
+        return struct.unpack(">HHH", trns[:6])
+    return None
 
 
 def _chunks(data: bytes):
@@ -196,16 +227,19 @@ def _samples(rows: np.ndarray, width: int, depth: int, spp: int
 
 def decode(data: bytes) -> Tuple[np.ndarray, dict]:
     """PNG bytes -> (samples [H, W, spp] uint8 or uint16, header dict with
-    ``color_type``, ``bit_depth``, ``palette`` [n, 3] uint8 or None)."""
+    ``color_type``, ``bit_depth``, ``palette`` [n, 3] uint8 or None and
+    ``trns``, the ``tRNS`` chunk's bytes or None)."""
     if not data.startswith(PNG_MAGIC):
         raise ValueError("not a PNG stream")
-    ihdr = palette = None
+    ihdr = palette = trns = None
     idat = []
     for tag, body in _chunks(data):
         if tag == b"IHDR":
             ihdr = struct.unpack(">IIBBBBB", body[:13])
         elif tag == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"tRNS":
+            trns = bytes(body)
         elif tag == b"IDAT":
             idat.append(body)
     if ihdr is None:
@@ -235,7 +269,7 @@ def decode(data: bytes) -> Tuple[np.ndarray, dict]:
             pos += ph * (stride + 1)
             px[y0::dy, x0::dx] = _samples(rows, pw, depth, spp)
     return px, {"color_type": color_type, "bit_depth": depth,
-                "palette": palette}
+                "palette": palette, "trns": trns}
 
 
 def to_rgb(px: np.ndarray, hdr: dict) -> np.ndarray:
@@ -319,39 +353,109 @@ def read_png_l(path: str) -> np.ndarray:
     return to_l(to_rgb(px, hdr))
 
 
-# colour type by channel count of the array written
-_COLOR_TYPE = {1: 0, 3: 2, 4: 6}
+# (bit depth, colour type) of each mode Image.save writes as PNG (P's
+# depth follows its palette)
+_LAYOUT = {"1": (1, 0), "L": (8, 0), "LA": (8, 4), "I;16": (16, 0),
+           "I;16B": (16, 0), "P": (8, 3), "RGB": (8, 2), "RGBA": (8, 6)}
+# samples per pixel of the array, by mode
+_CHANNELS = {"1": 1, "L": 1, "LA": 2, "I;16": 1, "I;16B": 1, "P": 1,
+             "RGB": 3, "RGBA": 4}
+# the mode of a uint8 array, by channel count, when none is given
+_MODE_OF = {1: "L", 3: "RGB", 4: "RGBA"}
 
 
-def encode(img: np.ndarray, level: int = 6) -> bytes:
-    """uint8 [H, W] or [H, W, 1 | 3 | 4] -> PNG bytes (8-bit gray, RGB or
-    RGBA; every row filter None; zlib at ``level``)."""
+def _chunk(tag: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + tag + body
+            + struct.pack(">I", zlib.crc32(tag + body)))
+
+
+def _trns_chunk(mode: str, transparency, colors: int) -> bytes:
+    """The ``tRNS`` Pillow's PNG writer makes from ``info["transparency"]``
+    (nothing for 0-less falsy values, LA, RGBA and I;16B)."""
+    if not (transparency or transparency == 0):
+        return b""
+    if mode == "P":
+        if isinstance(transparency, bytes):
+            return _chunk(b"tRNS", transparency[:colors])
+        t = max(0, min(255, int(transparency)))
+        return _chunk(b"tRNS", (b"\xff" * t + b"\0")[:colors])
+    if mode in ("1", "L", "I;16"):
+        return _chunk(b"tRNS", struct.pack(
+            ">H", max(0, min(65535, int(transparency)))))
+    if mode == "RGB":
+        return _chunk(b"tRNS", struct.pack(">HHH", *transparency))
+    return b""
+
+
+def encode(img: np.ndarray, level: int = 6, mode: Optional[str] = None,
+           palette: Optional[np.ndarray] = None, transparency=None
+           ) -> bytes:
+    """An image -> PNG bytes, as ``Image.save`` lays it out (see the
+    module docstring).  ``img``: uint8 [H, W] or [H, W, C] (0 / 255 for
+    ``1``, indices for ``P``), uint16 [H, W] for ``I;16`` / ``I;16B``;
+    ``mode`` defaults to L, RGB or RGBA by channel count; ``palette``
+    [n, 3] uint8 for ``P``; ``transparency`` as Pillow's ``info`` holds
+    it."""
     a = np.asarray(img)
-    if a.dtype != np.uint8:
-        raise ValueError(f"PNG writer takes uint8, not {a.dtype}")
-    if a.ndim == 2:
-        a = a[..., None]
-    if a.ndim != 3 or a.shape[2] not in _COLOR_TYPE or 0 in a.shape[:2]:
-        raise ValueError(f"PNG writer takes [H, W] or [H, W, 1|3|4], not "
-                         f"{list(np.shape(img))}")
+    if mode is None:
+        if a.dtype != np.uint8:
+            raise ValueError(f"PNG writer takes uint8, not {a.dtype}")
+        c = 1 if a.ndim == 2 else (a.shape[2] if a.ndim == 3 else 0)
+        if c not in _MODE_OF or 0 in a.shape[:2]:
+            raise ValueError(f"PNG writer takes [H, W] or [H, W, 1|3|4], "
+                             f"not {list(np.shape(img))}")
+        mode = _MODE_OF[c]
+    if mode not in _LAYOUT:
+        raise OSError(f"cannot write mode {mode} as PNG")
+    want = np.uint16 if mode.startswith("I;16") else np.uint8
+    if a.dtype != want:
+        raise ValueError(f"PNG writer takes {np.dtype(want)} for mode "
+                         f"{mode}, not {a.dtype}")
+    a = a.reshape(a.shape[:2] + (-1,))
+    if a.shape[2] != _CHANNELS[mode] or 0 in a.shape[:2]:
+        raise ValueError(f"mode {mode} takes {_CHANNELS[mode]} channel(s), "
+                         f"not {list(np.shape(img))}")
     h, w, c = a.shape
-    rows = np.zeros((h, w * c + 1), np.uint8)
-    rows[:, 1:] = a.reshape(h, w * c)
+    depth, ct = _LAYOUT[mode]
+    colors = 0
+    extra = b""
+    if mode == "P":
+        colors = 256 if palette is None else max(min(len(palette), 256), 1)
+        depth = 1 if colors <= 2 else 2 if colors <= 4 else \
+            4 if colors <= 16 else 8
+        plte = np.zeros((colors, 3), np.uint8)
+        if palette is not None:
+            n = min(len(palette), colors)
+            plte[:n] = np.asarray(palette, np.uint8)[:n]
+        extra = _chunk(b"PLTE", plte.tobytes())
+    extra += _trns_chunk(mode, transparency, colors)
+    if depth == 16:
+        body = a.reshape(h, w * c).astype(">u2").view(np.uint8)
+    elif depth == 8:
+        body = a.reshape(h, w * c)
+    else:
+        v = (a[..., 0] != 0).astype(np.uint8) if mode == "1" else \
+            a[..., 0] & np.uint8((1 << depth) - 1)
+        per = 8 // depth
+        pad = np.zeros((h, -w % per), np.uint8)
+        v = np.concatenate([v, pad], axis=1).reshape(h, -1, per)
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        body = np.bitwise_or.reduce(v << shifts, axis=2).astype(np.uint8)
+    rows = np.zeros((h, body.shape[1] + 1), np.uint8)
+    rows[:, 1:] = body
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, ct, 0, 0, 0)
+    return (PNG_MAGIC + _chunk(b"IHDR", ihdr) + extra
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+            + _chunk(b"IEND", b""))
 
-    def chunk(tag: bytes, body: bytes) -> bytes:
-        return (struct.pack(">I", len(body)) + tag + body
-                + struct.pack(">I", zlib.crc32(tag + body)))
 
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
-    return (PNG_MAGIC + chunk(b"IHDR", ihdr)
-            + chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
-            + chunk(b"IEND", b""))
-
-
-def write(path: str, img: np.ndarray, level: int = 6) -> str:
-    """``encode(img, level)`` into ``path`` (parent directories made);
-    returns the path."""
+def write(path: str, img: np.ndarray, level: int = 6,
+          mode: Optional[str] = None, palette: Optional[np.ndarray] = None,
+          transparency=None) -> str:
+    """``encode`` into ``path`` (parent directories made); returns the
+    path.  A mode PNG cannot hold raises before the file is made."""
+    data = encode(img, level, mode, palette, transparency)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
-        f.write(encode(img, level))
+        f.write(data)
     return path

@@ -80,9 +80,10 @@ class GlyphCache:
         self._outline: Dict[int, tuple] = {}
 
     def outline(self, gid: int):
+        """(points, tags, contours, overlap) of the hinted glyph."""
         o = self._outline.get(gid)
         if o is None:
-            o = self._outline[gid] = self.size.outline(gid, hinted=True)
+            o = self._outline[gid] = self.size.glyph(gid, hinted=True)
         return o
 
     def cbox(self, gid: int) -> Tuple[int, int, int, int]:
@@ -105,14 +106,14 @@ class GlyphCache:
         FT_LOAD_RENDER in FT_RENDER_MODE_NORMAL."""
         r = self._bitmap.get(gid)
         if r is None:
-            pts, tags, cont = self.outline(gid)
+            pts, tags, cont, overlap = self.outline(gid)
             if len(pts) == 0:
                 r = (np.zeros((0, 0), np.uint8), 0, 0)
             else:
                 x0, y0, x1, y1 = self.cbox(gid)
                 shifted = pts - np.array([x0 * 64, y0 * 64], np.int64)
-                r = (native.render(shifted, tags, cont, x1 - x0, y1 - y0),
-                     x0, y1)
+                r = (native.render(shifted, tags, cont, x1 - x0, y1 - y0,
+                                   overlap), x0, y1)
             self._bitmap[gid] = r
         return r
 
@@ -132,6 +133,7 @@ class FreeTypeFont:
         self.path = os.path.abspath(path)
         self.size = int(size)
         self.font = sfnt.load(self.path)
+        self.font.check_size(self.size)
         mtime = os.path.getmtime(self.path)
         self.glyphs = _glyphs(self.path, mtime, self.size)
         f = self.font

@@ -11,10 +11,17 @@ sequences, which add no codepoint).  An ``OTTO`` font's ``CFF `` table
 read: FreeType's TrueType loader and gray renderer do not consult it.
 GSUB and GPOS are kept as bytes for fonts/shaping.py.
 
+Embedded bitmap strikes (``CBLC``, ``EBLC``, ``bloc`` or ``sbix``, the
+one FreeType's sfnt loader picks) are read down to their sizes and
+whether they hold any bitmap (``strikes``); ``check_size`` does what
+FT_Set_Pixel_Sizes does with them (see there).  A font with ``CBLC``
+strikes or an ``sbix`` table, or without outlines, is not scalable, as
+in FreeType.
+
 Refused with ``NotImplementedError`` naming the feature and ROADMAP.md
-queue 1: CFF2 outlines, TrueType collections, variable fonts, embedded
-bitmap strikes, and TrueType fonts without bytecode (FreeType renders
-those through its auto-hinter).
+queue 1: CFF2 outlines, TrueType collections, variable fonts, the sizes
+at which FreeType hands back a strike's bitmaps, and TrueType fonts
+without bytecode (FreeType renders those through its auto-hinter).
 """
 
 from __future__ import annotations
@@ -59,13 +66,16 @@ class Font:
             raise refuse("CFF2 outlines (OpenType 'CFF2')", path)
         if "fvar" in t or "gvar" in t:
             raise refuse("variable fonts (fvar / gvar)", path)
-        for name in ("EBDT", "EBLC", "CBDT", "CBLC", "sbix", "bdat"):
-            if name in t:
-                raise refuse(f"embedded bitmap strikes ({name.strip()})",
-                             path)
         self.cff = None
-        outlines = ("loca", "glyf") if "glyf" in t or "CFF " not in t \
-            else ("CFF ",)
+        self._read_strikes()
+        has_outlines = "glyf" in t or "CFF " in t
+        # sfnt_load_face: CBLC strikes or an sbix table make the face
+        # bitmap-only, as a missing glyf / CFF does
+        self.scalable = has_outlines and self.sbit_table != "CBLC" \
+            and "sbix" not in t
+        # a strikes-only font has no outline tables to read
+        outlines = () if not has_outlines and self.strikes else \
+            ("loca", "glyf") if "glyf" in t or "CFF " not in t else ("CFF ",)
         for name in ("head", "hhea", "maxp", "hmtx", "cmap") + outlines:
             if name not in t:
                 raise OSError(f"font without a '{name}' table: {path}")
@@ -78,20 +88,55 @@ class Font:
 
             self.cff = CFF(t["CFF "], self.units_per_em, path)
             self.num_glyphs = self.cff.num_glyphs
-        else:
+        elif outlines:
             self._read_loca()
             self.cvt = np.frombuffer(t.get("cvt ", b""),
                                      ">i2").astype(np.int16)
             self.fpgm = t.get("fpgm", b"")
             self.prep = t.get("prep", b"")
             if self.max_size_of_instructions == 0 and not self.fpgm \
-                    and not self.prep:
+                    and not self.prep and self.scalable:
                 raise refuse("TrueType fonts without bytecode (FreeType's "
                              "auto-hinter)", path)
         self.gsub = t.get("GSUB")
         self.gpos = t.get("GPOS")
         self.glyph_class = self._read_gdef_classes()
         self.cmap = self._read_cmap()
+
+    # ------------------------------------------------------------ strikes
+    def _read_strikes(self):
+        """``sbit_table``: the strike table FreeType's tt_face_load_sbit
+        picks (CBLC, else EBLC, else bloc, else sbix; the first three
+        only with a CBDT, EBDT or bdat table to read from); ``strikes``:
+        its [(x_ppem, y_ppem, holds a bitmap)], in file order."""
+        t = self.tables
+        self.sbit_table, self.strikes = None, []
+        name = next((n for n in ("CBLC", "EBLC", "bloc", "sbix") if n in t),
+                    None)
+        if name is None or (name != "sbix" and not any(
+                d in t for d in ("CBDT", "EBDT", "bdat"))):
+            return
+        self.sbit_table = name
+        self.strikes = _sbix_strikes(t[name]) if name == "sbix" else \
+            _bloc_strikes(t[name])
+
+    def check_size(self, ppem: int) -> None:
+        """What FT_Set_Pixel_Sizes(face, 0, ppem) and the glyph loads after
+        it do, as Pillow's ``truetype`` calls them: tt_size_request
+        selects the first strike whose x and y ppem both equal ``ppem``
+        (FT_Match_Size); where that strike holds bitmaps (or the face has
+        no outlines) FreeType hands them back instead of outlines, which
+        the port refuses.  A face without outlines and without a strike
+        at ``ppem`` fails with FreeType's "invalid pixel size"."""
+        for x, y, has in self.strikes:
+            if x == ppem and y == ppem:
+                if has or not self.scalable:
+                    raise refuse(f"embedded bitmap strikes ({self.sbit_table}"
+                                 f" at {ppem} ppem)", self.path)
+                return
+        if not self.scalable:
+            raise OSError(f"invalid pixel size: {self.path} has no scalable "
+                          f"outlines and no strike at {ppem} ppem")
 
     # ------------------------------------------------------------ tables
     def _read_head(self):
@@ -193,6 +238,82 @@ class Font:
         for _, _, m in self.cmap_subtables:
             cps.update(m)
         return sorted(cps)
+
+
+def _bloc_strikes(d: bytes) -> List[Tuple[int, int, bool]]:
+    """The bitmapSize records of an EBLC / CBLC / bloc table, as
+    tt_face_load_sbit reads them (version 2 or 3, either byte order of
+    it; as many records as the table holds)."""
+    if len(d) < 8:
+        return []
+    version, n = struct.unpack(">II", d[:8])
+    if (version & 0xFFFF0000) not in (0x20000, 0x30000) and \
+            (version & 0xFFFF) not in (0x200, 0x300):
+        return []
+    if n >= 0x10000:
+        return []
+    out = []
+    for i in range(min(n, (len(d) - 8) // 48)):
+        rec = d[8 + 48 * i: 56 + 48 * i]
+        arr, _, n_sub = struct.unpack(">III", rec[:12])
+        out.append((rec[44], rec[45], _holds_bitmaps(d, arr, n_sub)))
+    return out
+
+
+def _holds_bitmaps(d: bytes, arr: int, n_sub: int) -> bool:
+    """Whether any index subtable of a strike gives a glyph a non-empty
+    image (tt_sbit_decoder_load_image: equal offsets are a missing
+    glyph, which falls back to the outline)."""
+    try:
+        for j in range(n_sub):
+            first, last, add = struct.unpack(">HHI",
+                                             d[arr + 8 * j: arr + 8 * j + 8])
+            sub = arr + add
+            fmt = struct.unpack(">H", d[sub: sub + 2])[0]
+            n = last - first + 1
+            if n <= 0:
+                continue
+            if fmt in (1, 3):
+                code, size = (">I", 4) if fmt == 1 else (">H", 2)
+                offs = struct.unpack(f">{n + 1}{code[1]}",
+                                     d[sub + 8: sub + 8 + size * (n + 1)])
+                if any(a != b for a, b in zip(offs, offs[1:])):
+                    return True
+            elif fmt == 2:
+                if struct.unpack(">I", d[sub + 8: sub + 12])[0]:
+                    return True
+            elif fmt == 4:
+                k = struct.unpack(">I", d[sub + 8: sub + 12])[0]
+                pairs = struct.unpack(f">{2 * (k + 1)}H",
+                                      d[sub + 12: sub + 12 + 4 * (k + 1)])
+                if any(a != b for a, b in zip(pairs[1::2], pairs[3::2])):
+                    return True
+            elif fmt == 5:
+                size = struct.unpack(">I", d[sub + 8: sub + 12])[0]
+                k = struct.unpack(">I", d[sub + 20: sub + 24])[0]
+                if size and k:
+                    return True
+    except struct.error:
+        return False
+    return False
+
+
+def _sbix_strikes(d: bytes) -> List[Tuple[int, int, bool]]:
+    """The strikes of an sbix table (version >= 1, flags 1 or 3), each
+    holding its glyphs' images."""
+    if len(d) < 8:
+        return []
+    version, flags, n = struct.unpack(">HHI", d[:8])
+    if version < 1 or flags not in (1, 3) or n >= 0x10000:
+        return []
+    out = []
+    for i in range(min(n, (len(d) - 8) // 4)):
+        off = struct.unpack(">I", d[8 + 4 * i: 12 + 4 * i])[0]
+        if off + 4 > len(d):
+            break
+        ppem = struct.unpack(">H", d[off: off + 2])[0]
+        out.append((ppem, ppem, True))
+    return out
 
 
 def read_class_def(data: bytes, off: int) -> Dict[int, int]:

@@ -105,6 +105,64 @@ static int msb32(uint32_t z) {
   return shift;
 }
 
+// FT_Vector_Length (fttrigon.c): the CORDIC length of a vector, FT_Hypot
+static Long vector_length(Long vx, Long vy) {
+  if (vx == 0) return vy < 0 ? -vy : vy;
+  if (vy == 0) return vx < 0 ? -vx : vx;
+  // ft_trig_prenorm
+  Long ax = vx < 0 ? -vx : vx, ay = vy < 0 ? -vy : vy;
+  int shift = msb32((uint32_t)(ax | ay));
+  Long x, y;
+  if (shift <= 29) {
+    shift = 29 - shift;
+    x = (Long)((ULong)vx << shift);
+    y = (Long)((ULong)vy << shift);
+  } else {
+    shift -= 29;
+    x = vx >> shift;
+    y = vy >> shift;
+    shift = -shift;
+  }
+  // ft_trig_pseudo_polarize (the angle is not needed)
+  Long xtemp, b;
+  if (y > x) {
+    if (y > -x) {
+      xtemp = y;
+      y = -x;
+      x = xtemp;
+    } else {
+      x = -x;
+      y = -y;
+    }
+  } else if (y < -x) {
+    xtemp = -y;
+    y = x;
+    x = xtemp;
+  }
+  int i;
+  for (i = 1, b = 1; i < 23; b <<= 1, i++) {
+    if (y > 0) {
+      xtemp = x + ((y + b) >> i);
+      y = y - ((x + b) >> i);
+      x = xtemp;
+    } else {
+      xtemp = x - ((y + b) >> i);
+      y = y + ((x + b) >> i);
+      x = xtemp;
+    }
+  }
+  // ft_trig_downscale
+  int s = 1;
+  if (x < 0) {
+    x = -x;
+    s = -1;
+  }
+  uint64_t v = ((uint64_t)x * 0xDBD95B16UL + 0x40000000UL) >> 32;
+  x = s < 0 ? -(Long)v : (Long)v;
+  if (shift > 0) return (x + (1L << (shift - 1))) >> shift;
+  return (Long)((uint32_t)x << -shift);
+}
+
 // FT_Vector_NormLen: the vector scaled to unit length in 16.16
 static void vector_normlen(Long* vx, Long* vy) {
   int32_t x_ = (int32_t)*vx, y_ = (int32_t)*vy;
@@ -387,7 +445,6 @@ enum {
   ERR_TOO_MANY_DEFS = 12,
   ERR_TOO_LONG = 13,
   ERR_INVALID_GLYPH = 20,
-  ERR_UNSUPPORTED = 21,
 };
 
 static inline bool bounds(Long x, Long n) { return (ULong)x >= (ULong)n; }
@@ -2073,6 +2130,10 @@ struct Loader {
   Outline base;
   Vec pp1, pp2, pp3, pp4;
   int error = 0;
+  // FT_OUTLINE_OVERLAP: OVERLAP_SIMPLE on the first point of any simple
+  // glyph loaded, or OVERLAP_COMPOUND on the top glyph's first component
+  bool overlap = false;
+  int n_components = 0;
 };
 
 static inline int16_t rd16(const uint8_t* p) { return (int16_t)((p[0] << 8) | p[1]); }
@@ -2207,7 +2268,7 @@ static int load_glyph(Loader* ld, int gid, int depth) {
         for (; cnt > 0 && i < n_pts; cnt--) flags[i++] = fl;
       }
     }
-    if (n_pts > 0 && (flags[0] & 0x40)) return ERR_UNSUPPORTED;  // overlap flag
+    if (n_pts > 0 && (flags[0] & 0x40)) ld->overlap = true;  // OVERLAP_SIMPLE
     std::vector<Vec> pts(n_pts + 4);
     Long x = 0;
     for (int i = 0; i < n_pts; i++) {
@@ -2322,8 +2383,9 @@ static int load_glyph(Loader* ld, int gid, int depth) {
       s.yy = (Long)rd16(p + 6) * 4;
       p += 8;
     }
-    if (flags & 0x800) return ERR_UNSUPPORTED;  // scaled component offset
-    if (flags & 0x400) return ERR_UNSUPPORTED;  // overlap flag
+    // OVERLAP_COMPOUND counts on the first component of all the glyph
+    // loader's subglyphs (gloader->base.subglyphs[0]): the top glyph's
+    if (ld->n_components++ == 0 && (flags & 0x400)) ld->overlap = true;
     subs.push_back(s);
   } while (flags & 0x20);
   const uint8_t* ins_pos = p;
@@ -2367,6 +2429,12 @@ static int load_glyph(Loader* ld, int gid, int depth) {
       x = s.arg1;
       y = s.arg2;
       if (!x && !y) continue;
+      if (have_scale && (s.flags & 0x800)) {
+        // SCALED_COMPONENT_OFFSET (FreeType's default build scales only
+        // then): the offset times the transform's column lengths
+        x = mul_fix(x, vector_length(s.xx, s.xy));
+        y = mul_fix(y, vector_length(s.yy, s.yx));
+      }
       x = mul_fix(x, xs);
       y = mul_fix(y, ys);
       if ((s.flags & 4) && ld->hinted) y = pix_round(y);
@@ -4216,7 +4284,7 @@ void eg_size_free(void* s) { delete (Size*)s; }
 // sizes (callers retry with larger buffers when they exceed the caps).
 int eg_load(void* size, int gid, int hinted, int64_t* xy, uint8_t* tags,
             int16_t* contours, int cap_pts, int cap_contours, int* n_pts,
-            int* n_contours, int64_t* pp1x) {
+            int* n_contours, int64_t* pp1x, int* overlap) {
   Size* sz = (Size*)size;
   Loader ld;
   ld.sz = sz;
@@ -4230,6 +4298,7 @@ int eg_load(void* size, int gid, int hinted, int64_t* xy, uint8_t* tags,
   *n_pts = (int)ld.base.pts.size();
   *n_contours = (int)ld.base.contours.size();
   *pp1x = ld.pp1.x;
+  *overlap = ld.overlap ? 1 : 0;
   if (*n_pts > cap_pts || *n_contours > cap_contours) return -1;
   for (int i = 0; i < *n_pts; i++) {
     xy[2 * i] = ld.base.pts[i].x - ld.pp1.x;
@@ -4241,25 +4310,32 @@ int eg_load(void* size, int gid, int hinted, int64_t* xy, uint8_t* tags,
 }
 
 // Renders an outline (26.6, already shifted into [0, width*64) x [0,
-// rows*64)) into a top-down gray bitmap of `rows' x `width'.
+// rows*64)) into a top-down gray bitmap of `rows' x `width'.  With
+// `overlap' (FT_OUTLINE_OVERLAP) it is ft_smooth_raster_overlap: the
+// outline scaled 4x in each direction is rasterized over a 4x clip box,
+// and each subpixel's coverage, rounded to 1/16 ((c + 8) / 16), is added
+// into its pixel, a sum of 256 kept at 255 (sum - (sum >> 8)).
 void eg_render(const int64_t* xy, const uint8_t* tags, const int16_t* contours,
-               int n_pts, int n_contours, int width, int rows, uint8_t* out) {
+               int n_pts, int n_contours, int width, int rows, int overlap,
+               uint8_t* out) {
+  const int S = overlap ? 4 : 1;
   gray::Raster r;
-  r.width = width;
-  r.rows = rows;
-  r.cells.assign((size_t)rows * (width + 1), {0, 0});
+  r.width = width * S;
+  r.rows = rows * S;
+  r.cells.assign((size_t)r.rows * (r.width + 1), {0, 0});
   r.dump = {0, 0};
   r.x = r.y = 0;
   r.cell = &r.dump;
   std::vector<Vec> pts(n_pts);
-  for (int i = 0; i < n_pts; i++) pts[i] = {xy[2 * i], xy[2 * i + 1]};
+  for (int i = 0; i < n_pts; i++) pts[i] = {xy[2 * i] * S, xy[2 * i + 1] * S};
   gray::decompose(r, pts.data(), tags, contours, n_contours);
-  for (int y = 0; y < rows; y++) {
-    uint8_t* line = out + (size_t)(rows - 1 - y) * width;
+  if (overlap) memset(out, 0, (size_t)rows * width);
+  for (int y = 0; y < r.rows; y++) {
+    uint8_t* line = out + (size_t)(rows - 1 - y / S) * width;
     Long cover = 0;
-    const gray::Cell* c = &r.cells[(size_t)y * (width + 1)];
+    const gray::Cell* c = &r.cells[(size_t)y * (r.width + 1)];
     cover += c[0].cover * (gray::ONE_PIXEL * 2);
-    for (int x = 0; x < width; x++) {
+    for (int x = 0; x < r.width; x++) {
       cover += c[x + 1].cover * (gray::ONE_PIXEL * 2);
       Long area = cover - c[x + 1].area;
       int coverage = 0;
@@ -4268,7 +4344,12 @@ void eg_render(const int64_t* xy, const uint8_t* tags, const int16_t* contours,
         if (coverage & INT32_MIN) coverage = ~coverage;
         if (coverage > 255) coverage = 255;
       }
-      line[x] = (uint8_t)coverage;
+      if (!overlap) {
+        line[x] = (uint8_t)coverage;
+      } else if (coverage) {
+        unsigned sum = line[x / S] + (unsigned)(coverage + S * S / 2) / (S * S);
+        line[x / S] = (uint8_t)(sum - (sum >> 8));
+      }
     }
   }
 }

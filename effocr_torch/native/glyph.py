@@ -1,7 +1,9 @@
 """ctypes binding for glyph.cpp: TrueType outlines scaled and hinted as
-FreeType 2.14 does by default (the v40 bytecode interpreter), CFF
-outlines through its default Adobe engine (``CFFFace``), FreeType's gray
-rasterizer, and Pillow's Gaussian blur.
+FreeType 2.14 does by default (the v40 bytecode interpreter; composite
+offsets scaled where SCALED_COMPONENT_OFFSET asks; the overlap flags
+carried out as FT_OUTLINE_OVERLAP), CFF outlines through its default
+Adobe engine (``CFFFace``), FreeType's gray rasterizer (with its 4x
+oversampled pass for overlapping outlines), and Pillow's Gaussian blur.
 
 The library is compiled with g++ on first use into ``libglyph.so`` next
 to its source (git-ignored), rebuilt when the source is newer, written
@@ -24,8 +26,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "glyph.cpp")
 _LIB = os.path.join(_HERE, "libglyph.so")
 
-# error codes of glyph.cpp that are not program faults
-_UNSUPPORTED = 21
+# error code of glyph.cpp that is not a program fault: buffers too small
 _TOO_SMALL = -1
 
 _lib = None
@@ -77,8 +78,9 @@ def _load():
         lib.eg_size_free.argtypes = [P]
         lib.eg_load.restype = I
         lib.eg_load.argtypes = [P, I, I, P, P, P, I, I, ctypes.POINTER(I),
-                                ctypes.POINTER(I), ctypes.POINTER(L)]
-        lib.eg_render.argtypes = [P, P, P, I, I, I, I, P]
+                                ctypes.POINTER(I), ctypes.POINTER(L),
+                                ctypes.POINTER(I)]
+        lib.eg_render.argtypes = [P, P, P, I, I, I, I, I, P]
         lib.eg_cff_face_new.restype = P
         lib.eg_cff_face_new.argtypes = [P, L, I, P, I, P, P, I, P, P, P, P,
                                         P, I, I]
@@ -160,33 +162,35 @@ class Size:
             self._lib.eg_size_free(self.handle)
             self.handle = None
 
-    def outline(self, gid: int, hinted: bool = True
-                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    def glyph(self, gid: int, hinted: bool = True
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, bool]:
         """(points int64 [N, 2] in 26.6, tags uint8 [N] (bit 0: on the
-        curve), contour end indices int16 [C]) of glyph ``gid``."""
+        curve), contour end indices int16 [C], FT_OUTLINE_OVERLAP) of
+        glyph ``gid``."""
         cap_p, cap_c = 512, 64
         while True:
             xy = np.zeros((cap_p, 2), np.int64)
             tags = np.zeros(cap_p, np.uint8)
             cont = np.zeros(cap_c, np.int16)
             n_p, n_c, pp1 = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int64(0)
+            overlap = ctypes.c_int(0)
             rc = self._lib.eg_load(self.handle, int(gid), int(hinted),
                                    _ptr(xy), _ptr(tags), _ptr(cont), cap_p,
                                    cap_c, ctypes.byref(n_p), ctypes.byref(n_c),
-                                   ctypes.byref(pp1))
+                                   ctypes.byref(pp1), ctypes.byref(overlap))
             if rc == _TOO_SMALL:
                 cap_p, cap_c = max(cap_p, n_p.value), max(cap_c, n_c.value)
                 continue
-            if rc == _UNSUPPORTED:
-                from effocr_torch.fonts.sfnt import refuse
-
-                raise refuse("overlap-flagged or offset-scaled glyph "
-                             f"{gid}", self.face.font.path)
             if rc:
                 raise OSError(f"glyph {gid} of {self.face.font.path} does not "
                               f"load (error {rc})")
             return (xy[: n_p.value].copy(), tags[: n_p.value].copy(),
-                    cont[: n_c.value].copy())
+                    cont[: n_c.value].copy(), bool(overlap.value))
+
+    def outline(self, gid: int, hinted: bool = True
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``glyph`` without the overlap flag."""
+        return self.glyph(gid, hinted)[:3]
 
 
 # fd_params layout of eg_cff_face_new (CFF_FD_PARAMS int32 per FD)
@@ -295,6 +299,11 @@ class CFFSize:
     def outline(self, gid: int, hinted: bool = True):
         return self.load(gid, hinted)[:3]
 
+    def glyph(self, gid: int, hinted: bool = True):
+        """``Size.glyph``'s interface: FreeType's CFF loader sets no
+        overlap flag."""
+        return self.load(gid, hinted)[:3] + (False,)
+
 
 def open_face(font):
     """The native face of a parsed font: ``CFFFace`` for CFF outlines,
@@ -303,18 +312,23 @@ def open_face(font):
 
 
 def render(points: np.ndarray, tags: np.ndarray, contours: np.ndarray,
-           width: int, rows: int) -> np.ndarray:
+           width: int, rows: int, overlap: bool = False) -> np.ndarray:
     """FreeType's gray rasterizer: the outline (26.6, bitmap coordinates,
-    y up) into a top-down uint8 [rows, width] coverage bitmap."""
+    y up) into a top-down uint8 [rows, width] coverage bitmap; with
+    ``overlap`` (FT_OUTLINE_OVERLAP), ft_smooth_raster_overlap's 4x
+    oversampled pass."""
     lib = _load()
     out = np.zeros((rows, width), np.uint8)
     if rows == 0 or width == 0 or len(contours) == 0:
         return out
+    if overlap and width * 4 > 0x7FFF:
+        raise OSError("raster overflow: an overlapping outline "
+                      f"{width} px wide")
     pts = np.ascontiguousarray(points, np.int64)
     tg = np.ascontiguousarray(tags, np.uint8)
     ct = np.ascontiguousarray(contours, np.int16)
     lib.eg_render(_ptr(pts), _ptr(tg), _ptr(ct), len(pts), len(ct),
-                  int(width), int(rows), _ptr(out))
+                  int(width), int(rows), int(overlap), _ptr(out))
     return out
 
 

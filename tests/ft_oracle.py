@@ -5,7 +5,11 @@ Pillow ships (pillow.libs), never imported by effocr_torch.
 outline points, rendered bitmaps and advances (and a CFF font's
 ItalicAngle as FreeType parsed it), so each stage of the port's
 renderer (fonts/, native/glyph.cpp) can be held to FreeType
-2.14 exactly.  ``FTFace.hb_shape`` runs HarfBuzz through its FreeType
+2.14 exactly.  ``face_info(path)`` gives a face's flags and bitmap
+strikes, ``set_size_error(path, ppem)`` what FT_Set_Pixel_Sizes
+returns (Pillow's ``truetype`` raises when it is not 0), and
+``FTFace.glyph_kind`` / ``outline_flags`` the glyph slot's format and
+outline flags after FT_LOAD_DEFAULT.  ``FTFace.hb_shape`` runs HarfBuzz through its FreeType
 font functions (HarfBuzz's default load flags, as raqm leaves them for
 Pillow).
 """
@@ -21,6 +25,12 @@ import numpy as np
 FT_LOAD_DEFAULT = 0
 FT_LOAD_NO_HINTING = 1 << 1
 FT_LOAD_RENDER = 1 << 2
+FT_FACE_FLAG_SCALABLE = 1 << 0
+FT_FACE_FLAG_FIXED_SIZES = 1 << 1
+FT_OUTLINE_OVERLAP = 0x40
+# FT_Glyph_Format tags
+GLYPH_FORMATS = {0x62697473: "bitmap", 0x6F75746C: "outline",
+                 0x636F6D70: "composite", 0: "none"}
 
 
 def _pillow_lib(stem: str) -> str:
@@ -111,6 +121,12 @@ class _PSFontInfo(ctypes.Structure):
                 ("underline_thickness", ctypes.c_ushort)]
 
 
+class _BitmapSize(ctypes.Structure):
+    _fields_ = [("height", ctypes.c_short), ("width", ctypes.c_short),
+                ("size", ctypes.c_long), ("x_ppem", ctypes.c_long),
+                ("y_ppem", ctypes.c_long)]
+
+
 class _HBInfo(ctypes.Structure):
     _fields_ = [("codepoint", ctypes.c_uint32), ("mask", ctypes.c_uint32),
                 ("cluster", ctypes.c_uint32), ("var1", ctypes.c_uint32),
@@ -178,6 +194,40 @@ def _harfbuzz():
     return _hb
 
 
+def _open(path: str):
+    ft = _freetype()
+    face = ctypes.POINTER(_Face)()
+    assert ft.FT_New_Face(_library, path.encode(), 0,
+                          ctypes.byref(face)) == 0
+    return face
+
+
+def face_info(path: str) -> dict:
+    """``scalable``, ``fixed_sizes`` (the face flags) and ``strikes``, the
+    available sizes' (x_ppem, y_ppem) in whole pixels."""
+    face = _open(path)
+    try:
+        f = face.contents
+        sizes = ctypes.cast(f.available_sizes, ctypes.POINTER(_BitmapSize))
+        strikes = [(sizes[i].x_ppem >> 6, sizes[i].y_ppem >> 6)
+                   for i in range(f.num_fixed_sizes)]
+        return {"scalable": bool(f.face_flags & FT_FACE_FLAG_SCALABLE),
+                "fixed_sizes": bool(f.face_flags & FT_FACE_FLAG_FIXED_SIZES),
+                "strikes": strikes}
+    finally:
+        _ft.FT_Done_Face(face)
+
+
+def set_size_error(path: str, ppem: int) -> int:
+    """FT_Set_Pixel_Sizes(face, 0, ppem)'s error code (0: the size is
+    set)."""
+    face = _open(path)
+    try:
+        return _ft.FT_Set_Pixel_Sizes(face, 0, ppem)
+    finally:
+        _ft.FT_Done_Face(face)
+
+
 class FTFace:
     """A FreeType face at ``ppem`` pixels (Pillow's FT_Set_Pixel_Sizes)."""
 
@@ -199,6 +249,20 @@ class FTFace:
 
     def char_index(self, cp: int) -> int:
         return _ft.FT_Get_Char_Index(self.face, cp)
+
+    def glyph_kind(self, gid: int) -> str:
+        """The glyph slot's format after FT_LOAD_DEFAULT, Pillow's load:
+        "bitmap" where a strike's bitmap is handed back, else
+        "outline"."""
+        assert _ft.FT_Load_Glyph(self.face, gid, FT_LOAD_DEFAULT) == 0
+        fmt = self.face.contents.glyph.contents.format
+        return GLYPH_FORMATS.get(fmt, hex(fmt))
+
+    def outline_flags(self, gid: int, hinted: bool = True) -> int:
+        """The loaded outline's flags (FT_OUTLINE_OVERLAP among them)."""
+        flags = FT_LOAD_DEFAULT if hinted else FT_LOAD_NO_HINTING
+        assert _ft.FT_Load_Glyph(self.face, gid, flags) == 0
+        return self.face.contents.glyph.contents.outline.flags
 
     def outline(self, gid: int, hinted: bool = True):
         flags = FT_LOAD_DEFAULT if hinted else FT_LOAD_NO_HINTING

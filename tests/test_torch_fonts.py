@@ -707,7 +707,21 @@ def test_refusals_name_their_feature(case, feature, tmp_path):
     elif case == "variable":
         p.write_bytes(_sfnt(b"\0\1\0\0", {b"fvar": b"\0" * 8}))
     elif case == "bitmap":
-        p.write_bytes(_sfnt(b"\0\1\0\0", {b"EBDT": b"\0" * 8}))
+        # a real EBLC / EBDT strike at the size asked for: FreeType hands
+        # its bitmaps back there
+        from fontTools.ttLib import TTFont
+
+        from torch_fixtures import make_bitmap_fonts as mb
+
+        f = TTFont(font_path("DejaVuSansMono.ttf"))
+        g = f.getGlyphOrder().index(f.getBestCmap()[ord("a")])
+        tables = mb.eblc_ebdt([{
+            "ppem_x": 32, "ppem_y": 32, "depth": 1, "index_format": 1,
+            "image_format": 2, "first": g, "last": g,
+            "bitmaps": {g: (np.ones((3, 2), np.uint8), 1, 3, 4)}}])
+        for tag, data in zip(("EBLC", "EBDT"), tables):
+            f[tag] = mb._raw_table(tag, data)
+        f.save(str(p))
     elif case == "no_bytecode":
         from fontTools.ttLib import TTFont
 

@@ -21,6 +21,17 @@ the golden ``_LazyImage`` arrays), into ``tests/torch_fixtures/images/``:
   Pillow's ``convert("RGB")`` and ``convert("L")`` and of the JAX
   package's ``_LazyImage(path, gray).load()`` for gray True and False.
 
+    python tests/torch_fixtures/make_images.py --mode_pages
+
+writes only ``tests/torch_fixtures/mode_pages/`` (beside ``images/``,
+whose listing the decoder tests pin): four sets of three en text lines rendered with
+Pillow in DejaVu Sans, each with its COCO JSON (char boxes, cat 0, and
+each line's ``text``): ``g4`` as group 4 bilevel TIFF, ``palette`` as a
+palette PNG with ``tRNS``, ``i16`` as 16-bit gray (I;16) TIFF and ``la``
+as gray + alpha PNG; and ``mode_pages/golden.npz``, the ``digest_tree`` of
+the crops and the tree the JAX ``format-dataset --spaces
+--clip_to_top_and_bottom`` writes over each (``mode_page_argv``).
+
 The writers (``baseline_jpeg``, ``tiff_bytes``, ``bmp_bytes``,
 ``gif_bytes``) build files Pillow cannot write: any JPEG sampling
 factors, any TIFF tag set and byte order, BMP headers, bitfields and RLE
@@ -31,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import json
 import os
 import struct
 import sys
@@ -40,6 +52,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "images")
+MODE_PAGES_DIR = os.path.join(HERE, "mode_pages")
 SEED = 13
 N_LINES = 32          # of each kind, gray and RGB
 INK = (28, 22, 60)
@@ -641,10 +654,147 @@ def golden_entry(name: str, arrays: Dict[str, np.ndarray]
     return out
 
 
+# ---------------------------------------------------- mode pages
+MODE_PAGES = ("g4", "palette", "i16", "la")
+MODE_PAGE_FORMAT = ["--cat_id", "0", "--spaces", "--clip_to_top_and_bottom"]
+_WORDS = ("Quick", "brown", "fox", "jumps", "over", "lazy", "dogs", "42",
+          "times", "(again)", "&", "then", "7.5%", "more;", "WAX", "kept",
+          "vigil,", "ZEBRA", "#19", "quiz!", "$80", "yes/no", "[x]", "hi?")
+
+
+def render_mode_lines(seed: int, n: int = 3):
+    """``n`` gray text lines (DejaVu Sans at 28 px): [(uint8 [h, w], text,
+    [[x, y, w, h] per non-space char])]."""
+    from PIL import Image, ImageDraw, ImageFont
+
+    font = ImageFont.truetype(os.path.join(HERE, "fonts", "DejaVuSans.ttf"),
+                              28)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        words = [_WORDS[i] for i in rng.choice(len(_WORDS), 5, False)]
+        text = " ".join(words)
+        w = int(font.getlength(text)) + 16
+        im = Image.new("L", (w, 40), 236)
+        d = ImageDraw.Draw(im)
+        x, boxes = 8.0, []
+        for c in text:
+            if c != " ":
+                d.text((x, 4), c, fill=int(rng.integers(10, 60)), font=font)
+                l, t, r, b = d.textbbox((x, 4), c, font=font)
+                boxes.append([float(l), float(t), float(r - l),
+                              float(b - t)])
+            x += font.getlength(c)
+        out.append((np.asarray(im), text, boxes))
+    return out
+
+
+def _mode_page_image(kind: str, gray: np.ndarray, rng):
+    """(Pillow image, extension, save keywords) of one line in a page's
+    mode."""
+    from PIL import Image
+
+    if kind == "g4":
+        return (Image.fromarray(gray).point(lambda v: 255 if v > 140 else 0)
+                .convert("1"), ".tif", {"compression": "group4"})
+    if kind == "palette":
+        levels = np.array([236, 180, 120, 60, 20], np.int64)
+        idx = np.abs(gray[..., None].astype(np.int64) - levels).argmin(-1)
+        im = Image.fromarray(idx.astype(np.uint8), "P")
+        pal = [236, 230, 214, 170, 160, 190, 110, 90, 140, 50, 40, 90, 15,
+               10, 40]
+        im.putpalette(pal)
+        return im, ".png", {"transparency": 0}
+    if kind == "i16":
+        v = gray.astype(np.int64) * 257 + rng.integers(0, 200, gray.shape)
+        return (Image.fromarray(np.minimum(v, 65535).astype(np.uint16)),
+                ".tif", {})
+    alpha = np.where(gray < 200, 255, 96 + (gray % 64)).astype(np.uint8)
+    return Image.merge("LA", (Image.fromarray(gray),
+                              Image.fromarray(alpha))), ".png", {}
+
+
+def make_mode_pages(out: str) -> None:
+    """<out>/<page>/images/*, <out>/<page>/coco.json for each page."""
+    for p, kind in enumerate(MODE_PAGES):
+        d = os.path.join(out, kind)
+        os.makedirs(os.path.join(d, "images"), exist_ok=True)
+        rng = np.random.default_rng(100 + p)
+        coco = {"images": [], "annotations": [],
+                "categories": [{"id": 0, "name": "char"}]}
+        for i, (gray, text, boxes) in enumerate(render_mode_lines(100 + p)):
+            im, ext, kw = _mode_page_image(kind, gray, rng)
+            name = f"{kind}_{i}{ext}"
+            im.save(os.path.join(d, "images", name), **kw)
+            coco["images"].append({"id": i + 1, "file_name": name,
+                                   "width": gray.shape[1],
+                                   "height": gray.shape[0], "text": text})
+            for b in boxes:
+                coco["annotations"].append({
+                    "id": len(coco["annotations"]) + 1, "image_id": i + 1,
+                    "category_id": 0, "bbox": b})
+        with open(os.path.join(d, "coco.json"), "w") as f:
+            json.dump(coco, f, indent=1)
+
+
+def mode_page_argv(page: str, work: str, pages: str = None) -> List[str]:
+    """``format-dataset`` flags over one mode page into ``work`` (crops/,
+    tree/; an empty font dir and a charset dir of the page's characters
+    made there)."""
+    d = os.path.join(pages or MODE_PAGES_DIR, page)
+    with open(os.path.join(d, "coco.json")) as f:
+        chars = sorted({c for im in json.load(f)["images"]
+                        for c in im["text"] if c != " "})
+    fonts, charsets = os.path.join(work, "fonts"), os.path.join(
+        work, "charsets_eng")
+    os.makedirs(fonts, exist_ok=True)
+    os.makedirs(charsets, exist_ok=True)
+    with open(os.path.join(charsets, "eng_chars.txt"), "w") as f:
+        f.write("\n".join(f"{ord(c)}\t{c}" for c in chars))
+    return ["--image_dir", os.path.join(d, "images"), "--coco_jsons",
+            os.path.join(d, "coco.json"), "--crops_save_dir",
+            os.path.join(work, "crops"), "--font_dir", fonts,
+            "--charset_dir", charsets, "--dataset_save_dir",
+            os.path.join(work, "tree"), *MODE_PAGE_FORMAT]
+
+
+def mode_page_goldens(out: str) -> None:
+    """The JAX ``format-dataset`` over each page: <out>/golden.npz."""
+    import tempfile
+
+    from effocr_tpu.cli import format_dataset
+    from effocr_torch.data.imaging import digest_tree
+
+    golden = {}
+    for page in MODE_PAGES:
+        work = tempfile.mkdtemp()
+        old = sys.argv
+        sys.argv = ["format-dataset"] + mode_page_argv(page, work, out)
+        try:
+            format_dataset.main()
+        finally:
+            sys.argv = old
+        golden[f"{page}|tree"] = np.array(digest_tree(os.path.join(work,
+                                                                   "tree")))
+        golden[f"{page}|crops"] = np.array(digest_tree(os.path.join(
+            work, "crops")))
+    np.savez(os.path.join(out, "golden.npz"), **golden)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--out", default=OUT)
+    p.add_argument("--mode_pages", action="store_true",
+                   help="write only the page fixtures in 1, P, I;16 and LA "
+                        "(into --out, default tests/torch_fixtures/"
+                        "mode_pages) and their golden.npz")
     args = p.parse_args(argv)
+    if args.mode_pages:
+        out = MODE_PAGES_DIR if args.out == OUT else args.out
+        make_mode_pages(out)
+        mode_page_goldens(out)
+        print(f"{len(MODE_PAGES)} mode pages -> {out}")
+        return 0
     names = make_files(args.out)
     golden = {}
     for name in names:
