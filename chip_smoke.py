@@ -115,7 +115,7 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    - train_fcos / train_rcnn: ``train-localizer --arch fcos_s / rcnn_s``
      with the fcos_train recipe of scripts/chain_r5b.sh:21-27 (1024
      wide, heights 64 and 96, gray, batch 16, resident bank; depth cut to
-     3 epochs of the first 1,000 of phase train_localizer's 2,000 train
+     3 epochs of the first 500 of phase train_localizer's 2,000 train
      lines, one evaluation) on its val and test splits, run in
      this process with every K1 call checked; steps/s, images/s, losses,
      AP and peak memory;
@@ -252,17 +252,21 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    - image_formats: JPEG, TIFF, BMP and GIF input on the machine without
      Pillow: every committed fixture of tests/torch_fixtures/images/
      (64 JPEG lines, one file per decoder branch, a 2550 x 3300 page as
-     JPEG and group4 TIFF) decoded and held to golden.npz (Pillow 12.1's
-     RGB and L conversions, the JAX package's _LazyImage arrays, by
-     SHA-256); host decode rates (the page on one thread and 8 copies as
-     one batch, the lines one at a time and as one batch); ``infer
+     JPEG and group4 TIFF, the TIFF layouts: tiles, BigTIFF, separate
+     planes, orientations, 4-bit and 16-bit samples) decoded and held to
+     golden.npz (Pillow 12.1's RGB and L conversions, the JAX package's
+     _LazyImage arrays, by SHA-256); host decode rates (the page on one
+     thread and 8 copies as one batch, the group4 page, the page as 256 x
+     256 Deflate tiles with predictor 2 written here, the lines one at a
+     time and as one batch); ``infer
      --infer_over_img_dir`` with BENCH_TRAINED.json's flags on 256
      JPEG line paths and on the same lines as PNGs (identical text and
      COCO output, every K1 call held bit for bit; K1's launches counted
      from 0 around the JPEG run), the same engine timed on both lists
      (lines/s, host decode ms a chunk, header ms); 16 mixed .jpg / .tif
-     / .bmp requests through ``serve``, answered as ``engine.run``
-     answers them (K1 checked in process).
+     / .bmp requests (a tiled and an orientation-6 .tif among them)
+     through ``serve``, answered as ``engine.run`` answers them (K1
+     checked in process).
    - fonts: the port's own glyph renderer (native/glyph.cpp: FreeType's
      v40 hinting, its Adobe engine for CFF and the gray rasterizer;
      fonts/: the sfnt and CFF readers, shaping, Pillow's text drawing)
@@ -2520,8 +2524,9 @@ XCIT_ARCH = "xcit_small_12_p8_224"
 CHARS_TARGET, WORDS_TARGET = 26.0, 5.0
 # the fcos_train recipe of scripts/chain_r5b.sh:21-27 at full width (1024
 # wide, heights 64 and 96, gray, batch 16, resident bank); depth cut to 3
-# epochs of N_FAMILY_TRAIN_LINES lines, one evaluation
-N_FAMILY_TRAIN_LINES = 1000
+# epochs of N_FAMILY_TRAIN_LINES lines (1,000 until the TIFF layouts
+# joined image_formats), one evaluation
+N_FAMILY_TRAIN_LINES = 500
 FAMILY_TRAIN_FLAGS = ["--input_size", "1024", "--multi_height", "64,96",
                       "--input_channels", "1", "--batch_size", "16",
                       "--data_device", "resident", "--num_epochs", "3",
@@ -5007,10 +5012,12 @@ def fixture_checks():
 
 
 def decode_rates(names, card):
-    """Host decode rates: the 2550 x 3300 gray JPEG page and its group4
-    TIFF on one thread, 8 copies of the JPEG page as one threaded native
-    batch (8 threads), and the 64 fixture lines one file at a time and as
-    one batch; best of 3, MP/s."""
+    """Host decode rates: the 2550 x 3300 gray JPEG page, its group4 TIFF
+    and its L pixels as a tiled TIFF (256 x 256 Deflate tiles with
+    predictor 2, written here and checked against the pixels) on one
+    thread, 8 copies of the JPEG page as one threaded native batch (8
+    threads), and the 64 fixture lines one file at a time and as one
+    batch; best of 3, MP/s."""
     from effocr_torch.data import image_io, jpeg, tiff
     from effocr_torch.native import glyph, imgdec
 
@@ -5034,6 +5041,20 @@ def decode_rates(names, card):
     g4 = open(os.path.join(FIXTURES, "page", "page_g4.tif"), "rb").read()
     t = best(lambda: tiff.decode(g4))
     out["page_g4_ms"], out["page_g4_mp_s"] = t * 1e3, h * w / t / 1e6
+    # the page's L pixels as 256 x 256 Deflate tiles with predictor 2,
+    # written by the fixtures' writer (numpy and zlib)
+    gray = imgdec.decode_jpeg(page, (h, w, 1))[..., 0]
+    t0 = time.perf_counter()
+    tiled = fixture_tools().tiff_layout(gray, compression=8, predictor=2,
+                                        tile=(256, 256))
+    out["page_tiled_write_s"] = time.perf_counter() - t0
+    px, mode, _ = tiff.decode(tiled)
+    if mode != "L" or not np.array_equal(px, gray):
+        raise AssertionError("image_formats: the tiled page does not decode "
+                             "to the page's L pixels")
+    t = best(lambda: tiff.decode(tiled))
+    out["page_tiled_ms"], out["page_tiled_mp_s"] = t * 1e3, h * w / t / 1e6
+    out["page_tiled_bytes"] = len(tiled)
     lines = [os.path.join(FIXTURES, n) for n in names
              if n.startswith("lines/")]
     shapes = [image_io.header(p)[:2] for p in lines]
@@ -5056,7 +5077,12 @@ def decode_rates(names, card):
         f"{out['page_jpeg_mp_s']:.1f} MP/s (one thread), 8 copies as one "
         f"8-thread batch {out['page_jpeg_batch8_mp_s']:.1f} MP/s; group4 "
         "TIFF page "
-        f"{out['page_g4_ms']:.1f} ms = {out['page_g4_mp_s']:.1f} MP/s; "
+        f"{out['page_g4_ms']:.1f} ms = {out['page_g4_mp_s']:.1f} MP/s; the "
+        f"page as 256 x 256 Deflate tiles with predictor 2 "
+        f"({out['page_tiled_bytes']} bytes, written in "
+        f"{out['page_tiled_write_s']:.2f} s) {out['page_tiled_ms']:.1f} ms "
+        f"= {out['page_tiled_mp_s']:.1f} MP/s, equal to the page's L "
+        "pixels; "
         f"{len(lines)} JPEG lines ({mp:.2f} MP) one at a time "
         f"{out['lines_single_mp_s']:.1f} MP/s "
         f"({out['lines_single_ms_per_line']:.3f} ms a line), as one "
@@ -5103,8 +5129,9 @@ def _cli_outputs(out_dir):
 
 def _serve_requests(names, pixels):
     """N_FORMAT_SERVE requests: fixture JPEG lines and the same lines as
-    uncompressed TIFF and palette BMP files (written by the fixture
-    generator's writers, which need no Pillow)."""
+    TIFF (uncompressed strips; one in Deflate tiles with predictor 2, one
+    stored rotated under orientation 6) and palette BMP files (written by
+    the fixture generator's writers, which need no Pillow)."""
     mi = fixture_tools()
     d = os.path.join(WORK, "formats", "serve")
     os.makedirs(d, exist_ok=True)
@@ -5118,11 +5145,21 @@ def _serve_requests(names, pixels):
         if kind == "jpg":
             shutil.copy(os.path.join(FIXTURES, name), p)
         elif kind == "tif":
+            photo = 2 if px.ndim == 3 else 1
+            if k == 1:      # tiled, Deflate with predictor 2
+                data = mi.tiff_layout(px, photometric=photo, compression=8,
+                                      predictor=2, tile=(64, 64))
+            elif k == 4:    # stored rotated, orientation 6 turns it back
+                data = mi.tiff_layout(
+                    np.ascontiguousarray(np.rot90(px, 1)), photometric=photo,
+                    compression=32773, rows_per_strip=16,
+                    extra_tags={274: (3, [6])})
+            else:
+                data = mi.tiff_gray(px, order=">" if k % 2 else "<",
+                                    rows_per_strip=16,
+                                    extra_tags={262: (3, [photo])})
             with open(p, "wb") as f:
-                f.write(mi.tiff_gray(px, order=">" if k % 2 else "<",
-                                     rows_per_strip=16, extra_tags={
-                                         262: (3, [2 if px.ndim == 3
-                                                   else 1])}))
+                f.write(data)
         else:
             g = px if px.ndim == 2 else (px.astype(np.uint16).sum(-1)
                                          // 3).astype(np.uint8)
@@ -5174,7 +5211,8 @@ def _serve_formats(paths, loc_dir, rec_dir, card):
                              f"from engine.run; batches {batches}; K1 "
                              f"launched {k1} times by the server")
     log(f"image_formats: serve answered {len(answers)} .jpg / .tif / .bmp "
-        f"requests identically to engine.run over its batches {batches} "
+        "requests (a tiled and an orientation-6 .tif among them) "
+        f"identically to engine.run over its batches {batches} "
         f"(K1 held bit for bit on {k1c.calls} calls in process; the server "
         f"launched K1 {k1} times; {card})")
     return dict(n_requests=len(answers), batches=batches,
@@ -5193,15 +5231,17 @@ def phase_image_formats(dev, card, loc_dir, rec_dir):
        nms_mask; K1's launches counted from 0 around the JPEG run; both
        runs on one engine (``load_engine``'s, handed to the CLI), then
        timed on both lists (lines/s, host decode ms a chunk, header ms);
-    3. 16 mixed .jpg / .tif / .bmp requests through ``serve``, answered
-       as engine.run answers them;
+    3. 16 mixed .jpg / .tif / .bmp requests (a tiled and an
+       orientation-6 .tif among them) through ``serve``, answered as
+       engine.run answers them;
     and the host decode rates (``decode_rates``)."""
     from effocr_torch.cli import infer as infer_cli
 
     t0 = time.perf_counter()
     names = fixture_checks()
     log(f"image_formats: {len(names)} fixtures (JPEG, TIFF, BMP, GIF; "
-        "lines, one per decoder branch, a page) equal their goldens bit "
+        "lines, one per decoder branch and TIFF layout, a page) equal "
+        "their goldens bit "
         "for bit: Pillow 12.1's RGB and L conversions and the JAX "
         f"_LazyImage arrays of both channel rules "
         f"({time.perf_counter() - t0:.1f} s)")

@@ -19,10 +19,14 @@ TIFF, BMP and GIF through their modules.  WebP and anything else raise
   RGB JPEG is the truncating channel mean, taken in the decoder).
 
 Mode conversions are Pillow's: ``1`` is 0 / 255; ``P`` reads its
-palette (entries the file does not give are black) and converts to L by
-the palette's luma; ``I;16`` clips to 255; ``LA`` and ``RGBA`` drop
-alpha; ``CMYK`` -> RGB is ``Convert.c cmyk2rgb`` and CMYK -> L goes
-through it; RGB -> L is ``png.to_l``.
+palette (a 1 / 2 / 4-bit TIFF's has 2^bits entries; entries the file
+does not give are black) and converts to L by the palette's luma;
+``I;16`` clips to 255; ``LA`` and ``RGBA`` drop alpha; ``CMYK`` -> RGB
+is ``Convert.c cmyk2rgb`` and CMYK -> L goes through it; RGB -> L is
+``png.to_l``.  The TIFF reader hands over 2 / 4-bit gray already scaled
+to ``L``, 16-bit RGB / RGBA as each sample's high byte, and pixels
+after the file's orientation (whose ``header`` size is the transposed
+one for orientations 5-8, as ``Image.open`` reports it).
 """
 
 from __future__ import annotations

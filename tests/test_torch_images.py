@@ -400,15 +400,18 @@ def _refusals(tmp_path):
             tex, [(3, 1), (1, 1), (1, 1)]),
         "coefficient bits unsent": mi.drop_refinement_scans(
             open(prog, "rb").read()),
-        "tiles": mi.tiff_bytes([bytes(24 * 40)], {
-            **base, 322: (3, [16]), 323: (3, [16]), 324: (4, [8]),
-            325: (4, [640])}),
-        "BigTIFF": mi.tiff_bytes([bytes(24 * 40)], base, big=True),
+        # tiles, BigTIFF and separate planes are read: a float tile, a
+        # BigTIFF with predictor 3 and 12-bit planes stay refused
+        "sample format \\[3\\] \\(float": mi.tiff_bytes(
+            [bytes(16 * 16 * 4)] * 9, {
+                **base, 258: (3, [32]), 339: (3, [3]), 322: (3, [16]),
+                323: (3, [16])}, tiled=True),
+        "predictor 3": mi.tiff_bytes([bytes(24 * 40)], {
+            **base, 259: (3, [5]), 317: (3, [3])}, big=True),
         "sample format \\[3\\]": mi.tiff_bytes([bytes(24 * 40 * 4)], {
             **base, 258: (3, [32]), 339: (3, [3])}),
-        "planar configuration 2": mi.tiff_bytes([bytes(24 * 40 * 3)], {
-            **base, 258: (3, [8, 8, 8]), 262: (3, [2]), 277: (3, [3]),
-            284: (3, [2])}),
+        "samples of \\[12\\] bits": mi.tiff_bytes([bytes(24 * 60)], {
+            **base, 258: (3, [12]), 284: (3, [2])}),
         "old-style \\(LSB-first\\) LZW": mi.tiff_bytes([b"\x00\x01" + bytes(
             40)], {**base, 259: (3, [5])}),
         "photometric 6 with 3 samples": mi.tiff_bytes(_strips(g4), {
@@ -732,7 +735,8 @@ def test_fixture_directory_is_small_and_complete():
     on_disk = sorted(os.path.relpath(os.path.join(r, f), FIXTURES)
                      for r, _, fs in os.walk(FIXTURES) for f in fs
                      if f != "golden.npz")
-    assert names == on_disk and len(names) == 2 * mi.N_LINES + 30
+    assert names == on_disk and len(names) == 2 * mi.N_LINES + 30 + len(
+        mi.LAYOUT_FILES)
     total = sum(os.path.getsize(os.path.join(FIXTURES, n)) for n in names)
     assert total + os.path.getsize(os.path.join(FIXTURES, "golden.npz")) \
         < 2 * 2**20

@@ -17,9 +17,14 @@ the golden ``_LazyImage`` arrays), into ``tests/torch_fixtures/images/``:
   smaller than its screen;
 - ``page/page.jpg`` and ``page/page_g4.tif``: a 2550 x 3300 gray page
   (US letter at 300 dpi) as JPEG and, thresholded, as group4 TIFF;
+- ``cases/`` ``LAYOUT_FILES``, from a seed of their own (``--layouts``
+  writes only these): TIFF tiles, BigTIFF, separate planes,
+  orientations 2-8, 4-bit gray and palette, 16-bit RGB;
 - ``golden.npz``: for every file, the SHA-256 digest and shape of
   Pillow's ``convert("RGB")`` and ``convert("L")`` and of the JAX
   package's ``_LazyImage(path, gray).load()`` for gray True and False.
+  Entries are only added: one that a regenerated file would change
+  stops the script.
 
     python tests/torch_fixtures/make_images.py --mode_pages
 
@@ -32,10 +37,14 @@ as gray + alpha PNG; and ``mode_pages/golden.npz``, the ``digest_tree`` of
 the crops and the tree the JAX ``format-dataset --spaces
 --clip_to_top_and_bottom`` writes over each (``mode_page_argv``).
 
-The writers (``baseline_jpeg``, ``tiff_bytes``, ``bmp_bytes``,
-``gif_bytes``) build files Pillow cannot write: any JPEG sampling
-factors, any TIFF tag set and byte order, BMP headers, bitfields and RLE
-streams, GIF frames with local palettes and offsets.
+The writers (``baseline_jpeg``, ``tiff_bytes``, ``tiff_layout``,
+``bmp_bytes``, ``gif_bytes``) build files Pillow cannot write: any JPEG
+sampling factors, any TIFF tag set and byte order, TIFF strips or tiles
+(BigTIFF too) of 1 / 2 / 4 / 8 / 16-bit samples, interleaved or in
+planes, under none, PackBits, LZW or Deflate with predictor 2 (numpy and
+zlib only, so that chip_smoke.py writes with them where Pillow is not
+installed), BMP headers, bitfields and RLE streams, GIF frames with
+local palettes and offsets.
 """
 
 from __future__ import annotations
@@ -284,13 +293,15 @@ def drop_refinement_scans(data: bytes) -> bytes:
 
 
 # ------------------------------------------------------ TIFF writer
-_TTYPE = {1: "B", 2: "B", 3: "H", 4: "I", 11: "f", 16: "Q"}
+_TTYPE = {1: "B", 2: "B", 3: "H", 4: "I", 7: "B", 11: "f", 16: "Q"}
 
 
 def tiff_bytes(strips: Sequence[bytes], tags: Dict[int, Tuple[int, list]],
-               order: str = "<", big: bool = False) -> bytes:
-    """A TIFF (or BigTIFF) of the given strips: ``tags`` maps tag ->
-    (type, values); StripOffsets and StripByteCounts are filled in."""
+               order: str = "<", big: bool = False,
+               tiled: bool = False) -> bytes:
+    """A TIFF (or BigTIFF) of the given strips (``tiled``: tiles):
+    ``tags`` maps tag -> (type, values); StripOffsets and StripByteCounts
+    (TileOffsets and TileByteCounts) are filled in."""
     e = order
     magic = (b"II" if e == "<" else b"MM") + struct.pack(e + "H",
                                                          43 if big else 42)
@@ -304,8 +315,8 @@ def tiff_bytes(strips: Sequence[bytes], tags: Dict[int, Tuple[int, list]],
         if len(data) % 2:
             data += b"\0"
     tags = dict(tags)
-    tags[273] = (16 if big else 4, offs)
-    tags[279] = (16 if big else 4, [len(s) for s in strips])
+    tags[324 if tiled else 273] = (16 if big else 4, offs)
+    tags[325 if tiled else 279] = (16 if big else 4, [len(s) for s in strips])
     ifd_at = len(data)
     ent = 20 if big else 12
     inline = 8 if big else 4
@@ -337,18 +348,146 @@ def tiff_bytes(strips: Sequence[bytes], tags: Dict[int, Tuple[int, list]],
 
 def tiff_gray(img: np.ndarray, order="<", photometric=1, bits=8,
               extra_tags=None, rows_per_strip=None) -> bytes:
-    """An uncompressed TIFF of one gray plane (8 or 16 bits) or RGB."""
+    """An uncompressed TIFF of one gray plane (8 or 16 bits) or RGB, its
+    size in SHORT tags."""
     h, w = img.shape[:2]
-    spp = 1 if img.ndim == 2 else img.shape[2]
-    rps = rows_per_strip or h
-    dt = np.dtype(order + ("u2" if bits == 16 else "u1"))
-    strips = [np.ascontiguousarray(img[y:y + rps]).astype(dt).tobytes()
-              for y in range(0, h, rps)]
-    tags = {256: (3, [w]), 257: (3, [h]), 258: (3, [bits] * spp),
-            259: (3, [1]), 262: (3, [photometric]), 277: (3, [spp]),
-            278: (3, [rps])}
+    return tiff_layout(img, bits, photometric, order,
+                       rows_per_strip=rows_per_strip, extra_tags={
+                           256: (3, [w]), 257: (3, [h]), **(extra_tags or {})})
+
+
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF LZW: MSB-first codes of 9-12 bits, a Clear first and when the
+    table fills, libtiff's early code-width change."""
+    out = bytearray()
+    acc = nacc = 0
+
+    def put(code, n):
+        nonlocal acc, nacc
+        acc = (acc << n) | code
+        nacc += n
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+        acc &= (1 << nacc) - 1
+
+    def reset():
+        return {}, 258, 9
+
+    table, free, nbits = reset()
+    put(256, nbits)
+    if not data:
+        put(257, nbits)
+        return bytes(out)
+    ent = data[0]
+    for c in data[1:]:
+        code = table.get((ent, c))
+        if code is not None:
+            ent = code
+            continue
+        put(ent, nbits)
+        table[(ent, c)] = free
+        free += 1
+        if free == 4094:
+            put(256, nbits)
+            table, free, nbits = reset()
+        elif free > (1 << nbits) - 1:
+            nbits += 1
+        ent = c
+    put(ent, nbits)
+    free += 1
+    if free == 4094:
+        put(256, nbits)
+        nbits = 9
+    elif free > (1 << nbits) - 1:
+        nbits += 1
+    put(257, nbits)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+def tiff_compress(raw: bytes, compression: int) -> bytes:
+    """One strip or tile's bytes under compression 1 (none), 5 (LZW), 8
+    / 32946 (Deflate) or 32773 (PackBits, literal runs)."""
+    if compression == 1:
+        return raw
+    if compression == 5:
+        return tiff_lzw(raw)
+    if compression in (8, 32946):
+        import zlib
+
+        return zlib.compress(raw, 6)
+    if compression == 32773:
+        return b"".join(bytes([len(raw[i:i + 128]) - 1]) + raw[i:i + 128]
+                        for i in range(0, len(raw), 128))
+    raise ValueError(f"compression {compression}")
+
+
+def pack_samples(a: np.ndarray, bits: int, order: str = "<") -> np.ndarray:
+    """[rows, cols, spp] samples -> [rows, row bytes] uint8: 16-bit in the
+    byte order, 1 / 2 / 4-bit packed MSB first, each row padded to a
+    byte."""
+    rows = a.shape[0]
+    if bits == 16:
+        return a.astype(order + "u2").view(np.uint8).reshape(rows, -1)
+    v = a.reshape(rows, -1).astype(np.uint8)
+    if bits == 8:
+        return v
+    per = 8 // bits
+    v = np.concatenate([v, np.zeros((rows, -v.shape[1] % per), np.uint8)],
+                       axis=1)
+    shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
+    return (v.reshape(rows, -1, per) << shifts).sum(-1).astype(np.uint8)
+
+
+def tiff_layout(img: np.ndarray, bits: int = 8, photometric: int = 1,
+                order: str = "<", big: bool = False, compression: int = 1,
+                predictor: int = 1, planar: int = 1, tile=None,
+                rows_per_strip=None, extra_tags=None, encode=None) -> bytes:
+    """A TIFF of ``img`` ([H, W] or [H, W, C] samples, each below
+    2^bits) in strips of ``rows_per_strip`` rows or, with ``tile`` =
+    (width, length), in tiles (the right and bottom edge tiles padded),
+    each plane in turn under ``planar`` 2; horizontal differencing under
+    ``predictor`` 2. ``encode(samples [rows, cols, spp]) -> bytes``
+    replaces the packing and compression (CCITT or JPEG segments from
+    Pillow)."""
+    h, w = img.shape[:2]
+    a = img if img.ndim == 3 else img[..., None]
+    spp = a.shape[2]
+    planes = [a] if planar == 1 else [a[..., k:k + 1] for k in range(spp)]
+    tw, th = tile if tile else (w, rows_per_strip or h)
+    pad = (1 << bits) // 3
+    segs = []
+    for p in planes:
+        for y in range(0, h, th):
+            for x in range(0, w, tw):
+                t = p[y:y + th, x:x + tw]
+                if tile:
+                    t = np.pad(t, ((0, th - t.shape[0]), (0, tw - t.shape[1]),
+                                   (0, 0)), constant_values=pad)
+                if encode is not None:
+                    segs.append(encode(t))
+                    continue
+                t = t.astype(np.uint16 if bits == 16 else np.uint8)
+                if predictor == 2:
+                    t = t.copy()
+                    t[:, 1:] -= t[:, :-1].copy()
+                segs.append(tiff_compress(
+                    pack_samples(t, bits, order).tobytes(), compression))
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
+            259: (3, [compression]), 262: (3, [photometric]),
+            277: (3, [spp])}
+    if planar != 1:
+        tags[284] = (3, [planar])
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if tile:
+        tags[322], tags[323] = (3, [tw]), (3, [th])
+    else:
+        tags[278] = (3, [th])
     tags.update(extra_tags or {})
-    return tiff_bytes(strips, tags, order)
+    return tiff_bytes(segs, tags, order, big, tiled=bool(tile))
 
 
 # ------------------------------------------------------- BMP writer
@@ -595,7 +734,107 @@ def make_files(out: str) -> List[str]:
           .convert("1"), os.path.join(out, "page", "page_g4.tif"), "TIFF",
           compression="group4")
     names += ["page/page.jpg", "page/page_g4.tif"]
-    return names
+    return names + make_layout_files(out)
+
+
+# the TIFF layouts archive scans come in, written by ``tiff_layout`` from
+# a seed of their own, so that adding them left every other file as it was
+LAYOUT_SEED = 31
+LAYOUT_FILES = tuple(f"cases/{n}.tif" for n in (
+    "tile_raw", "tile_lzw_pred_mm", "tile_deflate", "tile_jpeg_ycbcr",
+    "bigtiff_strips", "bigtiff_tiles", "planar_rgb", "planar_rgb_pred_mm",
+    "gray4", "gray4_miniswhite", "palette4", "rgb16", "rgb16_mm",
+    *(f"orient{o}" for o in range(2, 9))))
+
+
+def pillow_segment(t: np.ndarray, mode: str, **kw) -> Tuple[bytes, dict]:
+    """The one strip of a TIFF Pillow writes of samples ``t`` [rows,
+    cols, spp] in ``mode`` (``kw``: its save options), and its tags."""
+    import io
+
+    from PIL import Image
+
+    im = Image.fromarray(t[..., 0] if t.shape[2] == 1 else t)
+    buf = io.BytesIO()
+    im.convert(mode).save(buf, "TIFF", tiffinfo={278: t.shape[0]}, **kw)
+    data = buf.getvalue()
+    with Image.open(io.BytesIO(data)) as f:
+        tags = dict(f.tag_v2)
+    (off,), (cnt,) = tags[273], tags[279]
+    return data[off:off + cnt], tags
+
+
+def jpeg_tiled(img: np.ndarray, tile=(16, 16), mode: str = "YCbCr",
+               **kw) -> bytes:
+    """JPEG tiles sharing one ``JPEGTables`` (Pillow's libtiff encoder,
+    one tile at a time): RGB samples as photometric YCbCr (``mode``
+    YCbCr) or RGB, gray as MinIsBlack."""
+    tags = []
+
+    def encode(t):
+        seg, tg = pillow_segment(t, mode, compression="jpeg")
+        tags.append(tg)
+        return seg
+
+    photo = {"YCbCr": 6, "RGB": 2, "L": 1}[mode]
+    tiff_layout(img, photometric=photo, compression=7, tile=tile,
+                encode=encode)
+    extra = {347: (7, list(tags[0][347]))}
+    assert all(t[347] == tags[0][347] for t in tags), "JPEGTables differ"
+    if mode == "YCbCr":
+        extra[530] = (3, list(tags[0][530]))
+    extra.update(kw.pop("extra_tags", {}))
+    return tiff_layout(img, photometric=photo, compression=7, tile=tile,
+                       encode=encode, extra_tags=extra, **kw)
+
+
+def make_layout_files(out: str) -> List[str]:
+    """``LAYOUT_FILES``, written under ``out``: tiles (raw, LZW with
+    predictor 2 big-endian, Deflate, JPEG YCbCr), BigTIFF strips and
+    tiles, separate planes with and without predictor 2, 4-bit gray in
+    both photometrics, a 4-bit palette, 16-bit RGB in both byte orders,
+    and orientations 2-8 of one gray line; each a few KB, 37 x 61 (the
+    line 36-72 rows) so that edge tiles are padded."""
+    rng = np.random.default_rng(LAYOUT_SEED)
+    tex = textured(rng, 37, 61)
+    gray = tex[..., 1]
+    tex16 = (tex.astype(np.uint16) << 8) | rng.integers(0, 256, tex.shape,
+                                                         np.uint16)
+    cmap = list(rng.integers(0, 65536, 48))
+    line = synth_line(rng, n=10)
+    files = {
+        "tile_raw": tiff_layout(gray, tile=(16, 16)),
+        "tile_lzw_pred_mm": tiff_layout(tex, photometric=2, order=">",
+                                        compression=5, predictor=2,
+                                        tile=(32, 16)),
+        "tile_deflate": tiff_layout(gray, compression=8, tile=(16, 32)),
+        "tile_jpeg_ycbcr": jpeg_tiled(tex),
+        "bigtiff_strips": tiff_layout(gray, big=True, compression=32773,
+                                      rows_per_strip=8),
+        "bigtiff_tiles": tiff_layout(tex, photometric=2, big=True,
+                                     compression=5, predictor=2,
+                                     tile=(16, 16)),
+        "planar_rgb": tiff_layout(tex, photometric=2, planar=2,
+                                  rows_per_strip=10),
+        "planar_rgb_pred_mm": tiff_layout(tex, photometric=2, order=">",
+                                          planar=2, compression=8,
+                                          predictor=2, rows_per_strip=10),
+        "gray4": tiff_layout(gray >> 4, bits=4, compression=5),
+        "gray4_miniswhite": tiff_layout(gray >> 4, bits=4, photometric=0),
+        "palette4": tiff_layout(gray >> 4, bits=4, photometric=3,
+                                compression=32773,
+                                extra_tags={320: (3, cmap)}),
+        "rgb16": tiff_layout(tex16, bits=16, photometric=2, compression=5,
+                             predictor=2, rows_per_strip=9),
+        "rgb16_mm": tiff_layout(tex16, bits=16, photometric=2, order=">"),
+    }
+    for o in range(2, 9):
+        files[f"orient{o}"] = tiff_layout(line, compression=5,
+                                          rows_per_strip=16,
+                                          extra_tags={274: (3, [o])})
+    for name in LAYOUT_FILES:
+        _write(os.path.join(out, name), files[name[6:-4]])
+    return list(LAYOUT_FILES)
 
 
 def rle8_stream() -> bytes:
@@ -788,6 +1027,9 @@ def main(argv=None) -> int:
                    help="write only the page fixtures in 1, P, I;16 and LA "
                         "(into --out, default tests/torch_fixtures/"
                         "mode_pages) and their golden.npz")
+    p.add_argument("--layouts", action="store_true",
+                   help="write only LAYOUT_FILES and add their entries to "
+                        "golden.npz")
     args = p.parse_args(argv)
     if args.mode_pages:
         out = MODE_PAGES_DIR if args.out == OUT else args.out
@@ -795,12 +1037,19 @@ def main(argv=None) -> int:
         mode_page_goldens(out)
         print(f"{len(MODE_PAGES)} mode pages -> {out}")
         return 0
-    names = make_files(args.out)
-    golden = {}
+    names = (make_layout_files(args.out) if args.layouts
+             else make_files(args.out))
+    # entries are added, never rewritten: a file that decodes otherwise
+    # than its golden entry says stops the script
+    path = os.path.join(args.out, "golden.npz")
+    golden = dict(np.load(path)) if os.path.exists(path) else {}
     for name in names:
-        golden.update(golden_entry(name, golden_arrays(
-            os.path.join(args.out, name))))
-    np.savez_compressed(os.path.join(args.out, "golden.npz"), **golden)
+        for key, v in golden_entry(name, golden_arrays(
+                os.path.join(args.out, name))).items():
+            if key in golden and not np.array_equal(golden[key], v):
+                raise SystemExit(f"{key} differs from golden.npz")
+            golden.setdefault(key, v)
+    np.savez_compressed(path, **golden)
     total = sum(os.path.getsize(os.path.join(r, f))
                 for r, _, fs in os.walk(args.out) for f in fs)
     print(f"{len(names)} files + golden.npz, {total} bytes in {args.out}")
