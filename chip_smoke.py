@@ -263,10 +263,11 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      JPEG line paths and on the same lines as PNGs (identical text and
      COCO output, every K1 call held bit for bit; K1's launches counted
      from 0 around the JPEG run), the same engine timed on both lists
-     (lines/s, host decode ms a chunk, header ms); 16 mixed .jpg / .tif
-     / .bmp requests (a tiled and an orientation-6 .tif among them)
-     through ``serve``, answered as ``engine.run`` answers them (K1
-     checked in process).
+     (lines/s, host decode ms a chunk, header ms); 18 mixed .jpg / .tif
+     / .bmp requests (a tiled, an orientation-6, a float (predictor 3)
+     and an associated-alpha .tif among them) through ``serve``,
+     answered as ``engine.run`` answers them (K1 checked in process);
+     host decode rates of a float page with and without predictor 3.
    - fonts: the port's own glyph renderer (native/glyph.cpp: FreeType's
      v40 hinting, its Adobe engine for CFF and the gray rasterizer;
      fonts/: the sfnt and CFF readers, shaping, Pillow's text drawing)
@@ -4974,7 +4975,7 @@ def phase_trocr(dev, card, tl):
 # ------------------------------------------------------- image formats
 FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "images")
 N_FORMAT_LINES = 256     # distinct paths: the 64 fixture lines, 4 times
-N_FORMAT_SERVE = 16
+N_FORMAT_SERVE = 18      # the last two: a float and an RGBa .tif
 
 
 def fixture_tools():
@@ -4990,7 +4991,8 @@ def fixture_tools():
 def fixture_checks():
     """Every committed fixture, decoded by the port, against golden.npz:
     Pillow's RGB and L conversions and the JAX package's _LazyImage
-    arrays (both channel rules), bit for bit by SHA-256 and shape."""
+    arrays (both channel rules), bit for bit by SHA-256 and shape; where
+    Pillow refuses a conversion (LAB -> L), the same exception."""
     from effocr_torch.data import image_io
     from effocr_torch.pipelines.infer import _LazyImage
 
@@ -4999,9 +5001,21 @@ def fixture_checks():
     names = sorted({k.split("|")[0] for k in golden.files})
     for name in names:
         p = os.path.join(FIXTURES, name)
-        got = {"rgb": image_io.read_rgb(p), "l": image_io.read_l(p),
-               "lazy_gray": _LazyImage(p, gray=True).load(),
-               "lazy_rgb": _LazyImage(p, gray=False).load()}
+        got = {}
+        for kind, fn in (("rgb", image_io.read_rgb), ("l", image_io.read_l),
+                         ("lazy_gray", lambda q: _LazyImage(q, True).load()),
+                         ("lazy_rgb", lambda q: _LazyImage(q, False).load())):
+            err = f"{name}|{kind}|error"
+            try:
+                got[kind] = fn(p)
+            except Exception as e:  # noqa: BLE001 (held to the golden's)
+                if err not in golden.files or type(e).__name__ != str(
+                        golden[err]):
+                    raise
+                continue
+            if err in golden.files:
+                raise AssertionError(f"image_formats: {name} {kind} gives "
+                                     f"pixels, Pillow {golden[err]}")
         for kind, a in got.items():
             if (tuple(golden[f"{name}|{kind}|shape"]) != a.shape
                     or not np.array_equal(mi.digest(a), golden[
@@ -5014,8 +5028,9 @@ def fixture_checks():
 def decode_rates(names, card):
     """Host decode rates: the 2550 x 3300 gray JPEG page, its group4 TIFF
     and its L pixels as a tiled TIFF (256 x 256 Deflate tiles with
-    predictor 2, written here and checked against the pixels) on one
-    thread, 8 copies of the JPEG page as one threaded native batch (8
+    predictor 2, written here and checked against the pixels) and as
+    float samples (/ 255, 256 x 256 Deflate tiles without and with
+    predictor 3, checked the same way) on one thread, 8 copies of the JPEG page as one threaded native batch (8
     threads), and the 64 fixture lines one file at a time and as one
     batch; best of 3, MP/s."""
     from effocr_torch.data import image_io, jpeg, tiff
@@ -5055,6 +5070,21 @@ def decode_rates(names, card):
     t = best(lambda: tiff.decode(tiled))
     out["page_tiled_ms"], out["page_tiled_mp_s"] = t * 1e3, h * w / t / 1e6
     out["page_tiled_bytes"] = len(tiled)
+    # the page as float samples (an archive master's), 256 x 256 Deflate
+    # tiles with and without the floating-point predictor
+    fpage = gray.astype(np.float32) * np.float32(1.0 / 255.0)
+    for pred in (1, 3):
+        data = fixture_tools().tiff_layout(fpage, bits=32, sample_format=3,
+                                           compression=8, predictor=pred,
+                                           tile=(256, 256))
+        px, mode, _ = tiff.decode(data)
+        if mode != "F" or not np.array_equal(px, fpage):
+            raise AssertionError("image_formats: the float page does not "
+                                 "decode to its samples")
+        t = best(lambda: tiff.decode(data))
+        out[f"page_float_pred{pred}_ms"] = t * 1e3
+        out[f"page_float_pred{pred}_mp_s"] = h * w / t / 1e6
+        out[f"page_float_pred{pred}_bytes"] = len(data)
     lines = [os.path.join(FIXTURES, n) for n in names
              if n.startswith("lines/")]
     shapes = [image_io.header(p)[:2] for p in lines]
@@ -5082,7 +5112,13 @@ def decode_rates(names, card):
         f"({out['page_tiled_bytes']} bytes, written in "
         f"{out['page_tiled_write_s']:.2f} s) {out['page_tiled_ms']:.1f} ms "
         f"= {out['page_tiled_mp_s']:.1f} MP/s, equal to the page's L "
-        "pixels; "
+        "pixels; the page as float samples in 256 x 256 Deflate tiles "
+        f"{out['page_float_pred1_ms']:.1f} ms = "
+        f"{out['page_float_pred1_mp_s']:.1f} MP/s "
+        f"({out['page_float_pred1_bytes']} bytes), with predictor 3 "
+        f"{out['page_float_pred3_ms']:.1f} ms = "
+        f"{out['page_float_pred3_mp_s']:.1f} MP/s "
+        f"({out['page_float_pred3_bytes']} bytes), equal to its samples; "
         f"{len(lines)} JPEG lines ({mp:.2f} MP) one at a time "
         f"{out['lines_single_mp_s']:.1f} MP/s "
         f"({out['lines_single_ms_per_line']:.3f} ms a line), as one "
@@ -5130,14 +5166,16 @@ def _cli_outputs(out_dir):
 def _serve_requests(names, pixels):
     """N_FORMAT_SERVE requests: fixture JPEG lines and the same lines as
     TIFF (uncompressed strips; one in Deflate tiles with predictor 2, one
-    stored rotated under orientation 6) and palette BMP files (written by
-    the fixture generator's writers, which need no Pillow)."""
+    stored rotated under orientation 6) and palette BMP files, then a
+    line as float samples (Deflate tiles, predictor 3) and one as
+    associated-alpha RGBA (LZW, part of it at alpha 128), written by the
+    fixture generator's writers, which need no Pillow."""
     mi = fixture_tools()
     d = os.path.join(WORK, "formats", "serve")
     os.makedirs(d, exist_ok=True)
     lines = [n for n in names if n.startswith("lines/")]
     paths = []
-    for k in range(N_FORMAT_SERVE):
+    for k in range(N_FORMAT_SERVE - 2):
         name = lines[(7 * k) % len(lines)]
         px = pixels[name]
         kind = ("jpg", "tif", "bmp")[k % 3]
@@ -5167,6 +5205,26 @@ def _serve_requests(names, pixels):
             with open(p, "wb") as f:
                 f.write(mi.bmp_bytes(g.shape[1], g.shape[0], 8,
                                      mi.bmp_rows(g, 8), palette=grey))
+        paths.append(p)
+    for k, kind in ((N_FORMAT_SERVE - 2, "float"),
+                    (N_FORMAT_SERVE - 1, "rgba")):
+        px = pixels[lines[(7 * k) % len(lines)]]
+        g = px if px.ndim == 2 else (px.astype(np.uint16).sum(-1)
+                                     // 3).astype(np.uint8)
+        if kind == "float":
+            data = mi.tiff_layout(g.astype(np.float32) * 1.25 - 40.5, bits=32,
+                                  sample_format=3, compression=8,
+                                  predictor=3, tile=(64, 64))
+        else:
+            a = np.full(g.shape, 255, np.int64)
+            a[:, :a.shape[1] // 3] = 128
+            rgb = np.repeat(g[..., None].astype(np.int64), 3, -1)
+            data = mi.tiff_layout(np.dstack([rgb * a[..., None] // 255, a]),
+                                  photometric=2, compression=5,
+                                  extra_tags={338: (3, [1])})
+        p = os.path.join(d, f"r{k:02d}_{kind}.tif")
+        with open(p, "wb") as f:
+            f.write(data)
         paths.append(p)
     return paths
 
@@ -5211,7 +5269,8 @@ def _serve_formats(paths, loc_dir, rec_dir, card):
                              f"from engine.run; batches {batches}; K1 "
                              f"launched {k1} times by the server")
     log(f"image_formats: serve answered {len(answers)} .jpg / .tif / .bmp "
-        "requests (a tiled and an orientation-6 .tif among them) "
+        "requests (a tiled, an orientation-6, a float and an RGBa .tif "
+        "among them) "
         f"identically to engine.run over its batches {batches} "
         f"(K1 held bit for bit on {k1c.calls} calls in process; the server "
         f"launched K1 {k1} times; {card})")
@@ -5231,8 +5290,8 @@ def phase_image_formats(dev, card, loc_dir, rec_dir):
        nms_mask; K1's launches counted from 0 around the JPEG run; both
        runs on one engine (``load_engine``'s, handed to the CLI), then
        timed on both lists (lines/s, host decode ms a chunk, header ms);
-    3. 16 mixed .jpg / .tif / .bmp requests (a tiled and an
-       orientation-6 .tif among them) through ``serve``, answered as
+    3. 18 mixed .jpg / .tif / .bmp requests (a tiled, an orientation-6,
+       a float and an RGBa .tif among them) through ``serve``, answered as
        engine.run answers them;
     and the host decode rates (``decode_rates``)."""
     from effocr_torch.cli import infer as infer_cli

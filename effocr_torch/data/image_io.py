@@ -18,12 +18,14 @@ TIFF, BMP and GIF through their modules.  WebP and anything else raise
   ``png.read`` and JPEGs through one native batch (``channels`` 1 of an
   RGB JPEG is the truncating channel mean, taken in the decoder).
 
-Mode conversions are Pillow's: ``1`` is 0 / 255; ``P`` reads its
-palette (a 1 / 2 / 4-bit TIFF's has 2^bits entries; entries the file
-does not give are black) and converts to L by the palette's luma;
-``I;16`` clips to 255; ``LA`` and ``RGBA`` drop alpha; ``CMYK`` -> RGB
-is ``Convert.c cmyk2rgb`` and CMYK -> L goes through it; RGB -> L is
-``png.to_l``.  The TIFF reader hands over 2 / 4-bit gray already scaled
+Mode conversions are Pillow's: ``1`` is 0 / 255; ``P`` and ``PA``
+read their palette (a 1 / 2 / 4-bit TIFF's has 2^bits entries; entries
+the file does not give are black) and convert to L by the palette's
+luma; ``I;16``, ``I`` and ``F`` clip to 0-255 (F truncated, NaN 0);
+``LA`` and ``RGBA`` drop alpha; ``CMYK`` -> RGB is ``Convert.c
+cmyk2rgb`` and CMYK -> L goes through it; ``LAB`` -> RGB is ImageCms's
+Little CMS transform (data/lab.py) and LAB -> L raises Pillow's
+ValueError; RGB -> L is ``png.to_l``.  The TIFF reader hands over 2 / 4-bit gray already scaled
 to ``L``, 16-bit RGB / RGBA as each sample's high byte, and pixels
 after the file's orientation (whose ``header`` size is the transposed
 one for orientations 5-8, as ``Image.open`` reports it).
@@ -36,7 +38,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from effocr_torch.data import bmp, gif, jpeg, png, tiff
+from effocr_torch.data import bmp, gif, jpeg, lab, png, tiff
 from effocr_torch.native import imgdec
 
 # bytes read for a header first (the whole file when the header lies past
@@ -142,18 +144,31 @@ def full_palette(palette: np.ndarray) -> np.ndarray:
     return full
 
 
+def _gray8(px: np.ndarray, mode: str) -> np.ndarray:
+    """I, I;16(B) or F samples -> L, as Convert.c's i2l / I16_L / f2l: 0
+    at or below 0 (and NaN), 255 at or above 255, else truncated."""
+    if mode == "F":
+        out = np.zeros(px.shape, np.uint8)
+        out[px >= 255] = 255
+        mid = (px > 0) & (px < 255)
+        out[mid] = px[mid].astype(np.uint8)
+        return out
+    return np.clip(px, 0, 255).astype(np.uint8)
+
+
 def to_rgb(px: np.ndarray, mode: str, palette: Optional[np.ndarray]
            ) -> np.ndarray:
     """Pixels of a mode -> uint8 [H, W, 3], Pillow's ``convert("RGB")``."""
-    if mode == "P":
-        return full_palette(palette)[px]
+    if mode in ("P", "PA"):
+        return full_palette(palette)[px if mode == "P" else px[..., 0]]
     if mode in ("1", "L"):
         return np.repeat(px[..., None], 3, axis=-1)
-    if mode in ("I;16", "I;16B"):
-        return np.repeat(np.minimum(px, 255).astype(np.uint8)[..., None], 3,
-                         axis=-1)
+    if mode in ("I;16", "I;16B", "I", "F"):
+        return np.repeat(_gray8(px, mode)[..., None], 3, axis=-1)
     if mode == "LA":
         return np.repeat(px[..., :1], 3, axis=-1)
+    if mode == "LAB":
+        return lab.lab_to_rgb(px)
     if mode in ("RGB", "RGBA"):
         return np.ascontiguousarray(px[..., :3])
     if mode == "CMYK":
@@ -169,12 +184,17 @@ def to_l(px: np.ndarray, mode: str, palette: Optional[np.ndarray]
     """Pixels of a mode -> uint8 [H, W], Pillow's ``convert("L")``."""
     if mode in ("1", "L"):
         return px
-    if mode in ("I;16", "I;16B"):
-        return np.minimum(px, 255).astype(np.uint8)
+    if mode in ("I;16", "I;16B", "I", "F"):
+        return _gray8(px, mode)
     if mode == "LA":
         return np.ascontiguousarray(px[..., 0])
-    if mode == "P":
-        return png.to_l(full_palette(palette))[px]
+    if mode in ("P", "PA"):
+        return png.to_l(full_palette(palette))[px if mode == "P"
+                                               else px[..., 0]]
+    if mode == "LAB":
+        # Image.convert tries LAB -> L, then LAB's base mode, RGB, in C,
+        # which has no LAB conversion (ImageCms does LAB -> RGB only)
+        raise ValueError("conversion from LAB to RGB not supported")
     return png.to_l(to_rgb(px, mode, palette))
 
 

@@ -15,12 +15,15 @@ the glyph tools' processes start fast):
 - ``open_image`` / ``save_image`` / ``copy_image``: ``Image.open`` (a
   ``Picture``: pixels, mode, palette and ``info["transparency"]``) of
   any file the port decodes, in any of its modes (1, L, P, LA, RGB,
-  RGBA, I;16, I;16B, CMYK), and ``Image.save`` of it as PNG through
-  data/png.py (pixels, modes, palettes and transparency are Pillow's;
-  the bytes are not; CMYK raises Pillow's ``OSError``);
+  RGBA, I;16, I;16B, CMYK, and from TIFF I, F, PA and LAB), and
+  ``Image.save`` of it as PNG through data/png.py (pixels, modes,
+  palettes and transparency are Pillow's; the bytes are not; I is
+  written as 16-bit gray, its samples clipped to 0-65535; CMYK, F, PA
+  and LAB raise Pillow's ``OSError``);
 - ``resize_picture``: ``Image.resize(size)`` with its default filter,
   mode by mode (NEAREST for 1 and P, BICUBIC through premultiplied alpha
-  for LA and RGBA, 16-bit BICUBIC for I;16, 8-bit BICUBIC otherwise);
+  for LA and RGBA, 16-bit BICUBIC for I;16, 8-bit BICUBIC for L, RGB
+  and CMYK, the modes of the PNGs its callers read);
 - ``digest_image`` / ``digest_tree``: SHA-256 of an image's mode,
   samples, palette and transparency, and of a directory.
 """
@@ -270,9 +273,11 @@ def crop(img: np.ndarray, box: Sequence[float]) -> np.ndarray:
 
 class Picture(NamedTuple):
     """An image as ``Image.open`` holds it.  ``px``: uint8 [H, W] for 1
-    (0 / 255), L and P (indices), uint8 [H, W, C] for LA, RGB, RGBA and
-    CMYK, uint16 [H, W] for I;16 and I;16B (the sample values);
-    ``palette``: [n, 3] uint8 of P (n entries, as Pillow keeps them);
+    (0 / 255), L and P (indices), uint8 [H, W, C] for LA, PA, RGB, RGBA,
+    CMYK and LAB (a* and b* signed, as ``np.asarray`` shows them), uint16
+    [H, W] for I;16 and I;16B (the sample values), int32 [H, W] for I,
+    float32 [H, W] for F; ``palette``: [n, 3] uint8 of P and PA (n
+    entries, as Pillow keeps them);
     ``transparency``: Pillow's ``info["transparency"]`` (an int, an
     (r, g, b) tuple or P's alpha bytes), None without one."""
     px: np.ndarray
@@ -322,8 +327,12 @@ def save_image(path: str, img: np.ndarray, mode: Optional[str] = None,
     """``Image.save(path)`` as PNG: the same pixels, mode, palette and
     transparency (zlib level 1, for speed: the bytes are not Pillow's
     either way).  ``mode`` defaults to L, RGB or RGBA by the array's
-    channels; ``save_image(path, *picture)`` saves a ``Picture``.  A mode
-    PNG cannot hold (CMYK) raises ``OSError`` before the file is made."""
+    channels; ``save_image(path, *picture)`` saves a ``Picture``.  I
+    goes as 16-bit gray, clipped to 0-65535 (PngImagePlugin's I;16B
+    rawmode); a mode PNG cannot hold (CMYK, F, PA, LAB) raises
+    ``OSError`` before the file is made."""
+    if mode == "I":
+        img, mode = np.clip(img, 0, 65535).astype(np.uint16), "I;16"
     return png.write(path, img, level=1, mode=mode, palette=palette,
                      transparency=transparency)
 

@@ -10,14 +10,22 @@
 // arithmetic coding, lossless, 12-bit, hierarchical, YCCK and sampling
 // factors other than 1x1 / 2x1 / 1x2 / 2x2 are refused by name, and so is
 // a progressive file whose scans leave coefficient bits unsent (libjpeg
-// would smooth its blocks: jdcoefct.c smoothing_ok).
+// would smooth its blocks: jdcoefct.c smoothing_ok).  Entropy data that
+// ends early (at a marker inside a scan, or, for a TIFF segment, at the
+// end of its bytes, where libtiff's source manager inserts an EOI) is
+// read as jdhuff.c reads it: zero bits finish the MCU that ran out, and
+// the MCUs after it stay zero (uniform gray) until a restart marker.
+// A stand-alone file that ends early is truncated, as Pillow says; the
+// caller of a TIFF segment appends the EOIs libtiff's source manager
+// gives (tiff_fill_input_buffer) and asks for kSegment.
 //
 // The whole file is entropy-decoded into one coefficient buffer per
 // component (baseline and progressive alike), then each block is
 // dequantised and inverse-transformed, upsampled and colour-converted.
 //
 // TIFF: PackBits, LZW (MSB-first, the old LSB-first variant refused),
-// CCITT modified Huffman (compression 2), T.4 1-D / 2-D (3) and T.6 (4).
+// CCITT modified Huffman (compression 2), T.4 1-D / 2-D (3) and T.6 (4)
+// as libtiff decodes them, damaged or cut data included.
 // GIF: LZW.  Deflate stays with Python's zlib.
 //
 // Errors cross the C boundary as a status and a message: 1 corrupt data,
@@ -121,6 +129,8 @@ struct BitReader {
   int bits = 0;
   bool at_marker = false;  // the entropy segment ended at a marker
   bool at_eof = false;     // ... or at the end of the file
+  int valid = 0;           // bits of acc that came from the data
+  bool insufficient = false;  // jdhuff.c: a bit past the data was used
 
   void fill() {
     while (bits <= 56) {
@@ -130,6 +140,7 @@ struct BitReader {
           at_eof = true;
         } else if (d[pos] != 0xFF) {
           b = d[pos++];
+          valid += 8;
         } else {
           size_t q = pos + 1;
           while (q < n && d[q] == 0xFF) ++q;
@@ -138,6 +149,7 @@ struct BitReader {
           } else if (d[q] == 0) {
             b = 0xFF;
             pos = q + 1;
+            valid += 8;
           } else {
             at_marker = true;  // zeros pad the rest, as libjpeg does
           }
@@ -154,6 +166,8 @@ struct BitReader {
   inline void skip(int k) {
     acc <<= k;
     bits -= k;
+    valid -= k;
+    if (valid < 0) insufficient = true;
   }
   inline int get(int k) {
     if (k == 0) return 0;
@@ -182,6 +196,7 @@ struct BitReader {
   int next_marker() {
     acc = 0;
     bits = 0;
+    valid = 0;
     at_marker = false;
     while (pos + 1 < n) {
       if (d[pos] == 0xFF && d[pos + 1] != 0 && d[pos + 1] != 0xFF) {
@@ -218,137 +233,84 @@ struct Comp {
   std::vector<int16_t> coef;
 };
 
-// post-IDCT range limit: (x & 1023) read as a 10-bit signed value, + 128,
-// clamped to 0..255 (jdmaster.c prepare_range_limit_table)
-struct RangeLimit {
-  uint8_t t[1024];
-  RangeLimit() {
-    for (int i = 0; i < 1024; ++i) {
-      int v = (i < 512 ? i : i - 1024) + 128;
-      t[i] = uint8_t(v < 0 ? 0 : v > 255 ? 255 : v);
-    }
-  }
-};
-const RangeLimit kRange;
-
-// jidctint.c jpeg_idct_islow
+// jidctint.c jpeg_idct_islow as libjpeg-turbo's x86 SIMD computes it
+// (jidctint-avx2.asm, which Pillow's libjpeg-turbo runs): coefficients
+// dequantized as 16-bit products (vpmullw), the sums in0 +- in4, in7 + in3
+// and in5 + in1 in 16 bits (vpaddw), the rest in 32 bits through
+// vpmaddwd pairs, each pass's outputs saturated to 16 bits (vpackssdw),
+// the last to 8 bits (vpacksswb) and shifted by 128.  On the coefficients
+// of a valid file nothing wraps or saturates and this is jidctint.c; on
+// those of corrupt data (a segment cut inside a block) it is the SIMD's.
 constexpr int CONST_BITS = 13, PASS1_BITS = 2;
-constexpr int64_t FIX_0_298631336 = 2446, FIX_0_390180644 = 3196,
-                  FIX_0_541196100 = 4433, FIX_0_765366865 = 6270,
-                  FIX_0_899976223 = 7373, FIX_1_175875602 = 9633,
-                  FIX_1_501321110 = 12299, FIX_1_847759065 = 15137,
-                  FIX_1_961570560 = 16069, FIX_2_053119869 = 16819,
-                  FIX_2_562915447 = 20995, FIX_3_072711026 = 25172;
 
-inline int64_t descale(int64_t x, int n) {
-  return (x + (int64_t(1) << (n - 1))) >> n;
+inline int16_t wrap16(int32_t v) { return int16_t(uint16_t(uint32_t(v))); }
+inline int16_t sat16(int32_t v) {
+  return int16_t(v < -32768 ? -32768 : v > 32767 ? 32767 : v);
+}
+
+// one 8-point pass on eight lanes at once, as the SIMD runs it: x[k * 8 +
+// l] is input k of lane l (lanes are columns in the first pass, rows in
+// the second); y[k * 8 + l] gets output k, descaled by n bits and
+// saturated to 16 bits.  From 16-bit inputs no 32-bit sum here passes
+// 1.7e9, so the SIMD's 32-bit lanes never wrap.
+inline void idct_pass8(const int32_t* x, int32_t* y, int n) {
+  const int32_t r = 1 << (n - 1);
+  for (int l = 0; l < 8; ++l) {
+    int32_t tmp0 = int32_t(wrap16(x[l] + x[32 + l])) * (1 << CONST_BITS);
+    int32_t tmp1 = int32_t(wrap16(x[l] - x[32 + l])) * (1 << CONST_BITS);
+    int32_t i2 = x[16 + l], i6 = x[48 + l];
+    int32_t tmp3 = i2 * (4433 + 6270) + i6 * 4433;
+    int32_t tmp2 = i2 * 4433 + i6 * (4433 - 15137);
+    int32_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int32_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    int32_t i7 = x[56 + l], i5 = x[40 + l], i3 = x[24 + l], i1 = x[8 + l];
+    int32_t z3 = wrap16(i7 + i3), z4 = wrap16(i5 + i1);
+    int32_t z3p = z3 * (9633 - 16069) + z4 * 9633;
+    int32_t z4p = z3 * 9633 + z4 * (9633 - 3196);
+    int32_t o0 = i7 * (2446 - 7373) + i1 * -7373 + z3p;
+    int32_t o3 = i7 * -7373 + i1 * (12299 - 7373) + z4p;
+    int32_t o1 = i5 * (16819 - 20995) + i3 * -20995 + z4p;
+    int32_t o2 = i5 * -20995 + i3 * (25172 - 20995) + z3p;
+    y[l] = sat16((tmp10 + o3 + r) >> n);
+    y[56 + l] = sat16((tmp10 - o3 + r) >> n);
+    y[8 + l] = sat16((tmp11 + o2 + r) >> n);
+    y[48 + l] = sat16((tmp11 - o2 + r) >> n);
+    y[16 + l] = sat16((tmp12 + o1 + r) >> n);
+    y[40 + l] = sat16((tmp12 - o1 + r) >> n);
+    y[24 + l] = sat16((tmp13 + o0 + r) >> n);
+    y[32 + l] = sat16((tmp13 - o0 + r) >> n);
+  }
 }
 
 void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
                 int stride) {
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {
-    const int16_t* ip = in + c;
-    const uint16_t* qp = q + c;
-    int* wp = ws + c;
-    if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] &&
-        !ip[56]) {
-      int dc = (int(ip[0]) * qp[0]) * (1 << PASS1_BITS);
-      for (int r = 0; r < 8; ++r) wp[r * 8] = dc;
-      continue;
-    }
-    int64_t z2 = int64_t(ip[16]) * qp[16], z3 = int64_t(ip[48]) * qp[48];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    z2 = int64_t(ip[0]) * qp[0];
-    z3 = int64_t(ip[32]) * qp[32];
-    int64_t tmp0 = (z2 + z3) * (1 << CONST_BITS);
-    int64_t tmp1 = (z2 - z3) * (1 << CONST_BITS);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = int64_t(ip[56]) * qp[56];
-    tmp1 = int64_t(ip[40]) * qp[40];
-    tmp2 = int64_t(ip[24]) * qp[24];
-    tmp3 = int64_t(ip[8]) * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    constexpr int S = CONST_BITS - PASS1_BITS;
-    wp[0] = int(descale(tmp10 + tmp3, S));
-    wp[56] = int(descale(tmp10 - tmp3, S));
-    wp[8] = int(descale(tmp11 + tmp2, S));
-    wp[48] = int(descale(tmp11 - tmp2, S));
-    wp[16] = int(descale(tmp12 + tmp1, S));
-    wp[40] = int(descale(tmp12 - tmp1, S));
-    wp[24] = int(descale(tmp13 + tmp0, S));
-    wp[32] = int(descale(tmp13 - tmp0, S));
+  int32_t dq[64], ws[64], t[64], res[64];
+  bool ac_rows = false;      // any coefficient past the first row
+  for (int k = 8; k < 64; ++k) ac_rows = ac_rows || in[k];
+  bool ac = ac_rows;
+  for (int k = 1; k < 8; ++k) ac = ac || in[k];
+  if (!ac) {                 // DC alone: both passes in closed form
+    int32_t v = (wrap16(wrap16(int32_t(in[0]) * q[0]) * 4) + 16) >> 5;
+    uint8_t b = uint8_t((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
+    for (int r = 0; r < 8; ++r) std::memset(out + r * stride, b, 8);
+    return;
   }
-  constexpr int S2 = CONST_BITS + PASS1_BITS + 3;
-  const uint8_t* rl = kRange.t;
+  for (int k = 0; k < 64; ++k) dq[k] = wrap16(int32_t(in[k]) * q[k]);
+  if (ac_rows) {
+    idct_pass8(dq, ws, CONST_BITS - PASS1_BITS);
+  } else {                   // the SIMD's shortcut: in0 << 2, in 16 bits
+    for (int k = 0; k < 64; ++k) ws[k] = wrap16(dq[k & 7] * 4);
+  }
   for (int r = 0; r < 8; ++r) {
-    const int* wp = ws + r * 8;
+    for (int c = 0; c < 8; ++c) t[c * 8 + r] = ws[r * 8 + c];
+  }
+  idct_pass8(t, res, CONST_BITS + PASS1_BITS + 3);
+  for (int r = 0; r < 8; ++r) {
     uint8_t* op = out + r * stride;
-    if (!wp[1] && !wp[2] && !wp[3] && !wp[4] && !wp[5] && !wp[6] && !wp[7]) {
-      uint8_t dc = rl[int(descale(wp[0], PASS1_BITS + 3)) & 1023];
-      for (int c = 0; c < 8; ++c) op[c] = dc;
-      continue;
+    for (int c = 0; c < 8; ++c) {
+      int32_t v = res[c * 8 + r];
+      op[c] = uint8_t((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
     }
-    int64_t z2 = wp[2], z3 = wp[6];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    int64_t tmp0 = (int64_t(wp[0]) + wp[4]) * (1 << CONST_BITS);
-    int64_t tmp1 = (int64_t(wp[0]) - wp[4]) * (1 << CONST_BITS);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = wp[7];
-    tmp1 = wp[5];
-    tmp2 = wp[3];
-    tmp3 = wp[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    op[0] = rl[int(descale(tmp10 + tmp3, S2)) & 1023];
-    op[7] = rl[int(descale(tmp10 - tmp3, S2)) & 1023];
-    op[1] = rl[int(descale(tmp11 + tmp2, S2)) & 1023];
-    op[6] = rl[int(descale(tmp11 - tmp2, S2)) & 1023];
-    op[2] = rl[int(descale(tmp12 + tmp1, S2)) & 1023];
-    op[5] = rl[int(descale(tmp12 - tmp1, S2)) & 1023];
-    op[3] = rl[int(descale(tmp13 + tmp0, S2)) & 1023];
-    op[4] = rl[int(descale(tmp13 - tmp0, S2)) & 1023];
   }
 }
 
@@ -393,11 +355,16 @@ const char* sof_name(int m) {
 
 // color: 0 by the file's markers (jdapimin.c default_decompress_parms),
 // 1 YCbCr whatever they say (TIFF photometric YCbCr with JPEGCOLORMODE
-// RGB), 2 no conversion (libtiff's JCS_UNKNOWN for other photometrics)
+// RGB), 2 no conversion (libtiff's JCS_UNKNOWN for other photometrics);
+// plus kSegment: the data is a TIFF strip or tile, where an EOI in place
+// of a restart marker is libtiff's (jdmarker.c resync action 3: the
+// marker stays, and each interval after it is an empty segment)
+constexpr int kSegment = 8;
+
 class JpegDecoder {
  public:
   JpegDecoder(const uint8_t* d, size_t n, int color) : d_(d), n_(n),
-      color_(color) {}
+      color_(color & ~kSegment), segment_(color & kSegment) {}
 
   // parse and entropy-decode the whole file
   void read() {
@@ -521,6 +488,7 @@ class JpegDecoder {
   const uint8_t* d_;
   size_t n_;
   int color_;
+  bool segment_;
   size_t pos_ = 0;
   bool frame_ = false, progressive_ = false;
   int scans_ = 0;
@@ -711,22 +679,30 @@ class JpegDecoder {
     BitReader br{d_, n_, pos_};
     eobrun_ = 0;
     int todo = restart_, next_rst = 0;
-    auto mcu_start = [&]() {
-      if (!restart_) return;
+    // whether the MCU starting here is decoded: not after the data ran
+    // out, until a restart marker comes (jdhuff.c process_restart)
+    auto mcu_start = [&]() -> bool {
+      if (!restart_) return !br.insufficient;
       if (todo == 0) {
         int m = br.next_marker();
-        if (m < 0) fail(TRUNCATED, "JPEG: image file is truncated");
-        if (m != 0xD0 + next_rst) {
-          fail(CORRUPT, "JPEG: expected restart marker RST" +
-                            std::to_string(next_rst));
+        if (m == 0xD9 && segment_) {
+          br.at_marker = true;    // not passed: the next intervals are empty
+        } else {
+          if (m < 0) fail(TRUNCATED, "JPEG: image file is truncated");
+          if (m != 0xD0 + next_rst) {
+            fail(CORRUPT, "JPEG: expected restart marker RST" +
+                              std::to_string(next_rst));
+          }
+          br.pos += 2;
+          br.insufficient = false;
         }
-        br.pos += 2;
         next_rst = (next_rst + 1) & 7;
         for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
         eobrun_ = 0;
         todo = restart_;
       }
       --todo;
+      return !br.insufficient;
     };
     auto block = [&](Comp* k, int bx, int by) {
       int16_t* b = &k->coef[(size_t(by) * k->bw + bx) * 64];
@@ -751,14 +727,13 @@ class JpegDecoder {
       Comp* k = sc[0];
       for (int by = 0; by < k->hib; ++by) {
         for (int bx = 0; bx < k->wib; ++bx) {
-          mcu_start();
-          block(k, bx, by);
+          if (mcu_start()) block(k, bx, by);
         }
       }
     } else {
       for (int my = 0; my < mcuy_; ++my) {
         for (int mx = 0; mx < mcux_; ++mx) {
-          mcu_start();
+          if (!mcu_start()) continue;
           for (int i = 0; i < ns; ++i) {
             Comp* k = sc[i];
             for (int v = 0; v < k->v; ++v) {
@@ -1076,167 +1051,419 @@ const Code kExtended[] = {
     {2560, 0x1F, 12},
 };
 
-// 13-bit lookup: (run + 1) << 4 | length, 0 for no code
-struct RunTable {
-  std::vector<uint32_t> t;
-  explicit RunTable(const Code* codes, size_t n) : t(1 << 13, 0) {
-    auto add = [&](const Code& c) {
-      int shift = 13 - c.len;
-      for (int j = 0; j < (1 << shift); ++j) {
-        t[(c.bits << shift) | j] = uint32_t((c.run + 1) << 4 | c.len);
+// libtiff 4.7.1's CCITT decoders (tif_fax3.h, tif_fax3.c), step for step,
+// so that data cut short or damaged gives libtiff's rows, as Pillow reads
+// them: table lookups on LSB-first bits, zero bits padded at the end of
+// the data while any bit is left, rows finished by CLEANUP_RUNS and
+// written by _TIFFFax3fillruns, T.4's retry without EOLs.
+enum FaxCode : uint8_t {
+  S_Null, S_Pass, S_Horiz, S_V0, S_VR, S_VL, S_Ext,
+  S_TermW, S_TermB, S_MakeUpW, S_MakeUpB, S_MakeUp, S_EOL
+};
+
+struct FaxEnt {
+  uint8_t state = S_Null;
+  uint8_t width = 0;
+  uint16_t param = 0;
+};
+
+// libtiff's TIFFFaxMainTable (7 bits), TIFFFaxWhiteTable (12) and
+// TIFFFaxBlackTable (13), indexed by the next bits, first bit lowest, as
+// mkg3states fills them; codes no table holds stay S_Null of width 0
+struct FaxTables {
+  std::vector<FaxEnt> main, white, black;
+  FaxTables() : main(1 << 7), white(1 << 12), black(1 << 13) {
+    auto put = [](std::vector<FaxEnt>& t, int size, uint32_t bits, int len,
+                  FaxCode state, int param) {
+      uint32_t r = 0;
+      for (int i = 0; i < len; ++i) r |= ((bits >> i) & 1u) << (len - 1 - i);
+      for (uint32_t k = r; k < (1u << size); k += 1u << len) {
+        t[k] = FaxEnt{uint8_t(state), uint8_t(len), uint16_t(param)};
       }
     };
-    for (size_t i = 0; i < n; ++i) add(codes[i]);
-    for (const Code& c : kExtended) add(c);
+    put(main, 7, 0x1, 4, S_Pass, 0);
+    put(main, 7, 0x1, 3, S_Horiz, 0);
+    put(main, 7, 0x1, 1, S_V0, 0);
+    put(main, 7, 0x3, 3, S_VR, 1);
+    put(main, 7, 0x3, 6, S_VR, 2);
+    put(main, 7, 0x3, 7, S_VR, 3);
+    put(main, 7, 0x2, 3, S_VL, 1);
+    put(main, 7, 0x2, 6, S_VL, 2);
+    put(main, 7, 0x2, 7, S_VL, 3);
+    put(main, 7, 0x1, 7, S_Ext, 0);
+    put(main, 7, 0x0, 7, S_EOL, 0);
+    for (const Code& c : kWhite) {
+      put(white, 12, c.bits, c.len, c.run < 64 ? S_TermW : S_MakeUpW, c.run);
+    }
+    for (const Code& c : kBlack) {
+      put(black, 13, c.bits, c.len, c.run < 64 ? S_TermB : S_MakeUpB, c.run);
+    }
+    for (const Code& c : kExtended) {
+      put(white, 12, c.bits, c.len, S_MakeUp, c.run);
+      put(black, 13, c.bits, c.len, S_MakeUp, c.run);
+    }
+    put(white, 12, 0x0, 11, S_EOL, 0);
+    put(black, 13, 0x0, 11, S_EOL, 0);
   }
 };
 
-const RunTable& white_table() {
-  static const RunTable t(kWhite, sizeof(kWhite) / sizeof(Code));
-  return t;
-}
-const RunTable& black_table() {
-  static const RunTable t(kBlack, sizeof(kBlack) / sizeof(Code));
+const FaxTables& fax_tables() {
+  static const FaxTables t;
   return t;
 }
 
-struct FaxBits {
+// libtiff keeps int positions and uint32_t runs and mixes them; the sums
+// wrap as they do there
+inline int32_t wrap(int64_t v) { return int32_t(uint32_t(uint64_t(v))); }
+
+// One strip or tile.  runs: the image's run arrays (2 * nruns entries,
+// allocated and zeroed once an image, as Fax3SetupState does), whose
+// halves are the row being decoded and the reference row.
+struct Fax {
+  enum End { kRow, kData, kOverflow };  // eol / eof label / buffer overflow
+
+  const FaxTables& tab = fax_tables();
   const uint8_t* d;
-  size_t n;
-  bool reverse;  // FillOrder 2: least significant bit first
-  size_t bitpos = 0;
+  size_t cp = 0, ep;
+  bool reverse;  // FillOrder 1: each byte's bits reversed (the bitmap)
+  uint32_t BitAcc = 0;
+  int BitsAvail = 0;
+  int EOLcnt = 0;
+  int lastx;
+  uint32_t* runs;
+  size_t nruns, cur = 0, ref;
+  // the row's state
+  int a0 = 0, RunLength = 0, b1 = 0;
+  size_t thisrun = 0, pa = 0, pb = 0;
 
-  inline int bit_at(size_t p) const {
-    size_t byte = p >> 3;
-    if (byte >= n) return 0;
-    int b = d[byte];
-    int k = int(p & 7);
-    return reverse ? (b >> k) & 1 : (b >> (7 - k)) & 1;
+  uint32_t byte(size_t i) const {
+    uint32_t b = d[i];
+    if (!reverse) return b;
+    b = ((b & 0xF0) >> 4) | ((b & 0x0F) << 4);
+    b = ((b & 0xCC) >> 2) | ((b & 0x33) << 2);
+    return ((b & 0xAA) >> 1) | ((b & 0x55) << 1);
   }
-  inline uint32_t peek(int k) const {
-    uint32_t v = 0;
-    for (int i = 0; i < k; ++i) v = (v << 1) | uint32_t(bit_at(bitpos + i));
-    return v;
-  }
-  bool exhausted() const { return bitpos >= n * 8; }
-  void align() { bitpos = (bitpos + 7) & ~size_t(7); }
-};
-
-int fax_run(FaxBits& br, bool white) {
-  const RunTable& t = white ? white_table() : black_table();
-  int total = 0;
-  for (;;) {
-    if (br.exhausted()) fail(TRUNCATED, "TIFF: CCITT data ends mid-row");
-    uint32_t e = t.t[br.peek(13)];
-    if (!e) fail(CORRUPT, "TIFF: bad CCITT run code");
-    br.bitpos += e & 15;
-    int run = int(e >> 4) - 1;
-    total += run;
-    if (run < 64) return total;
-  }
-}
-
-// skip fill zeros and one EOL (000000000001) if one is next
-bool fax_eol(FaxBits& br) {
-  size_t p = br.bitpos;
-  int zeros = 0;
-  while (p < br.n * 8 && br.bit_at(p) == 0) {
-    ++zeros;
-    ++p;
-  }
-  if (zeros >= 11 && p < br.n * 8) {
-    br.bitpos = p + 1;
+  // NeedBits8 / NeedBits16: false where libtiff jumps to the end-of-data
+  // label (no bit left); bits past the end read as zeros
+  bool need(int n) {
+    if (BitsAvail >= n) return true;
+    if (cp >= ep) {
+      if (BitsAvail == 0) return false;
+      BitsAvail = n;
+      return true;
+    }
+    BitAcc |= byte(cp++) << BitsAvail;
+    BitsAvail += 8;
+    if (n > 8 && BitsAvail < n) {
+      if (cp >= ep) {
+        BitsAvail = n;
+      } else {
+        BitAcc |= byte(cp++) << BitsAvail;
+        BitsAvail += 8;
+      }
+    }
     return true;
   }
-  return false;
-}
-
-void fill_run(uint8_t* row, int a, int b, bool black) {
-  if (black) {
-    for (int x = a; x < b; ++x) row[x] = 1;
+  uint32_t get(int n) const { return BitAcc & ((1u << n) - 1); }
+  void clr(int n) {
+    BitsAvail -= n;
+    BitAcc >>= n;
   }
-}
-
-void fax_row_1d(FaxBits& br, uint8_t* row, int width) {
-  int a = 0;
-  bool white = true;
-  while (a < width) {
-    int run = fax_run(br, white);
-    int b = std::min(width, a + run);
-    fill_run(row, a, b, !white);
-    a += run;
-    white = !white;
+  bool lookup(int wid, const std::vector<FaxEnt>& t, FaxEnt& e) {
+    if (!need(wid)) return false;
+    e = t[get(wid)];
+    clr(e.width);
+    return true;
   }
-  if (a != width) fail(CORRUPT, "TIFF: CCITT row runs past its width");
-}
 
-// changing elements of a row (pixel colours 0 white, 1 black), with
-// width sentinels
-void changes(const uint8_t* row, int width, std::vector<int>& out) {
-  out.clear();
-  int prev = 0;
-  for (int x = 0; x < width; ++x) {
-    if (row[x] != prev) {
-      out.push_back(x);
-      prev = row[x];
-    }
+  void start_row() {
+    a0 = 0;
+    RunLength = 0;
+    thisrun = pa = cur;
   }
-  for (int i = 0; i < 4; ++i) out.push_back(width);
-}
-
-void fax_row_2d(FaxBits& br, uint8_t* row, int width,
-                const std::vector<int>& ref) {
-  int a0 = -1;
-  bool white = true;
-  size_t ri = 0;
-  while (a0 < width) {
-    // b1: the first changing element right of a0 whose colour is the
-    // opposite of a0's (even indices turn black); the sentinels end it
-    while (ref[ri] <= a0) ++ri;
-    size_t bi = ri + (((ri & 1) != (white ? 0u : 1u)) ? 1 : 0);
-    int b1 = ref[bi], b2 = ref[bi + 1];
-    int start = a0 < 0 ? 0 : a0;
-    if (br.exhausted()) fail(TRUNCATED, "TIFF: CCITT data ends mid-row");
-    uint32_t p7 = br.peek(7);
-    int a1;
-    if (p7 >> 6 == 1) {  // V0: 1
-      br.bitpos += 1;
-      a1 = b1;
-    } else if (p7 >> 4 == 3 || p7 >> 4 == 2) {  // VR1 011, VL1 010
-      br.bitpos += 3;
-      a1 = (p7 >> 4 == 3) ? b1 + 1 : b1 - 1;
-    } else if (p7 >> 4 == 1) {  // H: 001
-      br.bitpos += 3;
-      int r1 = fax_run(br, white);
-      int r2 = fax_run(br, !white);
-      if (start + r1 + r2 > width) {
-        fail(CORRUPT, "TIFF: CCITT row runs past its width");
+  // SETVALUE
+  bool set(int x) {
+    if (pa >= thisrun + nruns) return false;
+    runs[pa++] = uint32_t(wrap(int64_t(RunLength) + x));
+    a0 = wrap(int64_t(a0) + x);
+    RunLength = 0;
+    return true;
+  }
+  // CLEANUP_RUNS
+  bool cleanup() {
+    if (RunLength && !set(0)) return false;
+    if (a0 != lastx) {
+      while (a0 > lastx && pa > thisrun) a0 = wrap(int64_t(a0) - runs[--pa]);
+      if (a0 < lastx) {
+        if (a0 < 0) a0 = 0;
+        if (((pa - thisrun) & 1) && !set(0)) return false;
+        if (!set(lastx - a0)) return false;
+      } else if (a0 > lastx) {
+        if (!set(lastx) || !set(0)) return false;
       }
-      fill_run(row, start, start + r1, !white);
-      fill_run(row, start + r1, start + r1 + r2, white);
-      a0 = start + r1 + r2;
-      continue;
-    } else if (p7 >> 3 == 1) {  // P: 0001
-      br.bitpos += 4;
-      fill_run(row, start, b2, !white);
-      a0 = b2;
-      continue;
-    } else if (p7 >> 1 == 3 || p7 >> 1 == 2) {  // VR2 000011, VL2 000010
-      br.bitpos += 6;
-      a1 = (p7 >> 1 == 3) ? b1 + 2 : b1 - 2;
-    } else if (p7 == 3 || p7 == 2) {  // VR3 0000011, VL3 0000010
-      br.bitpos += 7;
-      a1 = (p7 == 3) ? b1 + 3 : b1 - 3;
-    } else if (p7 == 1) {
-      fail(UNSUPPORTED, "TIFF: CCITT uses an extension (uncompressed) mode");
-    } else {
-      fail(CORRUPT, "TIFF: bad CCITT mode code");
     }
-    if (a1 < start || a1 > width) fail(CORRUPT, "TIFF: bad CCITT V code");
-    fill_run(row, start, a1, !white);
-    a0 = a1;
-    white = !white;
+    return true;
   }
+  // CHECK_b1
+  bool check_b1() {
+    if (pa != thisrun) {
+      while (b1 <= a0 && b1 < lastx) {
+        if (pb + 1 >= ref + nruns) return false;
+        b1 = wrap(int64_t(b1) + runs[pb] + runs[pb + 1]);
+        pb += 2;
+      }
+    }
+    return true;
+  }
+  // the row's runs into row (one byte a pixel, 1 in a black run), as
+  // _TIFFFax3fillruns: runs past lastx are cut there, pixels past the
+  // last run are not written
+  void fill(uint8_t* row) {
+    size_t erun = pa;
+    if ((erun - thisrun) & 1) runs[erun++] = 0;  // a spare word past 2 nruns
+    uint32_t x = 0, lx = uint32_t(lastx);
+    for (size_t i = thisrun; i < erun; i += 2) {
+      for (int k = 0; k < 2; ++k) {
+        uint32_t run = runs[i + k];
+        if (x + run > lx || run > lx) run = runs[i + k] = lx - x;
+        if (run) {
+          std::memset(row + x, k, run);
+          x += run;
+        }
+      }
+    }
+  }
+  // EXPAND1D: the runs of a 1-D row
+  End expand1d() {
+    End end = kRow;
+    FaxEnt e;
+    for (;;) {
+      for (int black = 0; black < 2; ++black) {
+        for (;;) {
+          bool ok = black ? lookup(13, tab.black, e) : lookup(12, tab.white, e);
+          if (!ok) {
+            end = kData;
+            goto out;
+          }
+          if (e.state == S_EOL) {
+            EOLcnt = 1;
+            goto out;
+          }
+          if (e.state == (black ? S_TermB : S_TermW)) {
+            if (!set(e.param)) return kOverflow;
+            break;
+          }
+          if (e.state == (black ? S_MakeUpB : S_MakeUpW) ||
+              e.state == S_MakeUp) {
+            a0 = wrap(int64_t(a0) + e.param);
+            RunLength = wrap(int64_t(RunLength) + e.param);
+          } else {
+            goto out;  // unexpected
+          }
+        }
+        if (a0 >= lastx) goto out;
+      }
+      if (runs[pa - 1] == 0 && runs[pa - 2] == 0) pa -= 2;
+    }
+  out:
+    return cleanup() ? end : kOverflow;
+  }
+  // EXPAND2D: the runs of a 2-D row against the reference row's
+  End expand2d() {
+    End end = kRow;
+    FaxEnt e;
+    while (a0 < lastx) {
+      if (pa >= thisrun + nruns) return kOverflow;
+      if (!lookup(7, tab.main, e)) {
+        end = kData;
+        goto out;
+      }
+      switch (e.state) {
+        case S_Pass:
+          if (!check_b1() || pb + 1 >= ref + nruns) return kOverflow;
+          b1 = wrap(int64_t(b1) + runs[pb++]);
+          RunLength = wrap(int64_t(RunLength) + b1 - a0);
+          a0 = b1;
+          b1 = wrap(int64_t(b1) + runs[pb++]);
+          break;
+        case S_Horiz: {
+          // the colour of the run to come: white after an even count
+          int first = (pa - thisrun) & 1;
+          for (int k = 0; k < 2; ++k) {
+            int black = first ^ k;
+            for (;;) {
+              FaxEnt r;
+              bool ok = black ? lookup(13, tab.black, r)
+                              : lookup(12, tab.white, r);
+              if (!ok) {
+                end = kData;
+                goto out;
+              }
+              if (r.state == (black ? S_TermB : S_TermW)) {
+                if (!set(r.param)) return kOverflow;
+                break;
+              }
+              if (r.state == (black ? S_MakeUpB : S_MakeUpW) ||
+                  r.state == S_MakeUp) {
+                a0 = wrap(int64_t(a0) + r.param);
+                RunLength = wrap(int64_t(RunLength) + r.param);
+              } else {
+                goto out;  // unexpected
+              }
+            }
+          }
+          if (!check_b1()) return kOverflow;
+          break;
+        }
+        case S_V0:
+        case S_VR:
+          if (!check_b1()) return kOverflow;
+          if (!set(wrap(int64_t(b1) - a0 + (e.state == S_VR ? e.param : 0))))
+            return kOverflow;
+          if (pb >= ref + nruns) return kOverflow;
+          b1 = wrap(int64_t(b1) + runs[pb++]);
+          break;
+        case S_VL:
+          if (!check_b1()) return kOverflow;
+          if (b1 < wrap(int64_t(a0) + e.param)) goto out;  // unexpected
+          if (!set(wrap(int64_t(b1) - a0 - e.param))) return kOverflow;
+          if (pb == 0) return kOverflow;
+          b1 = wrap(int64_t(b1) - runs[--pb]);
+          break;
+        case S_Ext:  // uncompressed data, which libtiff does not read
+          runs[pa++] = uint32_t(lastx - a0);
+          goto out;
+        case S_EOL:
+          runs[pa++] = uint32_t(lastx - a0);
+          if (!need(4)) {
+            end = kData;
+            goto out;
+          }
+          clr(4);
+          EOLcnt = 1;
+          goto out;
+        default:
+          goto out;  // unexpected
+      }
+    }
+    if (RunLength) {
+      if (wrap(int64_t(RunLength) + a0) < lastx) {
+        if (!need(1)) {
+          end = kData;
+          goto out;
+        }
+        if (!get(1)) goto out;
+        clr(1);
+      }
+      if (!set(0)) return kOverflow;
+    }
+  out:
+    return cleanup() ? end : kOverflow;
+  }
+  // SYNC_EOL: 0 after an EOL, 1 at the end of the data before the EOL's
+  // zeros end (libtiff's premature EOF), 2 where no EOL follows them
+  int sync_eol() {
+    if (EOLcnt == 0) {
+      for (;;) {
+        if (!need(11)) return 1;
+        if (get(11) == 0) break;
+        clr(1);
+      }
+    }
+    for (;;) {
+      if (!need(8)) return 2;
+      if (get(8)) break;
+      clr(8);
+    }
+    while (get(1) == 0) clr(1);
+    clr(1);
+    EOLcnt = 0;
+    return 0;
+  }
+
+  // Fax3DecodeRLE: 1 or -1, as libtiff returns
+  int rle(uint8_t* dst, int rows) {
+    for (int y = 0; y < rows; ++y, dst += lastx) {
+      start_row();
+      End end = expand1d();
+      if (end == kOverflow) return -1;
+      fill(dst);
+      if (end == kData) return -1;
+      clr(BitsAvail & 7);  // rows start on a byte
+    }
+    return 1;
+  }
+  // Fax3Decode1D / Fax3Decode2D.  Where no EOL follows a run of zeros,
+  // libtiff warns, marks the codec as without EOLs (no_eol, which holds
+  // for the image's later segments too) and decodes the segment again
+  // from its first byte into the rows still to come.
+  int t4(uint8_t* dst, int rows, bool two_d, bool& no_eol) {
+    for (int y = 0; y < rows;) {
+      start_row();
+      if (!no_eol) {
+        int r = sync_eol();
+        if (r == 2) {
+          no_eol = true;
+          cp = 0;
+          BitAcc = 0;
+          BitsAvail = 0;
+          EOLcnt = 0;
+          continue;
+        }
+        if (r == 1) {
+          if (!cleanup()) return -1;
+          fill(dst);
+          return -1;
+        }
+      }
+      End end;
+      if (two_d) {
+        if (!need(1)) {
+          if (!cleanup()) return -1;
+          fill(dst);
+          return -1;
+        }
+        bool one_d = get(1);
+        clr(1);
+        pb = ref;
+        b1 = int32_t(runs[pb++]);
+        end = one_d ? expand1d() : expand2d();
+      } else {
+        end = expand1d();
+      }
+      if (end == kOverflow) return -1;
+      fill(dst);
+      if (end == kData) return -1;
+      if (two_d) {
+        if (pa < thisrun + nruns) set(0);
+        std::swap(cur, ref);
+      }
+      ++y;
+      dst += lastx;
+    }
+    return 1;
+  }
+  // Fax4Decode: at an EOL or the end of the data the row is written and
+  // decoding stops, an error only in the segment's first row
+  int t6(uint8_t* dst, int rows) {
+    for (int y = 0; y < rows; ++y, dst += lastx) {
+      start_row();
+      pb = ref;
+      b1 = int32_t(runs[pb++]);
+      End end = expand2d();
+      if (end == kOverflow) return -1;
+      fill(dst);
+      if (end == kData || EOLcnt) return y ? 1 : -1;
+      if (!set(0)) return -1;
+      std::swap(cur, ref);
+    }
+    return 1;
+  }
+};
+
+size_t fax_nruns(int width, bool two_d) {
+  size_t n = (size_t(width) + 1 + 31) / 32 * 32;
+  return two_d ? 2 * n : n;
 }
 
 }  // namespace
@@ -1378,48 +1605,49 @@ long tiff_lzw_decode(const uint8_t* src, size_t n, uint8_t* dst, size_t dn,
   return long(o);
 }
 
-// CCITT bilevel rows into dst (rows x stride bytes, one byte a pixel, 1
-// for a black run).  mode 2: modified Huffman, rows byte-aligned; 3: T.4
-// (t4_options bit 0: 2-D), EOLs; 4: T.6.  Returns rows decoded or -status.
+// CCITT rows into dst (rows x width bytes, one byte a pixel, 1 in a
+// black run) as libtiff 4.7.1 decodes one strip or tile of them: mode 2
+// modified Huffman (rows byte-aligned), 3 T.4 (t4_options bit 0: 2-D),
+// 4 T.6.  Pixels the decoder does not reach keep what dst held.  state
+// (state_words long, zeroed for each image): word 0 the codec's flags,
+// then its run arrays, carried from one segment to the next as libtiff
+// carries them.  T.4's uncompressed-mode option changes nothing: libtiff
+// ends a row at an uncompressed-mode code.  Returns 1, or 0 where
+// libtiff's decoder returns -1 (data that end before the rows do, runs
+// past its arrays), or -status.
 long ccitt_decode(const uint8_t* src, size_t n, int mode, int t4_options,
                   int fill_order, int width, int rows, uint8_t* dst,
-                  char* err, int errlen) {
-  try {
-    if (mode == 3 && (t4_options & 2)) {
-      fail(UNSUPPORTED, "TIFF: CCITT T.4 with uncompressed mode");
-    }
-    FaxBits br{src, n, fill_order == 2};
-    std::vector<uint8_t> blank(width, 0);
-    std::vector<int> ref;
-    changes(blank.data(), width, ref);
-    std::memset(dst, 0, size_t(rows) * width);
-    for (int y = 0; y < rows; ++y) {
-      uint8_t* row = dst + size_t(y) * width;
-      if (mode == 2) {
-        fax_row_1d(br, row, width);
-        br.align();
-      } else if (mode == 3) {
-        fax_eol(br);
-        bool two_d = false;
-        if (t4_options & 1) {  // tag bit: 1 a 1-D row, 0 a 2-D row
-          two_d = br.peek(1) == 0;
-          br.bitpos += 1;
-        }
-        if (two_d) {
-          fax_row_2d(br, row, width, ref);
-        } else {
-          fax_row_1d(br, row, width);
-        }
-      } else {
-        fax_row_2d(br, row, width, ref);
-      }
-      changes(row, width, ref);
-    }
-    return rows;
-  } catch (const DecodeError& e) {
-    set_err(err, errlen, e.msg);
-    return -e.status;
+                  uint32_t* state, size_t state_words, char* err,
+                  int errlen) {
+  bool two_d = mode == 4 || (mode == 3 && (t4_options & 1));
+  size_t nruns = fax_nruns(width, two_d);
+  if (width <= 0 || rows < 0 || state_words < 2 * nruns + 2) {
+    set_err(err, errlen, "TIFF: CCITT segment of a bad size");
+    return -CORRUPT;
   }
+  Fax f{};
+  f.d = src;
+  f.ep = n;
+  f.reverse = fill_order != 2;
+  f.lastx = width;
+  f.runs = state + 1;
+  f.nruns = nruns;
+  f.ref = nruns;
+  if (two_d) {  // Fax3PreDecode: the reference row is white
+    f.runs[f.ref] = uint32_t(width);
+    f.runs[f.ref + 1] = 0;
+  }
+  int got;
+  if (mode == 2) {
+    got = f.rle(dst, rows);
+  } else if (mode == 3) {
+    bool no_eol = state[0] & 1;
+    got = f.t4(dst, rows, two_d, no_eol);
+    state[0] = (state[0] & ~1u) | (no_eol ? 1u : 0u);
+  } else {
+    got = f.t6(dst, rows);
+  }
+  return got > 0 ? 1 : 0;
 }
 
 // GIF LZW (LSB-first codes): pixels written into dst (at most dn), or

@@ -83,7 +83,9 @@ def _load():
         lib.packbits_decode.restype = ctypes.c_long
         lib.tiff_lzw_decode.argtypes = [u8p, sz, u8p, sz, cp, ci]
         lib.tiff_lzw_decode.restype = ctypes.c_long
-        lib.ccitt_decode.argtypes = [u8p, sz, ci, ci, ci, ci, ci, u8p, cp, ci]
+        lib.ccitt_decode.argtypes = [u8p, sz, ci, ci, ci, ci, ci, u8p,
+                                     ctypes.POINTER(ctypes.c_uint32), sz, cp,
+                                     ci]
         lib.ccitt_decode.restype = ctypes.c_long
         lib.gif_lzw_decode.argtypes = [u8p, sz, ci, u8p, sz, cp, ci]
         lib.gif_lzw_decode.restype = ctypes.c_long
@@ -109,17 +111,20 @@ def _error(status: int, msg: str, where: str) -> Exception:
 
 
 def decode_jpeg(data: bytes, shape: Tuple[int, int, int], color: int = 0,
-                where: str = "JPEG") -> np.ndarray:
+                where: str = "JPEG", segment: bool = False) -> np.ndarray:
     """JPEG bytes -> uint8 [h, w, ch].  ``ch`` is the file's own channel
     count (1 L, 3 RGB, 4 CMYK as stored), or 3 for an L file (replicated)
     or 1 for an RGB file (the truncating channel mean).  ``color``: 0 the
-    file's colour space, 1 YCbCr whatever it says, 2 no conversion."""
+    file's colour space, 1 YCbCr whatever it says, 2 no conversion.
+    ``segment``: the bytes are a TIFF strip or tile, which may end inside
+    its scan (read as libjpeg reads the EOI libtiff puts there)."""
     lib = _load()
     out = np.empty(shape, np.uint8)
     err = ctypes.create_string_buffer(_ERRLEN)
     src = _src(data)
-    st = lib.decode_jpeg(_u8(src), len(data), color, _u8(out), shape[0],
-                         shape[1], shape[2], err, _ERRLEN)
+    st = lib.decode_jpeg(_u8(src), len(data), color | (8 if segment else 0),
+                         _u8(out), shape[0], shape[1], shape[2], err,
+                         _ERRLEN)
     if st:
         raise _error(st, err.value.decode(errors="replace"), where)
     return out
@@ -175,19 +180,32 @@ def tiff_lzw(data: bytes, nbytes: int, where: str = "TIFF") -> np.ndarray:
     return out[:got]
 
 
+def ccitt_state(width: int) -> np.ndarray:
+    """A new codec state for ``ccitt`` over the segments of one image,
+    ``width`` pixels wide: libtiff's run arrays and flags, zeroed."""
+    return np.zeros(2 + 4 * (-(-(width + 1) // 32) * 32), np.uint32)
+
+
 def ccitt(data: bytes, mode: int, t4_options: int, fill_order: int,
-          width: int, rows: int, where: str = "TIFF") -> np.ndarray:
-    """CCITT-coded rows -> uint8 [rows, width], 1 where a black run
-    lies.  ``mode`` is the TIFF compression: 2 modified Huffman, 3 T.4,
-    4 T.6."""
-    out = np.zeros((rows, width), np.uint8)
+          out: np.ndarray, state: np.ndarray, where: str = "TIFF") -> bool:
+    """One CCITT-coded strip or tile into ``out`` (uint8 [rows, width],
+    C-contiguous; 1 where a black run lies) as libtiff decodes it: data
+    that end early or go wrong give libtiff's rows, and the pixels it does
+    not reach keep their values.  ``mode`` is the TIFF compression: 2
+    modified Huffman, 3 T.4, 4 T.6.  ``state``: ``ccitt_state(width)``,
+    passed to each segment of the image in turn.  False where libtiff's
+    decoder fails the segment."""
+    rows, width = out.shape
+    if not out.flags.c_contiguous or out.dtype != np.uint8:
+        raise ValueError("ccitt: out must be C-contiguous uint8")
     err = ctypes.create_string_buffer(_ERRLEN)
-    got = _load().ccitt_decode(_u8(_src(data)), len(data), mode, t4_options,
-                               fill_order, width, rows, _u8(out), err,
-                               _ERRLEN)
+    got = _load().ccitt_decode(
+        _u8(_src(data)), len(data), mode, t4_options, fill_order, width,
+        rows, _u8(out), state.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        state.size, err, _ERRLEN)
     if got < 0:
         raise _error(-got, err.value.decode(errors="replace"), where)
-    return out
+    return got == 1
 
 
 def gif_lzw(data: bytes, min_code_size: int, npixels: int,

@@ -387,6 +387,18 @@ def test_digest_tells_palette_transparency_and_depth_apart():
 
 @pytest.mark.parametrize("mode", ["CMYK", "I", "F", "YCbCr"])
 def test_png_writer_refuses_what_pillow_refuses(mode, tmp_path):
+    if mode == "I":
+        # Pillow 12.1 writes I as 16-bit gray (PngImagePlugin's I;16B
+        # rawmode clips to 0-65535; deprecated, not refused)
+        v = np.array([[-5, 0, 255, 65535, 70000]], np.int32)
+        p = imaging.save_image(str(tmp_path / "x.png"), v, mode)
+        want = str(tmp_path / "want.png")
+        with pytest.warns(DeprecationWarning):
+            Image.fromarray(v, "I").save(want)
+        got = pillow_view(p)
+        assert_same_view(got, pillow_view(want), mode)
+        assert got[1].tolist() == [[0, 0, 255, 65535, 65535]]
+        return
     px = np.zeros((2, 2, 4) if mode == "CMYK" else (2, 2), np.uint8)
     with pytest.raises(OSError, match=f"cannot write mode {mode} as PNG"):
         imaging.save_image(str(tmp_path / "x.png"), px, mode)

@@ -400,18 +400,15 @@ def _refusals(tmp_path):
             tex, [(3, 1), (1, 1), (1, 1)]),
         "coefficient bits unsent": mi.drop_refinement_scans(
             open(prog, "rb").read()),
-        # tiles, BigTIFF and separate planes are read: a float tile, a
-        # BigTIFF with predictor 3 and 12-bit planes stay refused
-        "sample format \\[3\\] \\(float": mi.tiff_bytes(
-            [bytes(16 * 16 * 4)] * 9, {
-                **base, 258: (3, [32]), 339: (3, [3]), 322: (3, [16]),
-                323: (3, [16])}, tiled=True),
-        "predictor 3": mi.tiff_bytes([bytes(24 * 40)], {
-            **base, 259: (3, [5]), 317: (3, [3])}, big=True),
-        "sample format \\[3\\]": mi.tiff_bytes([bytes(24 * 40 * 4)], {
-            **base, 258: (3, [32]), 339: (3, [3])}),
-        "samples of \\[12\\] bits": mi.tiff_bytes([bytes(24 * 60)], {
-            **base, 258: (3, [12]), 284: (3, [2])}),
+        # float, 12-bit and predictor 3 are read now
+        # (test_former_tiff_refusals_match_pillow); these stay refused
+        "planar configuration 2 for PA": mi.tiff_bytes(
+            [bytes(24 * 40)] * 2, {**base, 258: (3, [8, 8]), 259: (3, [8]),
+                                   262: (3, [3]), 277: (3, [2]),
+                                   284: (3, [2]), 338: (3, [2]),
+                                   320: (3, [0] * 768)}),
+        "photometric 6 with 1 sample \\(YCbCr\\) under JPEG": mi.tiff_bytes(
+            _strips(g4), {**base, 259: (3, [7]), 262: (3, [6])}),
         "old-style \\(LSB-first\\) LZW": mi.tiff_bytes([b"\x00\x01" + bytes(
             40)], {**base, 259: (3, [5])}),
         "photometric 6 with 3 samples": mi.tiff_bytes(_strips(g4), {
@@ -420,6 +417,42 @@ def _refusals(tmp_path):
                                                   compression=4),
         "RIFF \\(WebP\\)": b"RIFF\x10\0\0\0WEBPVP8 " + bytes(32),
     }
+
+
+def _former_refusals():
+    """The TIFF files this test module refused by name before float,
+    12-bit samples and predictor 3 were read: a float tile, a BigTIFF with
+    predictor 3 over LZW, a float strip, 12-bit samples in a plane."""
+    base = {256: (3, [40]), 257: (3, [24]), 258: (3, [8]), 259: (3, [1]),
+            262: (3, [1]), 278: (3, [24])}
+    return {
+        "float_tile": mi.tiff_bytes([bytes(16 * 16 * 4)] * 9, {
+            **base, 258: (3, [32]), 339: (3, [3]), 322: (3, [16]),
+            323: (3, [16])}, tiled=True),
+        "predictor3_bigtiff": mi.tiff_bytes([bytes(24 * 40)], {
+            **base, 259: (3, [5]), 317: (3, [3])}, big=True),
+        "float_strip": mi.tiff_bytes([bytes(24 * 40 * 4)], {
+            **base, 258: (3, [32]), 339: (3, [3])}),
+        "planes_12bit": mi.tiff_bytes([bytes(24 * 60)], {
+            **base, 258: (3, [12]), 284: (3, [2])}),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_former_refusals()))
+def test_former_tiff_refusals_match_pillow(case, tmp_path):
+    """Read as Pillow reads them (float zeros), or OSError where Pillow
+    raises: libtiff takes predictor 3 only on float samples, and Pillow
+    has no unpacker for a plane of 12-bit samples."""
+    p = _write(tmp_path / f"{case}.tif", _former_refusals()[case])
+    try:
+        mode = _pillow(p)[0]
+    except (OSError, ValueError):
+        for fn in (image_io.read_rgb, image_io.read_l,
+                   lambda q: t_infer._LazyImage(q, gray=True).load()):
+            with pytest.raises(OSError, match="TIFF"):
+                fn(p)
+        return
+    assert assert_like_pillow(p) == mode == "F"
 
 
 def test_every_refusal_names_its_feature_and_the_roadmap(tmp_path):
@@ -736,7 +769,7 @@ def test_fixture_directory_is_small_and_complete():
                      for r, _, fs in os.walk(FIXTURES) for f in fs
                      if f != "golden.npz")
     assert names == on_disk and len(names) == 2 * mi.N_LINES + 30 + len(
-        mi.LAYOUT_FILES)
+        mi.LAYOUT_FILES) + len(mi.SAMPLE_FILES)
     total = sum(os.path.getsize(os.path.join(FIXTURES, n)) for n in names)
     assert total + os.path.getsize(os.path.join(FIXTURES, "golden.npz")) \
         < 2 * 2**20

@@ -23,8 +23,10 @@ package's under both channel rules.  Then: the layouts Pillow cannot
 open (big-endian BigTIFF, 16-bit LA, predictor 2 on 4-bit samples)
 raise ``OSError`` in both; truncated tiles and short tile counts;
 ``extract_char_crops`` over orientation-6 tiled pages; ``engine.run``
-over tiled, BigTIFF and rotated lines against the JAX engine; and the
-golden entries that were committed before these layouts, unchanged.
+over tiled, BigTIFF and rotated lines, and over float, associated-alpha,
+signed and LAB lines (test_torch_tiff_samples.py's layouts), against the
+JAX engine; and the golden entries that were committed before these
+layouts, unchanged.
 Tolerance: none (exact equality) throughout.
 """
 
@@ -345,8 +347,9 @@ def test_truncated_tiles_raise_like_pillow(comp, tmp_path):
     """A tile count short of the image, a tile cut inside its byte count
     (LZW, Deflate), a file cut before its IFD: OSError, as Pillow raises
     (libtiff's "decoder error", "cannot identify image file").  A cut
-    JPEG or CCITT tile Pillow reads as far as libjpeg / libtiff recover;
-    the port raises there, as it does for strips (ROADMAP.md, queue 3)."""
+    JPEG tile gives Pillow's pixels (libjpeg's gray past the cut), and so
+    does a cut group 4 tile (libtiff's rows up to the cut, the rows past
+    it those of the tile decoded before it in Pillow's one buffer)."""
     r = np.random.default_rng(comp)
     full = (mi.jpeg_tiled(_rgb(r)) if comp == 7 else _ccitt(
         r, 4, tile=(16, 16)) if comp == 4 else mi.tiff_layout(
@@ -366,10 +369,11 @@ def test_truncated_tiles_raise_like_pillow(comp, tmp_path):
                                   tiled=True),
         "cut_file": full[:offs[-1] + counts[-1] // 2],
     }
-    if comp in (7, 4):
-        del cases["cut_tile"]
     for name, data in cases.items():
         p = _write(tmp_path, name, data)
+        if name == "cut_tile" and comp in (7, 4):
+            assert_like_pillow_and_jax(p)
+            continue
         with pytest.raises(OSError):
             with Image.open(p) as im:
                 im.convert("RGB")
@@ -510,6 +514,44 @@ def test_engine_reads_tiled_bigtiff_and_rotated_lines_like_jax(
             assert tres[p] == TEXTS[i], (i, tres[p])
 
 
+def test_engine_reads_sample_layouts_like_jax(tiny_parts, tmp_path):
+    """engine.run over gray lines stored as float (Deflate, predictor 3),
+    associated-alpha RGBA, big-endian signed 16-bit and LAB:
+    the JAX engine's text on the same weights, which is each line's text
+    where the pixels are the line's own."""
+    from effocr_torch.interop.flax_bridge import flax_to_state_dict
+    from test_pipeline_e2e import CHARS, make_line
+
+    enc, variables, protos = tiny_parts
+    t_enc = TorchTinyEncoder(256)
+    t_enc.load_state_dict(flax_to_state_dict(variables), strict=True)
+    writers = [
+        lambda g: mi.tiff_layout(g.astype(np.float32) + 0.25, bits=32,
+                                 sample_format=3, compression=8,
+                                 predictor=3),
+        lambda g: mi.tiff_layout(np.dstack([g, g, g, np.full_like(g, 255)]),
+                                 photometric=2, compression=5,
+                                 extra_tags={338: (3, [1])}),
+        lambda g: mi.tiff_layout(g.astype(np.int64), bits=16,
+                                 sample_format=2, order=">"),
+        lambda g: mi.tiff_layout(np.dstack([g, np.zeros_like(g),
+                                            np.zeros_like(g)]),
+                                 photometric=8),
+    ]
+    paths, exact = [], []
+    for i, write in enumerate(writers):
+        img, _, _ = make_line(TEXTS[i])
+        g = img.mean(axis=-1).astype(np.uint8)
+        paths.append(_write(tmp_path, f"line{i}", write(g)))
+        exact.append(i < 3)
+    jres, tres, _, _, _ = _run_both(paths, enc, variables, t_enc, protos,
+                                    CHARS)
+    for i, p in enumerate(paths):
+        assert tres[p] == jres[p], (i, tres[p], jres[p])
+        if exact[i]:
+            assert tres[p] == TEXTS[i], (i, tres[p])
+
+
 # ------------------------------------------------------------ fixtures
 # golden.npz before the layout fixtures: 752 entries, their digest
 OLD_GOLDEN = (752, "b65b4d1bcfac47892e220c38693e4a434979dd2bd4c9a3fd7c64ee7b"
@@ -519,7 +561,7 @@ OLD_GOLDEN = (752, "b65b4d1bcfac47892e220c38693e4a434979dd2bd4c9a3fd7c64ee7b"
 def test_old_golden_entries_are_unchanged_and_layouts_have_theirs():
     golden = np.load(os.path.join(mi.OUT, "golden.npz"))
     old = sorted(k for k in golden.files
-                 if k.split("|")[0] not in mi.LAYOUT_FILES)
+                 if k.split("|")[0] not in mi.LAYOUT_FILES + mi.SAMPLE_FILES)
     h = hashlib.sha256()
     for k in old:
         h.update(k.encode() + b"\0" + np.ascontiguousarray(

@@ -20,11 +20,17 @@ the golden ``_LazyImage`` arrays), into ``tests/torch_fixtures/images/``:
 - ``cases/`` ``LAYOUT_FILES``, from a seed of their own (``--layouts``
   writes only these): TIFF tiles, BigTIFF, separate planes,
   orientations 2-8, 4-bit gray and palette, 16-bit RGB;
+- ``samples/`` ``SAMPLE_FILES``, from a seed of their own (``--samples``
+  writes only these): TIFF float (predictor 3 too), signed, 12 and
+  32-bit samples, extra and associated alpha, PX / PA, 16-bit and
+  extra-sample CMYK, YCbCr (one sample, 2x2 and 1x1), CIELab, and JPEG
+  segments and CCITT strips and tiles cut inside their byte counts;
 - ``golden.npz``: for every file, the SHA-256 digest and shape of
   Pillow's ``convert("RGB")`` and ``convert("L")`` and of the JAX
-  package's ``_LazyImage(path, gray).load()`` for gray True and False.
-  Entries are only added: one that a regenerated file would change
-  stops the script.
+  package's ``_LazyImage(path, gray).load()`` for gray True and False;
+  a conversion Pillow refuses (LAB -> L) is stored as its exception's
+  name (``|error``).  Entries are only added: one that a regenerated
+  file would change stops the script.
 
     python tests/torch_fixtures/make_images.py --mode_pages
 
@@ -293,15 +299,16 @@ def drop_refinement_scans(data: bytes) -> bytes:
 
 
 # ------------------------------------------------------ TIFF writer
-_TTYPE = {1: "B", 2: "B", 3: "H", 4: "I", 7: "B", 11: "f", 16: "Q"}
+_TTYPE = {1: "B", 2: "B", 3: "H", 4: "I", 5: "I", 7: "B", 11: "f", 16: "Q"}
 
 
 def tiff_bytes(strips: Sequence[bytes], tags: Dict[int, Tuple[int, list]],
                order: str = "<", big: bool = False,
                tiled: bool = False) -> bytes:
     """A TIFF (or BigTIFF) of the given strips (``tiled``: tiles):
-    ``tags`` maps tag -> (type, values); StripOffsets and StripByteCounts
-    (TileOffsets and TileByteCounts) are filled in."""
+    ``tags`` maps tag -> (type, values) (RATIONAL, type 5: numerator,
+    denominator, ...); StripOffsets and StripByteCounts (TileOffsets and
+    TileByteCounts) are filled in."""
     e = order
     magic = (b"II" if e == "<" else b"MM") + struct.pack(e + "H",
                                                          43 if big else 42)
@@ -336,7 +343,7 @@ def tiff_bytes(strips: Sequence[bytes], tags: Dict[int, Tuple[int, list]],
             if len(extra) % 2:
                 extra += b"\0"
         ifd += struct.pack(e + ("HHQ" if big else "HHI"), tag, typ,
-                           len(vals)) + field
+                           len(vals) // (2 if typ == 5 else 1)) + field
     ifd += b"\0" * (8 if big else 4)
     data += ifd + extra
     if big:
@@ -425,12 +432,21 @@ def tiff_compress(raw: bytes, compression: int) -> bytes:
 
 
 def pack_samples(a: np.ndarray, bits: int, order: str = "<") -> np.ndarray:
-    """[rows, cols, spp] samples -> [rows, row bytes] uint8: 16-bit in the
-    byte order, 1 / 2 / 4-bit packed MSB first, each row padded to a
-    byte."""
+    """[rows, cols, spp] unsigned samples -> [rows, row bytes] uint8: 16
+    and 32-bit in the byte order, 12-bit and 1 / 2 / 4-bit packed MSB
+    first, each row padded to a byte."""
     rows = a.shape[0]
-    if bits == 16:
-        return a.astype(order + "u2").view(np.uint8).reshape(rows, -1)
+    if bits in (16, 32):
+        return a.astype(f"{order}u{bits // 8}").view(np.uint8).reshape(
+            rows, -1)
+    if bits == 12:
+        v = a.reshape(rows, -1).astype(np.uint16)
+        n = v.shape[1]
+        v = np.concatenate([v, np.zeros((rows, n % 2), np.uint16)], axis=1)
+        p = v.reshape(rows, -1, 2)
+        out = np.stack([p[..., 0] >> 4, (p[..., 0] & 15) << 4 | p[..., 1] >> 8,
+                        p[..., 1] & 255], -1).astype(np.uint8)
+        return out.reshape(rows, -1)[:, :(3 * n + 1) // 2]
     v = a.reshape(rows, -1).astype(np.uint8)
     if bits == 8:
         return v
@@ -441,23 +457,63 @@ def pack_samples(a: np.ndarray, bits: int, order: str = "<") -> np.ndarray:
     return (v.reshape(rows, -1, per) << shifts).sum(-1).astype(np.uint8)
 
 
+def float_predict(t: np.ndarray, bits: int, sample_format: int = 3
+                  ) -> bytes:
+    """libtiff's floating-point predictor (3) of [rows, cols, spp] samples
+    of ``bits`` (16 / 32): each row's words as byte planes, most
+    significant byte first (the same in either byte order), then each
+    byte less the one ``spp`` bytes before it."""
+    rows, cols, spp = t.shape
+    size = bits // 8
+    kind = "<" + "uif"[sample_format - 1] + str(size)
+    le = np.ascontiguousarray(t.astype(kind)).view(np.uint8).reshape(
+        rows, cols * spp, size)
+    planes = le[..., ::-1].transpose(0, 2, 1).reshape(rows, -1)
+    out = planes.copy()
+    out[:, spp:] -= planes[:, :-spp]
+    return out.tobytes()
+
+
+def ycbcr_encoder(sub: Tuple[int, int], compression: int = 1):
+    """``tiff_layout``'s ``encode`` for YCbCr subsampled ``sub`` =
+    (horizontal, vertical): each segment's samples (Y, Cb, Cr) as blocks
+    of h x v Y values, then the block's top-left Cb and Cr, the segment
+    padded to whole blocks by repeating its edge."""
+    sh, sv = sub
+
+    def encode(t: np.ndarray) -> bytes:
+        rows, cols = t.shape[:2]
+        nby, nbx = -(-rows // sv), -(-cols // sh)
+        t = np.pad(t, ((0, nby * sv - rows), (0, nbx * sh - cols), (0, 0)),
+                   mode="edge").reshape(nby, sv, nbx, sh, 3)
+        y = t[..., 0].transpose(0, 2, 1, 3).reshape(nby, nbx, sv * sh)
+        blk = np.concatenate([y, t[:, 0, :, 0, 1:]], -1).astype(np.uint8)
+        return tiff_compress(blk.tobytes(), compression)
+
+    return encode
+
+
 def tiff_layout(img: np.ndarray, bits: int = 8, photometric: int = 1,
                 order: str = "<", big: bool = False, compression: int = 1,
                 predictor: int = 1, planar: int = 1, tile=None,
-                rows_per_strip=None, extra_tags=None, encode=None) -> bytes:
+                rows_per_strip=None, extra_tags=None, encode=None,
+                sample_format=None) -> bytes:
     """A TIFF of ``img`` ([H, W] or [H, W, C] samples, each below
     2^bits) in strips of ``rows_per_strip`` rows or, with ``tile`` =
     (width, length), in tiles (the right and bottom edge tiles padded),
     each plane in turn under ``planar`` 2; horizontal differencing under
-    ``predictor`` 2. ``encode(samples [rows, cols, spp]) -> bytes``
-    replaces the packing and compression (CCITT or JPEG segments from
-    Pillow)."""
+    ``predictor`` 2 (on the samples' unsigned words), libtiff's
+    floating-point predictor under 3. ``sample_format`` (1 unsigned, 2
+    signed, 3 IEEE float; None: no SampleFormat tag) is written once per
+    sample. ``encode(samples [rows, cols, spp]) -> bytes`` replaces the
+    packing and compression (CCITT or JPEG segments from Pillow)."""
     h, w = img.shape[:2]
     a = img if img.ndim == 3 else img[..., None]
     spp = a.shape[2]
     planes = [a] if planar == 1 else [a[..., k:k + 1] for k in range(spp)]
     tw, th = tile if tile else (w, rows_per_strip or h)
     pad = (1 << bits) // 3
+    fmt = sample_format or 1
     segs = []
     for p in planes:
         for y in range(0, h, th):
@@ -469,7 +525,18 @@ def tiff_layout(img: np.ndarray, bits: int = 8, photometric: int = 1,
                 if encode is not None:
                     segs.append(encode(t))
                     continue
-                t = t.astype(np.uint16 if bits == 16 else np.uint8)
+                if predictor == 3:
+                    segs.append(tiff_compress(float_predict(t, bits, fmt),
+                                              compression))
+                    continue
+                if fmt != 1 or bits in (12, 32):
+                    # the samples' words, as unsigned integers
+                    size = 1 if bits <= 8 else 2 if bits <= 16 else 4
+                    kind = "uif"[fmt - 1] if bits != 12 else "u"
+                    t = np.ascontiguousarray(t.astype(f"{kind}{size}")).view(
+                        f"u{size}")
+                else:
+                    t = t.astype(np.uint16 if bits == 16 else np.uint8)
                 if predictor == 2:
                     t = t.copy()
                     t[:, 1:] -= t[:, :-1].copy()
@@ -482,6 +549,8 @@ def tiff_layout(img: np.ndarray, bits: int = 8, photometric: int = 1,
         tags[284] = (3, [planar])
     if predictor != 1:
         tags[317] = (3, [predictor])
+    if sample_format is not None:
+        tags[339] = (3, [sample_format] * spp)
     if tile:
         tags[322], tags[323] = (3, [tw]), (3, [th])
     else:
@@ -734,7 +803,7 @@ def make_files(out: str) -> List[str]:
           .convert("1"), os.path.join(out, "page", "page_g4.tif"), "TIFF",
           compression="group4")
     names += ["page/page.jpg", "page/page_g4.tif"]
-    return names + make_layout_files(out)
+    return names + make_layout_files(out) + make_sample_files(out)
 
 
 # the TIFF layouts archive scans come in, written by ``tiff_layout`` from
@@ -747,16 +816,20 @@ LAYOUT_FILES = tuple(f"cases/{n}.tif" for n in (
     *(f"orient{o}" for o in range(2, 9))))
 
 
-def pillow_segment(t: np.ndarray, mode: str, **kw) -> Tuple[bytes, dict]:
+def pillow_segment(t: np.ndarray, mode: str, tiffinfo=None,
+                   **kw) -> Tuple[bytes, dict]:
     """The one strip of a TIFF Pillow writes of samples ``t`` [rows,
-    cols, spp] in ``mode`` (``kw``: its save options), and its tags."""
+    cols, spp] in ``mode`` (``kw``: its save options; ``tiffinfo``: tags
+    for its encoder, such as T4Options), and its tags."""
     import io
 
     from PIL import Image
 
     im = Image.fromarray(t[..., 0] if t.shape[2] == 1 else t)
     buf = io.BytesIO()
-    im.convert(mode).save(buf, "TIFF", tiffinfo={278: t.shape[0]}, **kw)
+    im.convert(mode).save(buf, "TIFF",
+                          tiffinfo={278: t.shape[0], **(tiffinfo or {})},
+                          **kw)
     data = buf.getvalue()
     with Image.open(io.BytesIO(data)) as f:
         tags = dict(f.tag_v2)
@@ -837,6 +910,149 @@ def make_layout_files(out: str) -> List[str]:
     return list(LAYOUT_FILES)
 
 
+# the TIFF sample layouts Pillow 12.1 opens beyond 8 / 16-bit unsigned
+# ones, written by ``tiff_layout`` from a seed of their own
+SAMPLE_SEED = 47
+SAMPLE_FILES = tuple(f"samples/{n}.tif" for n in (
+    "float_lzw_pred3", "float_mm_deflate_pred3_tiles", "float_mm_raw",
+    "float_miniswhite_planes", "int32_lzw_pred", "int32_mm_lzw",
+    "int16_mm_raw", "uint32_tiles", "gray12_lzw", "gray16_miniswhite",
+    "int8_deflate", "rgba_assoc_lzw", "rgba_unspecified", "rgbx_tiles",
+    "rgbax_planes_tiles", "rgba16_assoc_mm", "pa_lzw", "px", "cmyk16_mm",
+    "cmykxx", "ycbcr_gray", "lab_lzw", "lab_planes", "jpeg_cut_strip",
+    "jpeg_cut_tile", "ycbcr_22_lzw", "ycbcr_11_tiles", "g4_cut_strips",
+    "g4_cut_tile", "g3_2d_cut_strips"))
+
+
+def cut_segment(data: bytes, frac: float) -> bytes:
+    """A TIFF (``tiff_layout``'s) with its last strip or tile cut to
+    ``frac`` of its bytes, the byte count saying so."""
+    e = "<" if data[:2] == b"II" else ">"
+    off = struct.unpack(e + "I", data[4:8])[0]
+    n = struct.unpack(e + "H", data[off:off + 2])[0]
+    tags = {}
+    for i in range(n):
+        p = off + 2 + 12 * i
+        tag, typ, cnt = struct.unpack(e + "HHI", data[p:p + 8])
+        size = struct.calcsize(_TTYPE[typ]) * cnt
+        raw = data[p + 8:p + 8 + size] if size <= 4 else data[
+            struct.unpack(e + "I", data[p + 8:p + 12])[0]:][:size]
+        tags[tag] = (typ, list(struct.unpack(e + _TTYPE[typ] * cnt, raw)))
+    tiled = 324 in tags
+    offs, counts = tags.pop(324 if tiled else 273), tags.pop(
+        325 if tiled else 279)
+    segs = [data[o:o + c] for o, c in zip(offs[1], counts[1])]
+    segs[-1] = segs[-1][:int(len(segs[-1]) * frac)]
+    return tiff_bytes(segs, tags, e, tiled=tiled)
+
+
+def make_sample_files(out: str) -> List[str]:
+    """``SAMPLE_FILES``, written under ``out``, 23 x 41 (edge tiles
+    padded): NaN, infinities and -0.0 among the float samples."""
+    rng = np.random.default_rng(SAMPLE_SEED)
+    hw = (23, 41)
+    tex = textured(rng, *hw)
+    fl = rng.normal(120, 140, hw).astype(np.float32)
+    fl[0, :8] = [np.nan, np.inf, -np.inf, -0.0, 1e30, 254.99, 0.5, -3.7]
+
+    def ints(lo, hi, c=None):
+        return rng.integers(lo, hi, hw + ((c,) if c else ()), np.int64)
+
+    alpha = np.concatenate([[0, 255, 1, 128], ints(0, 256)[0, 4:]])
+    assoc = np.dstack([tex, ints(0, 256)])
+    assoc[0, :, 3] = alpha
+    assoc[..., :3] = assoc[..., :3] * assoc[..., 3:] // 255
+    cmap = {320: (3, list(rng.integers(0, 65536, 768)))}
+
+    def ex(*v):
+        return {338: (3, list(v))}
+
+    bw = (tex[..., 1] > 128).astype(np.uint8)
+
+    def fax(name, info=None):
+        return lambda t: pillow_segment(t * 255, "1", tiffinfo=info,
+                                        compression=name)[0]
+
+    files = {
+        "float_lzw_pred3": tiff_layout(fl, bits=32, sample_format=3,
+                                       compression=5, predictor=3),
+        "float_mm_deflate_pred3_tiles": tiff_layout(
+            fl, bits=32, sample_format=3, order=">", compression=8,
+            predictor=3, tile=(16, 16)),
+        "float_mm_raw": tiff_layout(fl, bits=32, sample_format=3, order=">",
+                                    rows_per_strip=8),
+        "float_miniswhite_planes": tiff_layout(
+            fl, bits=32, sample_format=3, photometric=0, planar=2),
+        "int32_lzw_pred": tiff_layout(ints(-2**31, 2**31), bits=32,
+                                      sample_format=2, compression=5,
+                                      predictor=2),
+        "int32_mm_lzw": tiff_layout(ints(-300, 300), bits=32,
+                                    sample_format=2, order=">",
+                                    compression=5),
+        "int16_mm_raw": tiff_layout(ints(-400, 400), bits=16,
+                                    sample_format=2, order=">"),
+        "uint32_tiles": tiff_layout(ints(0, 2**32), bits=32, tile=(16, 16)),
+        "gray12_lzw": tiff_layout(ints(0, 4096), bits=12, compression=5),
+        "gray16_miniswhite": tiff_layout(ints(0, 600), bits=16,
+                                         photometric=0),
+        "int8_deflate": tiff_layout(ints(-128, 128), sample_format=2,
+                                    compression=8),
+        "rgba_assoc_lzw": tiff_layout(assoc, photometric=2, compression=5,
+                                      extra_tags=ex(1)),
+        "rgba_unspecified": tiff_layout(np.dstack([tex, ints(0, 256)]),
+                                        photometric=2),
+        "rgbx_tiles": tiff_layout(np.dstack([tex, ints(0, 256)]),
+                                  photometric=2, compression=32773,
+                                  tile=(16, 16), extra_tags=ex(0)),
+        "rgbax_planes_tiles": tiff_layout(
+            np.dstack([tex, ints(0, 256, 2)]), photometric=2, planar=2,
+            compression=8, tile=(16, 16), extra_tags=ex(2, 0)),
+        "rgba16_assoc_mm": tiff_layout(
+            (assoc.astype(np.uint16) << 8) | ints(0, 256, 4), bits=16,
+            photometric=2, order=">", compression=5, predictor=2,
+            extra_tags=ex(1)),
+        "pa_lzw": tiff_layout(np.dstack([ints(0, 256), ints(0, 256)]),
+                              photometric=3, compression=5,
+                              extra_tags={**ex(2), **cmap}),
+        "px": tiff_layout(np.dstack([ints(0, 256), ints(0, 256)]),
+                          photometric=3, extra_tags={**ex(0), **cmap}),
+        "cmyk16_mm": tiff_layout(ints(0, 65536, 4), bits=16, photometric=5,
+                                 order=">", compression=8, predictor=2),
+        "cmykxx": tiff_layout(ints(0, 256, 6), photometric=5,
+                              compression=5, extra_tags=ex(0, 0)),
+        "ycbcr_gray": tiff_layout(tex[..., 1], photometric=6,
+                                  rows_per_strip=8),
+        "lab_lzw": tiff_layout(ints(0, 256, 3), photometric=8,
+                               compression=5),
+        "lab_planes": tiff_layout(ints(0, 256, 3), photometric=8, planar=2,
+                                  tile=(16, 16)),
+        "jpeg_cut_strip": cut_segment(jpeg_tiled(tex, tile=(48, 32)), 0.4),
+        "jpeg_cut_tile": cut_segment(jpeg_tiled(tex[..., 0], mode="L"),
+                                     0.6),
+        "ycbcr_22_lzw": tiff_layout(
+            tex, photometric=6, compression=5, rows_per_strip=10,
+            encode=ycbcr_encoder((2, 2), 5), extra_tags={530: (3, [2, 2])}),
+        "ycbcr_11_tiles": tiff_layout(
+            tex, photometric=6, compression=8, tile=(16, 16),
+            extra_tags={530: (3, [1, 1])}),
+        # CCITT segments cut inside their byte counts (the last strip or
+        # tile at half its bytes), Pillow's encoder's data
+        "g4_cut_strips": cut_segment(tiff_layout(
+            bw, bits=1, compression=4, rows_per_strip=8,
+            encode=fax("group4")), 0.5),
+        "g4_cut_tile": cut_segment(tiff_layout(
+            bw, bits=1, compression=4, tile=(16, 16),
+            encode=fax("group4")), 0.5),
+        "g3_2d_cut_strips": cut_segment(tiff_layout(
+            bw, bits=1, compression=3, rows_per_strip=8,
+            extra_tags={292: (4, [1])}, encode=fax("group3", {292: 1})),
+            0.5),
+    }
+    for name in SAMPLE_FILES:
+        _write(os.path.join(out, name), files[name[8:-4]])
+    return list(SAMPLE_FILES)
+
+
 def rle8_stream() -> bytes:
     """12 x 6 RLE8 pixels with every escape (bottom row first): encoded
     runs, an absolute run of odd length (word-padded), a delta (as Pillow
@@ -876,9 +1092,13 @@ def golden_arrays(path: str) -> Dict[str, np.ndarray]:
 
     from effocr_tpu.pipelines.infer import _LazyImage
 
+    out = {}
     with Image.open(path) as im:
-        out = {"rgb": np.asarray(im.convert("RGB")),
-               "l": np.asarray(im.convert("L"))}
+        for kind, mode in (("rgb", "RGB"), ("l", "L")):
+            try:
+                out[kind] = np.asarray(im.convert(mode))
+            except ValueError as err:       # LAB -> L
+                out[kind] = type(err).__name__
     out["lazy_gray"] = _LazyImage(path, gray=True).load()
     out["lazy_rgb"] = _LazyImage(path, gray=False).load()
     return out
@@ -888,6 +1108,9 @@ def golden_entry(name: str, arrays: Dict[str, np.ndarray]
                  ) -> Dict[str, np.ndarray]:
     out = {}
     for kind, a in arrays.items():
+        if isinstance(a, str):
+            out[f"{name}|{kind}|error"] = np.asarray(a)
+            continue
         out[f"{name}|{kind}|sha256"] = digest(a)
         out[f"{name}|{kind}|shape"] = np.asarray(a.shape, np.int64)
     return out
@@ -1030,6 +1253,9 @@ def main(argv=None) -> int:
     p.add_argument("--layouts", action="store_true",
                    help="write only LAYOUT_FILES and add their entries to "
                         "golden.npz")
+    p.add_argument("--samples", action="store_true",
+                   help="write only SAMPLE_FILES and add their entries to "
+                        "golden.npz")
     args = p.parse_args(argv)
     if args.mode_pages:
         out = MODE_PAGES_DIR if args.out == OUT else args.out
@@ -1038,6 +1264,7 @@ def main(argv=None) -> int:
         print(f"{len(MODE_PAGES)} mode pages -> {out}")
         return 0
     names = (make_layout_files(args.out) if args.layouts
+             else make_sample_files(args.out) if args.samples
              else make_files(args.out))
     # entries are added, never rewritten: a file that decodes otherwise
     # than its golden entry says stops the script
