@@ -56,7 +56,7 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    - classifier: mobilenetv3_small_050 + a 90-class head and a
      class_map.json from the en ref.txt; 256 lines;
    - serve: ``python -m effocr_torch serve --stdin --device cuda
-     --spell_check`` in a subprocess, fed 128 paths; its answers must
+     --spell_check`` in a subprocess, fed 96 paths; its answers must
      equal ``engine.run`` with the same flags over the batches the server
      logged, run in-process once with every K1 keep mask held bit for bit
      against nms_mask and once on plain NMS.
@@ -121,8 +121,9 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      AP and peak memory;
    - train_xcit: ``train-recognizer`` with the en recipe's flags and
      xcit_small_12_p8_224 at 224 px (2 epochs of 10 passes) on phase
-     train's tree,
-     then ``build-index --test``;
+     train's tree, launched after phase train and run beside phases
+     train_step_vs_cpu and build_index_from (awaited before
+     train_localizer), then ``build-index --test``;
    - family_steps_vs_cpu: one float32 step of each family (the XCiT
      recognizer at batch 16, FCOS and R-CNN at batch 4 x 96 x 1024) from
      the weights trained above, on the card and on the CPU: loss 1e-5
@@ -160,7 +161,7 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      K2 input against unsharded K2 (indices exact, scores 1e-5);
    - ddp_train: ``torchrun --nproc_per_node 2`` (``python -m
      torch.distributed.run --standalone``) of ``train-recognizer`` with
-     phase train's recipe (1 epoch of 28 steps, 10 passes; no test
+     phase train's recipe (1 epoch of 14 steps, 5 passes; no test
      split or hard-negative mining) and of
      ``train-localizer`` with phase train_localizer's (1 epoch, one
      evaluation; the first 160 lines of its train split), both ranks on
@@ -168,7 +169,8 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      name the backend and end with the trainer's check that both ranks'
      parameters are bit-identical; the localizer's best checkpoint is
      evaluated again here with every K1 mask checked, to the AP the ranks
-     logged; then a 1-rank launch of ``train-recognizer``, on NCCL;
+     logged; and a 1-rank launch of ``train-recognizer``, on NCCL; the
+     three launches run at once, beside ddp_step_vs_single;
    - ddp_step_vs_single: one float32 step of the recognizer recipe and of
      yolov5s on 2 ranks sharing the card against 1 rank on the whole
      batch (loss 1e-5 relative, ranks bit-identical, new batch_stats
@@ -224,7 +226,7 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    - seq2seq: ``train-seq2seq --data_device resident`` at full width
      (the JAX command's defaults: dim 256, 6 + 4 blocks, 64 x 512
      canvas, max_len 64, batch 16, float32; depth cut to 2 epochs) on
-     the first 1,000 of phase train_localizer's 2,000 train lines and its
+     the first 500 of phase train_localizer's 2,000 train lines and its
      128 val lines: steps/s and
      images/s from the second epoch, epoch losses (falling), val CER and
      greedy lines/s by epoch; the best checkpoint's greedy and beam-4
@@ -239,8 +241,8 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      model.safetensors + config.json + a byte-level BPE vocab.json +
      merges.txt counted from phase train_localizer's texts; ``--check``
      (against the float64 HF-layout reference), fine-tuning for 2 epochs
-     of 128 train lines (batch 8, greedy val CER on 16 lines each epoch),
-     then beam 4 on 16 read lines: the check's gap, steps/s and images/s
+     of 128 train lines (batch 8, greedy val CER on 8 lines each epoch),
+     then beam 4 on 8 read lines: the check's gap, steps/s and images/s
      of the second epoch, epoch losses (falling), CER, greedy and beam-4
      lines/s; from the fine-tuned npz, one float32 step at batch 2 on the
      card against the CPU (loss 1e-5 relative, gradients 1e-3 of the
@@ -263,11 +265,13 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
      JPEG line paths and on the same lines as PNGs (identical text and
      COCO output, every K1 call held bit for bit; K1's launches counted
      from 0 around the JPEG run), the same engine timed on both lists
-     (lines/s, host decode ms a chunk, header ms); 18 mixed .jpg / .tif
-     / .bmp requests (a tiled, an orientation-6, a float (predictor 3)
-     and an associated-alpha .tif among them) through ``serve``,
-     answered as ``engine.run`` answers them (K1 checked in process);
-     host decode rates of a float page with and without predictor 3.
+     (lines/s, host decode ms a chunk, header ms); 20 mixed .jpg / .tif
+     / .bmp requests (a tiled, an orientation-6, a ZSTD, an old-style
+     JPEG, a float (predictor 3) and an associated-alpha .tif among
+     them) through ``serve``, answered as ``engine.run`` answers them
+     (K1 checked in process); host decode rates of a float page with
+     and without predictor 3, of the page as LZMA strips and of the
+     group 4 page's pixels as ZSTD tiles.
    - fonts: the port's own glyph renderer (native/glyph.cpp: FreeType's
      v40 hinting, its Adobe engine for CFF and the gray rasterizer;
      fonts/: the sfnt and CFF readers, shaping, Pillow's text drawing)
@@ -306,6 +310,18 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
    launches and the engine's; ``calls_by_iou`` splits the family paths'
    calls by site), then ``{"ok": true, "device": ...}`` last.
 
+So that the whole script ends inside 1200 s on a slow host, some
+commands start early and run beside the phases before their own
+(``start_cli``; stopped if the script ends first): the serve server
+beside square to classifier; train_xcit's training and train_localizer's
+command beside train_step_vs_cpu and build_index_from; ddp_train's three
+launches beside ddp_step_vs_single; seq2seq's and trocr's commands
+beside tools (trocr's beside seq2seq too); the fonts phase's background
+process (in 11.) is awaited after the interop phases (10., run before
+9.).  Those phases share the host and the card with them.  The kernel times of the ``kernels`` line (the
+en and jp main-path inputs) are taken before the first of them starts,
+and each launch count is this process's own.
+
 ``--profile`` adds a torch.profiler run over one chunk of the en, jp,
 square, xcit, fcos and rcnn paths: device time per engine stage (and per
 R-CNN stage: trunk, RPN, ROIAlign, box head) and per kernel, and the
@@ -325,6 +341,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import struct
 import subprocess
 import sys
@@ -1431,40 +1448,52 @@ def phase_classifier(dev, card, paths, loc_dir):
     return report("classifier", run, card, f"; {len(chars)} classes")
 
 
-N_SERVE = 128
+N_SERVE = 96            # 128 until the TIFF compressions joined image_formats
 SERVE_BATCH = 64
 
 
-def phase_serve(dev, card, paths, loc_dir, rec_dir):
-    """``python -m effocr_torch serve --stdin --device cuda --spell_check``
-    with BENCH_TRAINED.json's flags, --line_batch 64 --max_latency_ms 50,
-    in a subprocess fed N_SERVE paths in two waves: one batch, whose
-    answers are awaited (the process's first batch pays its CUDA library
-    start-up), then the rest at once, timed from the write to the last
-    answer.  The server logs each batch it cut.  Over those same batches
-    an in-process engine with the same flags runs once with K1 held bit
-    for bit against nms_mask on every call (the inputs the served batches
-    gave K1) and once on plain NMS; the served answers must equal both.
-    These flags do not reach K2."""
-    import argparse
-    import threading
-
+def start_serve(loc_dir, rec_dir):
+    """Phase serve's server, started without waiting: it starts up beside
+    the paths before it (square to classifier), which then share the
+    host and the card with it, and waits for its requests."""
     with open(os.path.join(ROOT, "BENCH_TRAINED.json")) as f:
         flags = json.load(f)["flags"]
     swap = {"--localizer_dir": loc_dir, "--recognizer_dir": rec_dir}
     flags = [swap.get(flags[i - 1], f) if i else f
              for i, f in enumerate(flags)]
     flags += ["--spell_check", "--line_batch", str(SERVE_BATCH)]
-    paths = paths[:N_SERVE]
     err_path = os.path.join(WORK, "serve_stderr.txt")
+    err = open(err_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "effocr_torch", "serve", "--stdin",
+         "--device", "cuda", "--max_latency_ms", "50", *flags],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+        cwd=ROOT, text=True)
+    STARTED.append(proc)
+    return dict(proc=proc, err=err, err_path=err_path, flags=flags,
+                t0=time.perf_counter())
+
+
+def phase_serve(dev, card, paths, started):
+    """``python -m effocr_torch serve --stdin --device cuda --spell_check``
+    with BENCH_TRAINED.json's flags, --line_batch 64 --max_latency_ms 50,
+    in a subprocess (``start_serve``'s) fed N_SERVE paths in two waves:
+    one batch, whose answers are awaited (the process's first batch pays
+    its CUDA library start-up), then the rest at once, timed from the
+    write to the last answer.  The server logs each batch it cut.  Over
+    those same batches an in-process engine with the same flags runs once
+    with K1 held bit for bit against nms_mask on every call (the inputs
+    the served batches gave K1) and once on plain NMS; the served answers
+    must equal both.  These flags do not reach K2."""
+    import argparse
+    import threading
+
+    proc, err, err_path, flags, t0 = (started[k] for k in (
+        "proc", "err", "err_path", "flags", "t0"))
+    paths = paths[:N_SERVE]
     answers = []
-    t0 = time.perf_counter()
-    with open(err_path, "w") as err:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "effocr_torch", "serve", "--stdin",
-             "--device", "cuda", "--max_latency_ms", "50", *flags],
-            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
-            cwd=ROOT, text=True)
+    t_wave = time.perf_counter()
+    with err:
         watchdog = threading.Timer(300, proc.kill)
         watchdog.start()
         try:
@@ -1484,7 +1513,7 @@ def phase_serve(dev, card, paths, loc_dir, rec_dir):
 
             send(paths[:SERVE_BATCH])
             receive(SERVE_BATCH)
-            first_s = time.perf_counter() - t0
+            first_s = time.perf_counter() - t_wave
             t1 = time.perf_counter()
             send(paths[SERVE_BATCH:])
             proc.stdin.close()
@@ -1547,9 +1576,11 @@ def phase_serve(dev, card, paths, loc_dir, rec_dir):
         f"the server's batches {batches}; second wave "
         f"{len(paths) - SERVE_BATCH} lines in {warm_s:.3f} s = "
         f"{lines_s:.1f} lines/s (write to last answer); first wave "
-        f"{SERVE_BATCH} lines answered {first_s:.1f} s after start-up "
-        f"began; {stats[0]} (serve_loop's clock, both waves); process "
-        f"wall {wall:.1f} s; K1 launches {k1}, K2 launches {k2} ({card})")
+        f"{SERVE_BATCH} lines answered {first_s:.1f} s after their write "
+        f"(the server started {t_wave - t0:.1f} s before it, beside the "
+        f"paths square to classifier); {stats[0]} (serve_loop's clock, "
+        f"both waves); process wall {wall:.1f} s; K1 launches {k1}, K2 "
+        f"launches {k2} ({card})")
     return dict(n_lines=len(answers), lines_s=lines_s, warm_wave_s=warm_s,
                 first_wave_s=first_s, process_wall=wall, k1_launches=k1,
                 k2_launches=k2, answers_differ=n_diff,
@@ -1819,23 +1850,71 @@ def make_char_tree(chars):
     return tree, splits, n
 
 
+# every command started by ``start_cli``: stopped when the script ends
+STARTED = []
+
+
+def start_cli(args, tag, ranks=None):
+    """``python -m effocr_torch <args>`` from the checkout (through
+    ``torchrun --standalone --nproc_per_node ranks`` when ``ranks`` is
+    given: ``distributed.torchrun_argv``), started without waiting and in
+    a process group of its own, so that a stop reaches every process it
+    starts; its output goes to WORK/<tag>.out and WORK/<tag>.err.
+    ``wait_cli`` awaits it."""
+    os.makedirs(WORK, exist_ok=True)
+    argv = ["-m", "effocr_torch", *args]
+    argv = (distributed.torchrun_argv(ranks, argv) if ranks
+            else [sys.executable, *argv])
+    files = [open(os.path.join(WORK, f"{tag}.{k}"), "w")
+             for k in ("out", "err")]
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=files[0],
+                            stderr=files[1], text=True,
+                            process_group=0)
+    STARTED.append(proc)
+    return dict(proc=proc, tag=tag, files=files, t0=time.perf_counter())
+
+
+def stop_process(proc):
+    """Kill ``proc`` and, when it leads a process group of its own, every
+    process in it."""
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            proc.kill()
+        proc.wait()
+
+
+def wait_cli(run, timeout=900):
+    """Await a ``start_cli`` command: its stdout and wall seconds (start
+    to exit); a failure, or no exit within ``timeout`` seconds of its
+    start, raises."""
+    proc, tag = run["proc"], run["tag"]
+    try:
+        rc = proc.wait(timeout=max(1.0, run["t0"] + timeout
+                                   - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        stop_process(proc)
+        rc = None
+    wall = time.perf_counter() - run["t0"]
+    for f in run["files"]:
+        f.close()
+    with open(os.path.join(WORK, f"{tag}.out")) as f:
+        stdout = f.read()
+    with open(os.path.join(WORK, f"{tag}.err")) as f:
+        stderr = f.read()
+    if rc != 0:
+        raise AssertionError(f"{tag}: exit {rc} after {wall:.1f} s: "
+                             f"{stderr[-3000:]}")
+    return stdout, wall
+
+
 def run_cli(args, tag, timeout=900):
-    """``python -m effocr_torch <args>`` in a subprocess from the checkout;
-    its output goes to WORK/<tag>.log, and a failure raises.  This
-    process's cached device memory is released first: the subprocess
-    needs it (the xcit phase's engine leaves ~37 GiB cached)."""
+    """``start_cli`` and ``wait_cli`` in turn.  This process's cached
+    device memory is released first: the subprocess needs it (the xcit
+    phase's engine leaves ~37 GiB cached)."""
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "effocr_torch", *args],
-                         cwd=ROOT, capture_output=True, text=True,
-                         timeout=timeout)
-    wall = time.perf_counter() - t0
-    with open(os.path.join(WORK, f"{tag}.log"), "w") as f:
-        f.write(out.stdout + "\n--- stderr ---\n" + out.stderr)
-    if out.returncode != 0:
-        raise AssertionError(f"{tag}: exit {out.returncode}: "
-                             f"{out.stderr[-3000:]}")
-    return out.stdout, wall
+    return wait_cli(start_cli(args, tag), timeout)
 
 
 def _after(text, prefix):
@@ -2230,10 +2309,33 @@ def _loc_trainer(dev, run_dir, model_json, augment=False):
     return LocalizerTrainer(cfg, model, run_dir, 1, device=dev)
 
 
-def phase_train_localizer(dev, card, tree, rec_dir, out_dir):
+def start_train_localizer(tree):
+    """Phase train_localizer's corpus, written here, and its
+    ``train-localizer`` command, started without waiting (it runs beside
+    phases train_step_vs_cpu and build_index_from and train_xcit's
+    training, which then share the card and the host with it)."""
+    with open(os.path.join(R5, "rec2k_mn_hn", "ref.txt"), newline="") as f:
+        chars = f.read().rstrip("\n").split("\n")
+    t0 = time.perf_counter()
+    img_dir, splits = make_loc_corpus(tree, chars)
+    log(f"train_localizer: {sum(LOC_SPLITS.values())} line PNGs of "
+        f"{len(chars)} glyphs ({LOC_SPLITS}) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    run_dir = os.path.join(WORK, "train_loc", "loc")
+    torch.cuda.empty_cache()
+    run = start_cli(
+        ["train-localizer", "--device", "cuda", "--image_dir", img_dir,
+         "--train_coco", splits["train"], "--val_coco", splits["val"],
+         "--test_coco", splits["test"], "--run_name", run_dir,
+         *LOC_TRAIN_FLAGS], "train_localizer")
+    return dict(run=run, img_dir=img_dir, splits=splits, run_dir=run_dir)
+
+
+def phase_train_localizer(dev, card, rec_dir, out_dir, started):
     """``python -m effocr_torch train-localizer --device cuda`` with the
     en recipe at full width on a synthetic line corpus of phase train's
-    glyphs (depth cut to 4 epochs), ``--test_coco`` included.  Then, in
+    glyphs (depth cut to 4 epochs), ``--test_coco`` included: the corpus
+    and the command of ``start_train_localizer``, awaited here.  Then, in
     process, the best checkpoint on the val split twice: every K1 keep
     mask held bit for bit against nms_mask, and on plain NMS; the AP
     dictionaries must be equal.  Then the en engine with the new
@@ -2245,19 +2347,9 @@ def phase_train_localizer(dev, card, tree, rec_dir, out_dir):
     from effocr_torch.eval.textline import textline_evaluation
     from effocr_torch.train import checkpoint as ckpt
 
-    with open(os.path.join(R5, "rec2k_mn_hn", "ref.txt"), newline="") as f:
-        chars = f.read().rstrip("\n").split("\n")
-    t0 = time.perf_counter()
-    img_dir, splits = make_loc_corpus(tree, chars)
-    log(f"train_localizer: {sum(LOC_SPLITS.values())} line PNGs of "
-        f"{len(chars)} glyphs ({LOC_SPLITS}) written in "
-        f"{time.perf_counter() - t0:.1f} s")
-    run_dir = os.path.join(WORK, "train_loc", "loc")
-    stdout, wall = run_cli(
-        ["train-localizer", "--device", "cuda", "--image_dir", img_dir,
-         "--train_coco", splits["train"], "--val_coco", splits["val"],
-         "--test_coco", splits["test"], "--run_name", run_dir,
-         *LOC_TRAIN_FLAGS], "train_localizer")
+    img_dir, splits, run_dir = (started[k] for k in ("img_dir", "splits",
+                                                     "run_dir"))
+    stdout, wall = wait_cli(started["run"])
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         recs = [json.loads(ln) for ln in f]
     losses = [(r["step"], r["train/loss"], r["loss/box"], r["loss/obj"],
@@ -2286,7 +2378,8 @@ def phase_train_localizer(dev, card, tree, rec_dir, out_dir):
                              f"{losses[-1]} is not below the first "
                              f"{losses[0]}")
     log(f"train_localizer: train-localizer exited 0 in {wall:.1f} s "
-        f"(process wall, corpus letterbox and evaluation included); epochs "
+        f"(process wall, corpus letterbox and evaluation included; beside "
+        f"other phases); epochs "
         f"{[round(r['epoch/seconds'], 3) for r in epochs]} s at heights "
         f"{[int(r['epoch/height']) for r in epochs]}, "
         f"{int(epochs[0]['epoch/steps'])} steps of 16 each; epochs 3-"
@@ -2828,18 +2921,28 @@ def phase_train_family(dev, card, arch, img_dir, splits):
                 run_dir=run_dir)
 
 
-def phase_train_xcit(dev, card, tree):
-    """``train-recognizer --device cuda`` with the en recipe's flags and
-    xcit_small_12_p8_224 at 224 px (2 epochs of 10 passes) on phase
-    train's char tree, then ``build-index --test``."""
+def start_train_xcit(tree):
+    """Phase train_xcit's ``train-recognizer``, started without waiting
+    (it runs beside phases train_step_vs_cpu and build_index_from, which
+    then share the card with it): (the launch, its run dir)."""
     run_dir = os.path.join(WORK, "train_xcit", "rec")
     splits = {k: os.path.join(os.path.dirname(tree), f"{k}.json")
               for k in ("train", "val", "test")}
-    stdout, wall = run_cli(
+    torch.cuda.empty_cache()
+    return start_cli(
         ["train-recognizer", "--device", "cuda", "--root_dir_path", tree,
          "--train_ann_path", splits["train"], "--val_ann_path",
          splits["val"], "--test_ann_path", splits["test"], "--run_name",
-         run_dir, *XCIT_TRAIN_FLAGS], "train_xcit")
+         run_dir, *XCIT_TRAIN_FLAGS], "train_xcit"), run_dir
+
+
+def phase_train_xcit(dev, card, started):
+    """``train-recognizer --device cuda`` with the en recipe's flags and
+    xcit_small_12_p8_224 at 224 px (2 epochs of 10 passes) on phase
+    train's char tree (``start_train_xcit``'s launch, awaited here), then
+    ``build-index --test``."""
+    run, run_dir = started
+    stdout, wall = wait_cli(run)
     recs = _metrics(run_dir)
     losses = [(r["step"], r["train/loss"]) for r in recs
               if "train/loss" in r]
@@ -2852,7 +2955,7 @@ def phase_train_xcit(dev, card, tree):
     if len(losses) < 2 or not all(np.isfinite(v) for _, v in losses):
         raise AssertionError(f"train_xcit: losses {losses}")
     log(f"train_xcit: train-recognizer --auto_model {XCIT_ARCH} --imsize "
-        f"224 exited 0 in {wall:.1f} s; epochs "
+        f"224 exited 0 in {wall:.1f} s (beside other phases); epochs "
         f"{[round(r['epoch/seconds'], 3) for r in epochs]} s for "
         f"{[int(r['epoch/steps']) for r in epochs]} steps of 128 images; "
         f"epoch 2: {steps_s:.2f} optimizer steps/s = {images_s:.1f} "
@@ -3260,7 +3363,8 @@ def _f32_copy(model, device):
 N_DP_EN = 512
 N_DP_JP = 240
 N_DDP_LOC_LINES = 160       # 10 steps of 16 for the localizer's DDP epoch
-DDP_REC_PASSES = "10"       # 28 steps of 128 for the recognizer's (20: 56)
+DDP_REC_PASSES = "5"        # 14 steps of 128 for the recognizer's (10
+                            # until the TIFF compressions: 28)
 DP_STEP_TOL = 1e-4          # gradients and batch_stats, of the largest
 # the recognizer's float32 gradients, of the largest (2 ranks vs 1, and
 # each against its float64 step): the stem convolution's weight
@@ -3521,24 +3625,6 @@ def phase_data_parallel(dev, card, sl, jp):
     return out
 
 
-def run_torchrun(nproc, args, tag, timeout=900):
-    """``torchrun --standalone --nproc_per_node nproc -m effocr_torch
-    <args>`` from the checkout (``distributed.torchrun_argv``); its
-    output goes to WORK/<tag>.log, and a failure raises."""
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    out = subprocess.run(
-        distributed.torchrun_argv(nproc, ["-m", "effocr_torch", *args]),
-        cwd=ROOT, capture_output=True, text=True, timeout=timeout)
-    wall = time.perf_counter() - t0
-    with open(os.path.join(WORK, f"{tag}.log"), "w") as f:
-        f.write(out.stdout + "\n--- stderr ---\n" + out.stderr)
-    if out.returncode != 0:
-        raise AssertionError(f"{tag}: exit {out.returncode}: "
-                             f"{out.stderr[-3000:]}")
-    return out.stdout, wall
-
-
 def _ddp_log_checks(tag, stdout, backend, ranks):
     """The ranks' log: the backend the rule chose, and the trainer's
     check that every rank's parameters are bit-identical."""
@@ -3562,16 +3648,56 @@ def _epoch_rate(run_dir):
             / sum(r["epoch/seconds"] for r in ep)), recs
 
 
-def phase_ddp_train(dev, card, train):
+def _ddp_rec_args(tr):
+    # the recipe at 1 epoch, without the test split and the hard-negative
+    # mining (phase train runs both)
+    flags = _with(TRAIN_FLAGS, num_epochs="1", infer_hardneg_k="0",
+                  num_passes=DDP_REC_PASSES)
+    flags.remove("--test_at_end")
+    return ["train-recognizer", "--device", "cuda", "--root_dir_path",
+            tr["tree"], "--train_ann_path", tr["splits"]["train"],
+            "--val_ann_path", tr["splits"]["val"], "--test_ann_path",
+            tr["splits"]["test"], *flags]
+
+
+DDP_RECOGNIZER_RUNS = (("ddp_recognizer", 2, "gloo"),
+                       ("nccl_recognizer", 1, "nccl"))
+
+
+def start_ddp_train(train):
+    """Phase ddp_train's three launches, started at once: they share the
+    card and the host with each other (and with phase
+    ddp_step_vs_single, which runs while they do), so their rates are
+    those of a shared card."""
+    torch.cuda.empty_cache()
+    tr, tl = train["train"], train["train_localizer"]
+    runs = {}
+    for tag, nproc, _ in DDP_RECOGNIZER_RUNS:
+        run_dir = os.path.join(WORK, "ddp", tag)
+        runs[tag] = start_cli(_ddp_rec_args(tr) + ["--run_name", run_dir],
+                              tag, ranks=nproc)
+    sub = _coco_head(tl["splits"]["train"], N_DDP_LOC_LINES,
+                     os.path.join(WORK, "ddp", "loc_train.json"))
+    runs["ddp_localizer"] = start_cli([
+        "train-localizer", "--device", "cuda", "--image_dir", tl["img_dir"],
+        "--train_coco", sub, "--val_coco", tl["splits"]["val"],
+        "--run_name", os.path.join(WORK, "ddp", "ddp_localizer"),
+        *_with(LOC_TRAIN_FLAGS, num_epochs="1", eval_period="1")],
+        "ddp_localizer", ranks=2)
+    return runs
+
+
+def phase_ddp_train(dev, card, train, runs):
     """``torchrun --nproc_per_node 2`` of ``train-recognizer`` (phase
-    train's en recipe, 1 epoch of 28 steps) and of ``train-localizer``
+    train's en recipe, 1 epoch of 14 steps) and of ``train-localizer``
     (phase train_localizer's recipe on 160 lines, 1 epoch of 10 steps,
     one evaluation), both ranks
-    on cuda:0 over gloo; each run must end with the trainer's check that
+    on cuda:0 over gloo, and a 1-rank launch of ``train-recognizer``,
+    which takes NCCL: the three launches ``start_ddp_train`` started,
+    awaited here.  Each 2-rank run must end with the trainer's check that
     both ranks' parameters are bit-identical.  The localizer run's best
     checkpoint is evaluated again in this process with every K1 mask held
-    to nms_mask: the AP the ranks logged.  Then a 1-rank launch of
-    ``train-recognizer``, which takes NCCL."""
+    to nms_mask: the AP the ranks logged."""
     from effocr_torch.data.detection import DetectionDataset
     from effocr_torch.train import checkpoint as ckpt
 
@@ -3580,20 +3706,9 @@ def phase_ddp_train(dev, card, train):
     with open(os.path.join(tr["run_dir"], "metrics.jsonl")) as f:
         first = [r for r in map(json.loads, f) if "epoch/steps" in r][0]
     first_rate = first["epoch/steps"] / first["epoch/seconds"]
-    # the recipe at 1 epoch, without the test split and the hard-negative
-    # mining (phase train runs both)
-    flags = _with(TRAIN_FLAGS, num_epochs="1", infer_hardneg_k="0",
-                  num_passes=DDP_REC_PASSES)
-    flags.remove("--test_at_end")
-    rec_args = ["train-recognizer", "--device", "cuda", "--root_dir_path",
-                tr["tree"], "--train_ann_path", tr["splits"]["train"],
-                "--val_ann_path", tr["splits"]["val"], "--test_ann_path",
-                tr["splits"]["test"], *flags]
-    for tag, nproc, backend in (("ddp_recognizer", 2, "gloo"),
-                                ("nccl_recognizer", 1, "nccl")):
+    for tag, nproc, backend in DDP_RECOGNIZER_RUNS:
         run_dir = os.path.join(WORK, "ddp", tag)
-        stdout, wall = run_torchrun(nproc, rec_args + ["--run_name",
-                                                       run_dir], tag)
+        stdout, wall = wait_cli(runs[tag])
         chosen, sync = _ddp_log_checks(tag, stdout, backend, nproc)
         steps_s, recs = _epoch_rate(run_dir)
         losses = [r["train/loss"] for r in recs if "train/loss" in r]
@@ -3601,7 +3716,8 @@ def phase_ddp_train(dev, card, train):
         if not all(np.isfinite(losses)):
             raise AssertionError(f"{tag}: losses {losses}")
         log(f"{tag}: {nproc} rank(s) exited 0 in {wall:.1f} s; {chosen}; "
-            f"{sync}; epoch 1 (cuDNN warm-up included): {steps_s:.2f} "
+            f"{sync}; epoch 1 (cuDNN warm-up included, the card shared "
+            f"with the other launches): {steps_s:.2f} "
             f"steps/s = {steps_s * 128:.1f} images/s ({card}); losses "
             f"{losses}; val p@1 {val}; one process (phase train): "
             f"{first_rate:.2f} steps/s in its first epoch, "
@@ -3612,13 +3728,7 @@ def phase_ddp_train(dev, card, train):
 
     tl = train["train_localizer"]
     run_dir = os.path.join(WORK, "ddp", "ddp_localizer")
-    sub = _coco_head(tl["splits"]["train"], N_DDP_LOC_LINES,
-                     os.path.join(WORK, "ddp", "loc_train.json"))
-    loc_args = ["train-localizer", "--device", "cuda", "--image_dir",
-                tl["img_dir"], "--train_coco", sub,
-                "--val_coco", tl["splits"]["val"], "--run_name", run_dir,
-                *_with(LOC_TRAIN_FLAGS, num_epochs="1", eval_period="1")]
-    stdout, wall = run_torchrun(2, loc_args, "ddp_localizer")
+    stdout, wall = wait_cli(runs["ddp_localizer"])
     chosen, sync = _ddp_log_checks("ddp_localizer", stdout, "gloo", 2)
     steps_s, recs = _epoch_rate(run_dir)
     logged = [{k: r[k] for k in ("bbox/AP", "bbox/AP50", "bbox/AP75")}
@@ -3640,7 +3750,8 @@ def phase_ddp_train(dev, card, train):
                              f"one rank evaluates {ap} ({k1_launches} K1 "
                              "launches)")
     log(f"ddp_localizer: 2 ranks exited 0 in {wall:.1f} s; {chosen}; "
-        f"{sync}; epoch 1 (height 64, cuDNN warm-up included): "
+        f"{sync}; epoch 1 (height 64, cuDNN warm-up included, the card "
+        f"shared with the other launches): "
         f"{steps_s:.2f} steps/s = {steps_s * 16:.1f} images/s ({card}); "
         f"the ranks' AP {logged[-1]} equals one rank's evaluation of the "
         f"best checkpoint here, K1 held to nms_mask on {k1c.calls} calls")
@@ -4366,9 +4477,9 @@ def phase_tools(dev, card, sl, train):
 # train-seq2seq at the JAX command's defaults (full width: dim 256, 6 + 4
 # blocks, 8 heads, patch 8, a 64 x 512 canvas, max_len 64, batch 16, lr
 # 3e-4, float32), resident bank, greedy evaluation; depth cut to 2
-# epochs (of 20) on the first 1,000 of the loc corpus's 2,000 train lines
-# (63 steps each)
-S2S_TRAIN_LINES = 1000
+# epochs (of 20) on the first 500 of the loc corpus's 2,000 train lines
+# (31 steps each; 1,000 until the TIFF compressions joined image_formats)
+S2S_TRAIN_LINES = 500
 S2S_EPOCHS = 2
 S2S_FLAGS = ["--num_epochs", str(S2S_EPOCHS), "--data_device", "resident"]
 S2S_BATCH = 16
@@ -4387,7 +4498,22 @@ def _s2s_margins(model, images, tokens):
     return (top[..., 0] - top[..., 1]).numpy()
 
 
-def phase_seq2seq(dev, card, tl):
+def start_seq2seq(tl):
+    """Phase seq2seq's ``train-seq2seq``, started without waiting (it runs
+    beside phase tools, which then shares the card and the host with
+    it): (the launch, its run dir)."""
+    run_dir = os.path.join(WORK, "seq2seq")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return start_cli(
+        ["train-seq2seq", "--device", "cuda", "--image_dir", tl["img_dir"],
+         "--train_coco", _coco_head(tl["splits"]["train"], S2S_TRAIN_LINES,
+                                    os.path.join(WORK, "s2s_train.json")),
+         "--val_coco", tl["splits"]["val"], "--run_name", run_dir,
+         *S2S_FLAGS], "train_seq2seq"), run_dir
+
+
+def phase_seq2seq(dev, card, tl, started):
     """``python -m effocr_torch train-seq2seq --data_device resident`` at
     full width on phase train_localizer's corpus (the first
     S2S_TRAIN_LINES of its 2,000 train lines, val 128): steps/s and images/s from the second epoch on, the mean loss of
@@ -4398,7 +4524,8 @@ def phase_seq2seq(dev, card, tl):
     from those weights on the same batch (loss 1e-5 relative, gradients
     1e-3 of the largest); greedy tokens of 16 val lines on the card and
     on the CPU identical except after a step whose CPU top-2 logit margin
-    is under S2S_MARGIN (counted)."""
+    is under S2S_MARGIN (counted).  The command is ``start_seq2seq``'s,
+    awaited here."""
     from effocr_torch.baselines.data import Seq2SeqDataset
     from effocr_torch.baselines.seq2seq import (
         CharTokenizer,
@@ -4410,14 +4537,8 @@ def phase_seq2seq(dev, card, tl):
     from effocr_torch.eval.textline import textline_evaluation
     from effocr_torch.interop.flax_msgpack import read_variables
 
-    run_dir = os.path.join(WORK, "seq2seq")
-    shutil.rmtree(run_dir, ignore_errors=True)
-    _, wall = run_cli(
-        ["train-seq2seq", "--device", "cuda", "--image_dir", tl["img_dir"],
-         "--train_coco", _coco_head(tl["splits"]["train"], S2S_TRAIN_LINES,
-                                    os.path.join(WORK, "s2s_train.json")),
-         "--val_coco", tl["splits"]["val"], "--run_name", run_dir,
-         *S2S_FLAGS], "train_seq2seq")
+    run, run_dir = started
+    _, wall = wait_cli(run)
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         recs = [json.loads(ln) for ln in f]
     epochs = [r for r in recs if "epoch/steps" in r]
@@ -4437,7 +4558,8 @@ def phase_seq2seq(dev, card, tl):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"seq2seq: epoch losses {losses} do not fall")
     log(f"seq2seq: train-seq2seq exited 0 in {wall:.1f} s (process wall, "
-        f"corpus decode and evaluation included); epochs "
+        f"corpus decode and evaluation included; beside phase tools and "
+        f"trocr's command); epochs "
         f"{[round(r['epoch/seconds'], 3) for r in epochs]} s of "
         f"{[int(r['epoch/steps']) for r in epochs]} steps of {S2S_BATCH}; "
         f"epochs 2-{len(epochs)}: {steps_s:.2f} steps/s = {images_s:.1f} "
@@ -4539,13 +4661,14 @@ def phase_seq2seq(dev, card, tl):
 # wide, 12 layers, 12 heads, MLP 3072, 384 px, patch 16; TrOCR decoder:
 # d_model 1024, 12 layers, 16 heads, FFN 4096, vocab 50265, 512 learned
 # positions, embedding LayerNorm, cross attention from 768), weights
-# drawn from SEED; depth cut to 2 epochs of 128 train lines, 16 val
-# lines, 16 read lines at beam 4 (the JAX command: 10 epochs, and
+# drawn from SEED; depth cut to 2 epochs of 128 train lines, 8 val
+# lines, 8 read lines at beam 4 (16 and 16 until the TIFF compressions
+# joined image_formats; the JAX command: 10 epochs, and
 # phase train_localizer's 2,000 / 128 / 256)
 TROCR_BASE = dict(enc_hidden=768, enc_layers=12, enc_heads=12, enc_mlp=3072,
                   image_size=384, patch=16, dec_hidden=1024, dec_layers=12,
                   dec_heads=16, dec_ffn=4096, vocab=50265, max_positions=512)
-TROCR_SPLITS = {"train": 128, "val": 16, "read": 16}
+TROCR_SPLITS = {"train": 128, "val": 8, "read": 8}
 TROCR_EPOCHS = 2
 TROCR_MERGES = 300      # byte-level BPE merges counted from the corpus
 TROCR_STEP_BATCH = 2    # the card-vs-CPU step
@@ -4744,7 +4867,43 @@ def _float(text, pattern):
     return [float(x) for x in re.findall(pattern, text)]
 
 
-def phase_trocr(dev, card, tl):
+def start_trocr(tl):
+    """Phase trocr's checkpoint directory and its ``import-trocr``
+    command, started without waiting (it runs beside phases tools and
+    seq2seq, which then share the card and the host with it)."""
+    from effocr_torch.baselines.tokenizer import load_tokenizer
+
+    w = TROCR_BASE
+    root = os.path.join(WORK, "trocr")
+    model_dir = os.path.join(root, "hf_ckpt")
+    splits = {k: _coco_head(tl["splits"][k], n,
+                            os.path.join(root, f"{k}.json"))
+              for k, n in TROCR_SPLITS.items()}
+    with open(tl["splits"]["train"]) as f:
+        texts = [im["text"] for im in json.load(f)["images"]]
+    t0 = time.perf_counter()
+    n_params, n_vocab, n_merges = write_trocr_dir(model_dir, w, texts, SEED)
+    tok = load_tokenizer(model_dir)
+    for t in texts:
+        ids = tok(t).input_ids
+        if tok.decode(ids, skip_special_tokens=True) != t:
+            raise AssertionError(f"trocr: the tokenizer does not round-trip "
+                                 f"{t!r} ({ids})")
+    log(f"trocr: checkpoint of {n_params / 1e6:.1f}M params, tokenizer of "
+        f"{n_vocab} tokens ({n_merges} merges; {len(texts)} train texts "
+        f"round-trip) written in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    run = start_cli(
+        ["import-trocr", "--device", "cuda", "--model_dir", model_dir,
+         "--check", "--train_coco_json", splits["train"], "--val_coco_json",
+         splits["val"], "--image_dir", tl["img_dir"], "--coco_json",
+         splits["read"], "--num_beams", "4", "--num_epochs",
+         str(TROCR_EPOCHS)], "import_trocr")
+    return dict(run=run, model_dir=model_dir, splits=splits, tok=tok,
+                n_params=n_params)
+
+
+def phase_trocr(dev, card, tl, started):
     """``python -m effocr_torch import-trocr`` on the card at the
     published trocr-base widths from seeded weights: the checkpoint
     directory (model.safetensors with the output projection, config.json
@@ -4766,8 +4925,9 @@ def phase_trocr(dev, card, tl):
     TROCR_MARGIN (counted).  Last, where the time of the command's step
     (batch 8, AdamW) goes: its wall time, its kernels under
     torch.profiler (GEMM and the rest, busy share) and the TFLOP/s of
-    its matmuls (``trocr_fwd_flops``), and greedy decode's."""
-    from effocr_torch.baselines.tokenizer import load_tokenizer
+    its matmuls (``trocr_fwd_flops``), and greedy decode's.  The
+    checkpoint is written and the command started by ``start_trocr``;
+    the command is awaited here."""
     from effocr_torch.baselines.trocr_import import (
         TrOCR,
         load_trocr_npz,
@@ -4779,32 +4939,10 @@ def phase_trocr(dev, card, tl):
     from effocr_torch.cli.import_trocr import _special_ids
     from effocr_torch.train.optim import AdamW
 
-    w = TROCR_BASE
-    root = os.path.join(WORK, "trocr")
-    model_dir = os.path.join(root, "hf_ckpt")
-    splits = {k: _coco_head(tl["splits"][k], n,
-                            os.path.join(root, f"{k}.json"))
-              for k, n in TROCR_SPLITS.items()}
-    with open(tl["splits"]["train"]) as f:
-        texts = [im["text"] for im in json.load(f)["images"]]
-    t0 = time.perf_counter()
-    n_params, n_vocab, n_merges = write_trocr_dir(model_dir, w, texts, SEED)
-    tok = load_tokenizer(model_dir)
-    for t in texts:
-        ids = tok(t).input_ids
-        if tok.decode(ids, skip_special_tokens=True) != t:
-            raise AssertionError(f"trocr: the tokenizer does not round-trip "
-                                 f"{t!r} ({ids})")
-    log(f"trocr: checkpoint of {n_params / 1e6:.1f}M params, tokenizer of "
-        f"{n_vocab} tokens ({n_merges} merges; {len(texts)} train texts "
-        f"round-trip) written in {time.perf_counter() - t0:.1f} s")
-
-    out, wall = run_cli(
-        ["import-trocr", "--device", "cuda", "--model_dir", model_dir,
-         "--check", "--train_coco_json", splits["train"], "--val_coco_json",
-         splits["val"], "--image_dir", tl["img_dir"], "--coco_json",
-         splits["read"], "--num_beams", "4", "--num_epochs",
-         str(TROCR_EPOCHS)], "import_trocr")
+    model_dir, splits, tok = (started[k] for k in ("model_dir", "splits",
+                                                   "tok"))
+    n_params = started["n_params"]
+    out, wall = wait_cli(started["run"])
     if "torch parity check passed" not in out:
         raise AssertionError("trocr: no parity check line")
     gap = _float(out, r"max \|logit diff\| (\S+)")[0]
@@ -4828,7 +4966,8 @@ def phase_trocr(dev, card, tl):
     steps_s = sum(steps[1:]) / sum(secs[1:])
     images_s = sum(images[1:]) / sum(secs[1:])
     log(f"trocr: import-trocr exited 0 in {wall:.1f} s (process wall: "
-        f"conversion, --check, corpus decode, fine-tune, evaluation); "
+        f"conversion, --check, corpus decode, fine-tune, evaluation; beside "
+        f"phases tools and seq2seq); "
         f"--check max |logit diff| {gap:.3g} against the float64 reference "
         f"(tolerance 2e-3); epochs {secs} s of {[int(s) for s in steps]} "
         f"steps of 8; epochs 2-{len(steps)}: {steps_s:.3f} steps/s = "
@@ -4975,7 +5114,7 @@ def phase_trocr(dev, card, tl):
 # ------------------------------------------------------- image formats
 FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "images")
 N_FORMAT_LINES = 256     # distinct paths: the 64 fixture lines, 4 times
-N_FORMAT_SERVE = 18      # the last two: a float and an RGBa .tif
+N_FORMAT_SERVE = 20      # the last four: ZSTD, old JPEG, float, RGBa .tif
 
 
 def fixture_tools():
@@ -5028,11 +5167,15 @@ def fixture_checks():
 def decode_rates(names, card):
     """Host decode rates: the 2550 x 3300 gray JPEG page, its group4 TIFF
     and its L pixels as a tiled TIFF (256 x 256 Deflate tiles with
-    predictor 2, written here and checked against the pixels) and as
-    float samples (/ 255, 256 x 256 Deflate tiles without and with
-    predictor 3, checked the same way) on one thread, 8 copies of the JPEG page as one threaded native batch (8
-    threads), and the 64 fixture lines one file at a time and as one
-    batch; best of 3, MP/s."""
+    predictor 2, written here and checked against the pixels), as LZMA
+    strips (64 rows, the standard library's xz encoder, checked the
+    same way) and as float samples (/ 255, 256 x 256 Deflate tiles
+    without and with predictor 3, checked the same way), the group 4
+    page's pixels as 256 x 256 ZSTD tiles (page/page_zstd.tif, libzstd
+    level 19, checked against the group 4 file's pixels) on one thread,
+    8 copies of the JPEG page as one threaded native batch (8 threads),
+    and the 64 fixture lines one file at a time and as one batch; best
+    of 3, MP/s."""
     from effocr_torch.data import image_io, jpeg, tiff
     from effocr_torch.native import glyph, imgdec
 
@@ -5070,6 +5213,23 @@ def decode_rates(names, card):
     t = best(lambda: tiff.decode(tiled))
     out["page_tiled_ms"], out["page_tiled_mp_s"] = t * 1e3, h * w / t / 1e6
     out["page_tiled_bytes"] = len(tiled)
+    # the page as LZMA strips (xz streams, written here) and the group 4
+    # page's pixels as ZSTD tiles (committed: no ZSTD encoder here)
+    t0 = time.perf_counter()
+    xz = fixture_tools().tiff_layout(gray, compression=34925,
+                                     rows_per_strip=64)
+    out["page_lzma_write_s"] = time.perf_counter() - t0
+    zst = open(os.path.join(FIXTURES, "page", "page_zstd.tif"), "rb").read()
+    bw = tiff.decode(g4)[0]
+    for key, data, want in (("lzma", xz, gray), ("zstd", zst, bw)):
+        px, mode, _ = tiff.decode(data)
+        if mode != "L" or not np.array_equal(px, want):
+            raise AssertionError(f"image_formats: the {key} page does not "
+                                 "decode to its pixels")
+        t = best(lambda: tiff.decode(data))
+        out[f"page_{key}_ms"] = t * 1e3
+        out[f"page_{key}_mp_s"] = h * w / t / 1e6
+        out[f"page_{key}_bytes"] = len(data)
     # the page as float samples (an archive master's), 256 x 256 Deflate
     # tiles with and without the floating-point predictor
     fpage = gray.astype(np.float32) * np.float32(1.0 / 255.0)
@@ -5112,7 +5272,14 @@ def decode_rates(names, card):
         f"({out['page_tiled_bytes']} bytes, written in "
         f"{out['page_tiled_write_s']:.2f} s) {out['page_tiled_ms']:.1f} ms "
         f"= {out['page_tiled_mp_s']:.1f} MP/s, equal to the page's L "
-        "pixels; the page as float samples in 256 x 256 Deflate tiles "
+        "pixels; as 64-row LZMA strips "
+        f"({out['page_lzma_bytes']} bytes, written in "
+        f"{out['page_lzma_write_s']:.2f} s) {out['page_lzma_ms']:.1f} ms = "
+        f"{out['page_lzma_mp_s']:.1f} MP/s, equal to them; the group 4 "
+        "pixels as 256 x 256 ZSTD tiles "
+        f"({out['page_zstd_bytes']} bytes) {out['page_zstd_ms']:.1f} ms = "
+        f"{out['page_zstd_mp_s']:.1f} MP/s, equal to them; "
+        "the page as float samples in 256 x 256 Deflate tiles "
         f"{out['page_float_pred1_ms']:.1f} ms = "
         f"{out['page_float_pred1_mp_s']:.1f} MP/s "
         f"({out['page_float_pred1_bytes']} bytes), with predictor 3 "
@@ -5167,15 +5334,18 @@ def _serve_requests(names, pixels):
     """N_FORMAT_SERVE requests: fixture JPEG lines and the same lines as
     TIFF (uncompressed strips; one in Deflate tiles with predictor 2, one
     stored rotated under orientation 6) and palette BMP files, then a
-    line as float samples (Deflate tiles, predictor 3) and one as
-    associated-alpha RGBA (LZW, part of it at alpha 128), written by the
-    fixture generator's writers, which need no Pillow."""
+    gray line as ZSTD strips with predictor 2 (the committed
+    compressions/line_zstd.tif: there is no ZSTD encoder here), an RGB
+    line's JPEG bytes as an old-style JPEG TIFF, a line as float samples
+    (Deflate tiles, predictor 3) and one as associated-alpha RGBA (LZW,
+    part of it at alpha 128), written by the fixture generator's writers,
+    which need no Pillow."""
     mi = fixture_tools()
     d = os.path.join(WORK, "formats", "serve")
     os.makedirs(d, exist_ok=True)
     lines = [n for n in names if n.startswith("lines/")]
     paths = []
-    for k in range(N_FORMAT_SERVE - 2):
+    for k in range(N_FORMAT_SERVE - 4):
         name = lines[(7 * k) % len(lines)]
         px = pixels[name]
         kind = ("jpg", "tif", "bmp")[k % 3]
@@ -5206,6 +5376,16 @@ def _serve_requests(names, pixels):
                 f.write(mi.bmp_bytes(g.shape[1], g.shape[0], 8,
                                      mi.bmp_rows(g, 8), palette=grey))
         paths.append(p)
+    p = os.path.join(d, f"r{N_FORMAT_SERVE - 4:02d}_zstd.tif")
+    shutil.copy(os.path.join(FIXTURES, "compressions", "line_zstd.tif"), p)
+    paths.append(p)
+    colour = sorted(n for n in lines if os.path.basename(n).startswith("c"))
+    with open(os.path.join(FIXTURES, colour[9]), "rb") as f:
+        data = mi.ojpeg_jif(f.read())
+    p = os.path.join(d, f"r{N_FORMAT_SERVE - 3:02d}_ojpeg.tif")
+    with open(p, "wb") as f:
+        f.write(data)
+    paths.append(p)
     for k, kind in ((N_FORMAT_SERVE - 2, "float"),
                     (N_FORMAT_SERVE - 1, "rgba")):
         px = pixels[lines[(7 * k) % len(lines)]]
@@ -5269,8 +5449,8 @@ def _serve_formats(paths, loc_dir, rec_dir, card):
                              f"from engine.run; batches {batches}; K1 "
                              f"launched {k1} times by the server")
     log(f"image_formats: serve answered {len(answers)} .jpg / .tif / .bmp "
-        "requests (a tiled, an orientation-6, a float and an RGBa .tif "
-        "among them) "
+        "requests (a tiled, an orientation-6, a ZSTD, an old-style JPEG, "
+        "a float and an RGBa .tif among them) "
         f"identically to engine.run over its batches {batches} "
         f"(K1 held bit for bit on {k1c.calls} calls in process; the server "
         f"launched K1 {k1} times; {card})")
@@ -5290,16 +5470,17 @@ def phase_image_formats(dev, card, loc_dir, rec_dir):
        nms_mask; K1's launches counted from 0 around the JPEG run; both
        runs on one engine (``load_engine``'s, handed to the CLI), then
        timed on both lists (lines/s, host decode ms a chunk, header ms);
-    3. 18 mixed .jpg / .tif / .bmp requests (a tiled, an orientation-6,
-       a float and an RGBa .tif among them) through ``serve``, answered as
-       engine.run answers them;
+    3. 20 mixed .jpg / .tif / .bmp requests (a tiled, an orientation-6,
+       a ZSTD, an old-style JPEG, a float and an RGBa .tif among them)
+       through ``serve``, answered as engine.run answers them;
     and the host decode rates (``decode_rates``)."""
     from effocr_torch.cli import infer as infer_cli
 
     t0 = time.perf_counter()
     names = fixture_checks()
     log(f"image_formats: {len(names)} fixtures (JPEG, TIFF, BMP, GIF; "
-        "lines, one per decoder branch and TIFF layout, a page) equal "
+        "lines, one per decoder branch, TIFF layout and compression, "
+        "pages) equal "
         "their goldens bit "
         "for bit: Pillow 12.1's RGB and L conversions and the JAX "
         f"_LazyImage arrays of both channel rules "
@@ -5702,7 +5883,7 @@ def phase_fonts_bitmap(card, procs=None):
             "mode_page_crops": pages, "mode_pages_s": pages_s}
 
 
-def phase_fonts(dev, card, pipeline, mode_pages):
+def phase_fonts(dev, card, pipeline, mode_pages, outputs, waited):
     """The port's own glyph renderer where neither Pillow nor FreeType is
     used:
     1. ``draw_single_char`` (canvas 256) and ``draw_single_char_ascender``
@@ -5716,7 +5897,9 @@ def phase_fonts(dev, card, pipeline, mode_pages):
     2. ``make-corpus`` (512 en lines, noise 8, blur 1), ``make-charset
        --dedupe_renders`` and ``format-dataset`` through ``python -m
        effocr_torch`` (``pipeline``: start_font_pipeline's process, run
-       in the background from the family phases on): the corpus JSON,
+       in the background from the family phases on; ``outputs``: its
+       stdout and stderr, awaited for ``waited`` seconds after the interop
+       phases): the corpus JSON,
        charset file, line pixels, crops and the whole recognizer tree
        equal the JAX commands' goldens;
     3. ``train-recognizer --device cuda --adjacent_font_path`` (the en
@@ -5775,9 +5958,7 @@ def phase_fonts(dev, card, pipeline, mode_pages):
     bitmap = phase_fonts_bitmap(card, mode_pages)
 
     proc, work, _ = pipeline
-    t0 = time.perf_counter()
-    stdout, stderr = proc.communicate(timeout=900)
-    waited = time.perf_counter() - t0
+    stdout, stderr = outputs
     if proc.returncode != 0:
         raise AssertionError(f"fonts: the pipeline exited {proc.returncode}:"
                              f" {stderr[-3000:]}")
@@ -5810,8 +5991,8 @@ def phase_fonts(dev, card, pipeline, mode_pages):
         f"format-dataset {walls['format-dataset']:.1f} s (process walls; "
         f"{done['seconds']:.1f} s with the digests; the whole process, "
         f"training below included, {done['total_s']:.1f} s in the "
-        f"background from the family phases on; this phase waited "
-        f"{waited:.1f} s for it); "
+        f"background from the family phases on, awaited {waited:.1f} s "
+        f"after the interop phases); "
         f"corpus.json, the charset file, the line pixels, the crops and "
         f"the {n_tree}-file tree equal the JAX commands' goldens")
 
@@ -5908,10 +6089,8 @@ def main(argv) -> int:
     try:
         return _main_phases(args, card, dev, t_start, background)
     finally:
-        for proc, *_ in background:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        for proc in [p for p, *_ in background] + STARTED:
+            stop_process(proc)
 
 
 def _main_phases(args, card, dev, t_start, background) -> int:
@@ -5934,6 +6113,7 @@ def _main_phases(args, card, dev, t_start, background) -> int:
     t_more = time.perf_counter()
     en_loc, en_rec = sl["loc_dir"], sl["rec_dir"]
     more = {}
+    serve_run = start_serve(en_loc, en_rec)
     for name, run_phase in (
         ("square", lambda: phase_square(dev, card, sl["paths"], en_rec,
                                         args.out, profile=args.profile)),
@@ -5944,8 +6124,7 @@ def _main_phases(args, card, dev, t_start, background) -> int:
                                         en_rec)),
         ("classifier", lambda: phase_classifier(dev, card, sl["paths"],
                                                 en_loc)),
-        ("serve", lambda: phase_serve(dev, card, sl["paths"], en_loc,
-                                      en_rec)),
+        ("serve", lambda: phase_serve(dev, card, sl["paths"], serve_run)),
     ):
         t0 = time.perf_counter()
         more[name] = run_phase()
@@ -5962,6 +6141,12 @@ def _main_phases(args, card, dev, t_start, background) -> int:
     t0 = time.perf_counter()
     train["train"] = phase_train(dev, card, sl["paths"], en_loc)
     train["train"]["phase_s"] = time.perf_counter() - t0
+    # phase train_xcit's training and phase train_localizer's command run
+    # beside the next two phases
+    t_xcit = time.perf_counter()
+    xcit_run = start_train_xcit(train["train"]["tree"])
+    t_loc = time.perf_counter()
+    loc_run = start_train_localizer(train["train"]["tree"])
     t0 = time.perf_counter()
     train["train_step_vs_cpu"] = phase_train_step(dev, card,
                                                   train["train"]["tree"])
@@ -5972,10 +6157,17 @@ def _main_phases(args, card, dev, t_start, background) -> int:
         train["train"]["tree"])
     train["build_index_from"]["phase_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    train_xcit = phase_train_xcit(dev, card, xcit_run)
+    train_xcit["phase_s"] = time.perf_counter() - t_xcit
+    log(f"phase train_xcit: {train_xcit['phase_s']:.1f} s from its launch "
+        f"after phase train, {time.perf_counter() - t0:.1f} s of it awaited "
+        "here")
+    t0 = time.perf_counter()
     train["train_localizer"] = phase_train_localizer(
-        dev, card, train["train"]["tree"], train["train"]["run_dir"],
-        args.out)
-    train["train_localizer"]["phase_s"] = time.perf_counter() - t0
+        dev, card, train["train"]["run_dir"], args.out, loc_run)
+    train["train_localizer"]["phase_s"] = time.perf_counter() - t_loc
+    log(f"phase train_localizer: {time.perf_counter() - t0:.1f} s here, "
+        "after its corpus and command began before train_step_vs_cpu")
     t0 = time.perf_counter()
     tl = train["train_localizer"]
     train["loc_step_vs_cpu"] = phase_loc_step(
@@ -6013,32 +6205,18 @@ def _main_phases(args, card, dev, t_start, background) -> int:
             dev, card, "fcos_s", tl["img_dir"], tl["splits"])),
         ("train_rcnn", lambda: phase_train_family(
             dev, card, "rcnn_s", tl["img_dir"], tl["splits"])),
-        ("train_xcit", lambda: phase_train_xcit(dev, card,
-                                                train["train"]["tree"])),
         ("family_steps_vs_cpu", lambda: phase_family_steps(
             dev, card, train["train"]["tree"],
             {"fcos_s": fam["train_fcos"]["run_dir"],
              "rcnn_s": fam["train_rcnn"]["run_dir"]},
-            fam["train_xcit"]["run_dir"], tl["img_dir"], tl["splits"])),
+            train_xcit["run_dir"], tl["img_dir"], tl["splits"])),
     ):
         t0 = time.perf_counter()
         fam[name] = run_phase()
         fam[name]["phase_s"] = time.perf_counter() - t0
         log(f"phase {name}: {fam[name]['phase_s']:.1f} s")
+    fam["train_xcit"] = train_xcit
     log(f"the family phases: {time.perf_counter() - t_fam:.1f} s")
-    # data parallelism on the one card: engine replicas, DDP training
-    t_dp = time.perf_counter()
-    par = {}
-    for name, run_phase in (
-        ("data_parallel", lambda: phase_data_parallel(dev, card, sl, jp)),
-        ("ddp_train", lambda: phase_ddp_train(dev, card, train)),
-        ("ddp_step_vs_single", lambda: phase_ddp_steps(dev, card, train)),
-    ):
-        t0 = time.perf_counter()
-        par[name] = run_phase()
-        par[name]["phase_s"] = time.perf_counter() - t0
-        log(f"phase {name}: {par[name]['phase_s']:.1f} s")
-    log(f"the data-parallel phases: {time.perf_counter() - t_dp:.1f} s")
     # artifacts in and out: the reference's formats, export, import-encoder
     t_io = time.perf_counter()
     interop = {}
@@ -6054,25 +6232,68 @@ def _main_phases(args, card, dev, t_start, background) -> int:
         interop[name]["phase_s"] = time.perf_counter() - t0
         log(f"phase {name}: {interop[name]['phase_s']:.1f} s")
     log(f"the interop phases: {time.perf_counter() - t_io:.1f} s")
+    # the fonts pipeline's training on the card (beside the family and
+    # interop phases) ends here, before the data-parallel phases' K2
+    # timings
+    t0 = time.perf_counter()
+    fonts_out = background[0][0].communicate(timeout=900)
+    fonts_wait = time.perf_counter() - t0
+    log(f"fonts: the background pipeline awaited {fonts_wait:.1f} s after "
+        "the interop phases")
+    # data parallelism on the one card: engine replicas, DDP training
+    t_dp = time.perf_counter()
+    par = {}
+    t0 = time.perf_counter()
+    par["data_parallel"] = phase_data_parallel(dev, card, sl, jp)
+    par["data_parallel"]["phase_s"] = time.perf_counter() - t0
+    log(f"phase data_parallel: {par['data_parallel']['phase_s']:.1f} s")
+    # ddp_train's launches run beside ddp_step_vs_single (its own ranks
+    # and its one-rank steps in this process)
+    t0 = time.perf_counter()
+    runs = start_ddp_train(train)
+    t1 = time.perf_counter()
+    steps = phase_ddp_steps(dev, card, train)
+    steps["phase_s"] = time.perf_counter() - t1
+    par["ddp_train"] = phase_ddp_train(dev, card, train, runs)
+    par["ddp_train"]["phase_s"] = time.perf_counter() - t0
+    par["ddp_step_vs_single"] = steps
+    log(f"phase ddp_train: {par['ddp_train']['phase_s']:.1f} s (its three "
+        f"launches at once, ddp_step_vs_single beside them)")
+    log(f"phase ddp_step_vs_single: {steps['phase_s']:.1f} s (beside "
+        "ddp_train's launches)")
+    log(f"the data-parallel phases: {time.perf_counter() - t_dp:.1f} s")
     # the tools (infer's overlays and comparators, error-analysis, viz,
     # device_trace), the seq2seq baseline trained here and the TrOCR
     # import at trocr-base's widths
     t_tools = time.perf_counter()
     tools = {}
+    # phase trocr's command runs beside phases tools and seq2seq, phase
+    # seq2seq's beside phase tools
+    t_trocr = time.perf_counter()
+    trocr_run = start_trocr(train["train_localizer"])
+    log(f"phase trocr: its command started after "
+        f"{time.perf_counter() - t_trocr:.1f} s")
+    seq2seq_run = start_seq2seq(train["train_localizer"])
     for name, run_phase in (
         ("tools", lambda: phase_tools(dev, card, sl, train)),
         ("seq2seq", lambda: phase_seq2seq(dev, card,
-                                          train["train_localizer"])),
-        ("trocr", lambda: phase_trocr(dev, card, train["train_localizer"])),
+                                          train["train_localizer"],
+                                          seq2seq_run)),
+        ("trocr", lambda: phase_trocr(dev, card, train["train_localizer"],
+                                      trocr_run)),
         ("image_formats", lambda: phase_image_formats(dev, card, en_loc,
                                                       en_rec)),
         ("fonts", lambda: phase_fonts(dev, card, background[0],
-                                      mode_pages)),
+                                      mode_pages, fonts_out, fonts_wait)),
     ):
         t0 = time.perf_counter()
         tools[name] = run_phase()
         tools[name]["phase_s"] = time.perf_counter() - t0
         log(f"phase {name}: {tools[name]['phase_s']:.1f} s")
+        if name == "trocr":
+            tools[name]["from_start_s"] = time.perf_counter() - t_trocr
+            log(f"phase trocr: {tools[name]['from_start_s']:.1f} s from "
+                "the checkpoint's writing on")
     log(f"the tools, seq2seq, trocr, image_formats and fonts phases: "
         f"{time.perf_counter() - t_tools:.1f} s")
     launched = {k: v for k, v in {**more, **train, **fam, **par,

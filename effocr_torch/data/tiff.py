@@ -3,19 +3,34 @@
 Containers: byte orders II and MM, BigTIFF (little-endian; Pillow 12.1
 opens no big-endian BigTIFF, so neither does this reader), strips or
 tiles (the edge tiles' padding cropped), samples interleaved or in
-separate planes (planar configuration 2, one plane after another),
-and every compression Pillow writes: none, PackBits, LZW, Deflate (8
-and 32946, through zlib), CCITT modified Huffman (2), T.4 (3) and T.6
-(4) with either FillOrder (libtiff's decoder, so that a segment cut or
-damaged gives its rows, and the rows it does not reach those of the
-segment before, as in Pillow's one buffer), and JPEG (7) with its
+separate planes (planar configuration 2, one plane after another).
+
+Compressions: every code of Pillow's ``COMPRESSION_INFO``
+(``_COMPRESSION_INFO``, a copy), as Pillow's libtiff 4.7.1 decodes it:
+none, PackBits, LZW, Deflate (8 and 32946, through zlib), LZMA (34925,
+an xz stream through the standard library's lzma), ZSTD (50000, the
+native decoder: libzstd 1.5.7's bytes and errors as tif_zstd.c drives
+it), CCITT modified Huffman (2), its word-aligned variant RLEW (32771,
+aligned against the file's offsets, as libtiff aligns against the mapped
+file), T.4 (3) and T.6 (4) with either FillOrder (libtiff's decoder, so
+that a segment cut or damaged gives its rows, and the rows it does not
+reach those of the segment before, as in Pillow's one buffer),
+ThunderScan (32809, 4-bit samples in strips), JPEG (7) with its
 ``JPEGTables`` (a segment cut inside its byte count read as libjpeg
-reads the EOIs libtiff puts after it); horizontal differencing
-(predictor 2) on 8, 16 and 32-bit samples and the floating-point
-predictor (3) on float samples after LZW and Deflate.  The codecs other than Deflate are native
-(imgdec.cpp).  Orientations 2-8 transpose the decoded image as Pillow's
-``ImageOps.exif_transpose`` does; 5-8 swap the size ``tiff_header``
-reports, as ``Image.open(...).size`` does.
+reads the EOIs libtiff puts after it) and old-style JPEG (6: the stream
+tif_ojpeg.c builds from ``JPEGInterchangeFormat`` or from the
+``JPEGQTables`` / ``DCTables`` / ``ACTables`` tags and bare strips,
+decoded to component planes as libjpeg's raw data output gives them).
+WebP (Pillow's libtiff has no WebP codec) and SGILog (which needs
+photometrics Pillow does not open) raise ``OSError`` on load, as do
+RLEW off 1-bit and ThunderScan off 4-bit samples; a code Pillow does not
+know raises ``OSError`` from ``tiff_header``, where Pillow's
+``Image.open`` fails.  Horizontal differencing (predictor 2) on 8, 16
+and 32-bit samples and the floating-point predictor (3) on float samples
+after LZW, Deflate, LZMA and ZSTD.  The codecs other than Deflate and
+LZMA are native (imgdec.cpp).  Orientations 2-8 transpose the decoded
+image as Pillow's ``ImageOps.exif_transpose`` does; 5-8 swap the size
+``tiff_header`` reports, as ``Image.open(...).size`` does.
 
 Layouts and modes are Pillow 12.1's ``OPEN_INFO`` (``_OPEN_INFO``, a
 copy), each sample unpacked as its rawmode says: ``1``, ``L`` (8 bits,
@@ -28,21 +43,24 @@ indices, with the colour map's 2^bits entries; PX), ``PA``, ``RGB`` and
 dropped, associated alpha divided out as Pillow's RGBa unpackers do),
 ``CMYK`` (8 or 16 bits, extra samples dropped) and ``LAB`` (as stored);
 a JPEG segment of photometric YCbCr comes back as ``RGB``, as Pillow's
-``JPEGCOLORMODE`` gives it, and compressed YCbCr outside JPEG as libtiff's
-RGBA interface converts it (its subsampled blocks, its tables).  Pillow's
-own readings are kept: words libtiff hands over in the machine's order
-read through a big-endian rawmode (32-bit and signed 16-bit,
-compressed) come out byte-swapped, and planes follow Pillow's rules
-(``_planes_raw``).  Layouts whose pixels in Pillow are not the file's
-(uncompressed YCbCr, 4x4 YCbCr where libtiff misreads it, LA and PA
-planes, uncompressed 16-bit planes and most one-sample planes) and other
-compressions raise ``NotImplementedError`` naming the feature; a layout
-Pillow cannot open or decode raises ``OSError``, as it does there.
+``JPEGCOLORMODE`` gives it, and compressed YCbCr outside JPEG (old-style
+JPEG included) as libtiff's RGBA interface converts it (its subsampled
+blocks, its tables).  Pillow's own readings are kept: words libtiff
+hands over in the machine's order read through a big-endian rawmode
+(32-bit and signed 16-bit, compressed) come out byte-swapped, and planes
+follow Pillow's rules (``_planes_raw``).  Layouts whose pixels in Pillow
+are not the file's (uncompressed YCbCr, 4x4 YCbCr where libtiff misreads
+it, LA and PA planes, uncompressed 16-bit planes and most one-sample
+planes, old-style JPEG in tiles, planes or with three samples of another
+photometric than YCbCr) raise ``NotImplementedError`` naming the
+layout; a layout Pillow cannot open or decode raises ``OSError``, as it
+does there.
 """
 
 from __future__ import annotations
 
 import functools
+import lzma
 import struct
 import zlib
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -137,10 +155,23 @@ class Layout(NamedTuple):
 # (tif_getimage.c putcontig8bitYCbCr{44,42,41,22,21,12,11}tile)
 _YCBCR_PUT = ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1))
 
-# none, CCITT modified Huffman, T.4, T.6, LZW, JPEG, Deflate, PackBits,
-# Deflate (the old code)
-_COMPRESSIONS = {1, 2, 3, 4, 5, 7, 8, 32773, 32946}
-_PREDICTED = (5, 8, 32946)        # the codecs libtiff undoes predictor 2 in
+# Pillow 12.1's TiffImagePlugin.COMPRESSION_INFO: the codes it opens; any
+# other is not identified
+_COMPRESSION_INFO = {
+    1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4", 5: "tiff_lzw",
+    6: "tiff_jpeg", 7: "jpeg", 8: "tiff_adobe_deflate", 32771: "tiff_raw_16",
+    32773: "packbits", 32809: "tiff_thunderscan", 32946: "tiff_deflate",
+    34676: "tiff_sgilog", 34677: "tiff_sgilog24", 34925: "lzma",
+    50000: "zstd", 50001: "webp"}
+# the codecs whose segments libtiff fails to load: WebP (Pillow's libtiff
+# is built without it) and SGILog (which refuses every photometric Pillow
+# opens)
+_FAILING = {50001: "WebP compression support is not configured",
+            34676: "SGILog needs photometric LogL or LogLuv",
+            34677: "SGILog needs photometric LogL or LogLuv"}
+_FAX = (2, 3, 4, 32771)            # libtiff's CCITT decoders
+# the codecs libtiff undoes predictors 2 and 3 in (TIFFPredictorInit)
+_PREDICTED = (5, 8, 32946, 34925, 50000)
 _MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)  # Pillow's bomb error
 _EOIS = b"\xff\xd9" * 32770      # past a cut JPEG segment: a marker's
                                   # longest length, and its EOI
@@ -212,10 +243,13 @@ def _layout(e: str, tags: Dict[int, tuple]) -> Layout:
         raise OSError(f"TIFF: {w} x {h} pixels, above the {_MAX_PIXELS} "
                       "Pillow opens (a decompression bomb)")
     comp = tags.get(259, (1,))[0]
-    if comp not in _COMPRESSIONS:
-        raise refuse(f"compression {comp}")
-    photo = tags.get(262, (0,))[0]
-    spp = tags.get(277, (1,))[0]
+    if comp not in _COMPRESSION_INFO:
+        raise OSError(f"TIFF: cannot identify image file (compression "
+                      f"{comp}, which Pillow does not know)")
+    photo = file_photo = tags.get(262, (0,))[0]
+    if comp == 6:                   # Pillow: old-style JPEG is YCbCr
+        photo = 6
+    spp = tags.get(277, (3 if comp == 6 else 1,))[0]
     bps = tags.get(258, (1,))
     if len(bps) == 1 and spp > 1:
         bps = bps * spp
@@ -230,6 +264,9 @@ def _layout(e: str, tags: Dict[int, tuple]) -> Layout:
                       f"sample format {list(fmt)}, {list(bps)} bits, extra "
                       f"samples {list(extra)}), which Pillow does not open")
     mode, raw = _OPEN_INFO[key]
+    if comp == 6:
+        return Layout(h, w, mode, _ojpeg_raw(tags, file_photo, spp, raw),
+                      8, 1, True)
     if photo == 6 and spp == 3 and comp == 1:
         raise refuse("photometric 6 with 3 samples (YCbCr) uncompressed "
                      "(Pillow's raw decoder reads 4 bytes a pixel of these "
@@ -324,6 +361,23 @@ def _planes_raw(comp: int, mode: str, raw: str, bps, extra, w: int,
     return "LAB;planes" if mode == "LAB" else raw
 
 
+def _ojpeg_raw(tags, photo: int, spp: int, raw: str) -> str:
+    """The rawmode of an old-style JPEG file's samples, or the refusal:
+    three samples of photometric YCbCr come through libtiff's RGBA
+    interface (``YCbCr``), one sample as decoded (Pillow's ``L``, also
+    for MinIsWhite)."""
+    if 322 in tags or 323 in tags:
+        raise refuse("old-style JPEG in tiles (libtiff decodes one stream "
+                     "a tile column)")
+    if spp == 3 and tags.get(284, (1,))[0] == 2:
+        raise refuse("old-style JPEG in separate planes")
+    if spp == 3 and photo != 6:
+        raise refuse(f"old-style JPEG with 3 samples of photometric {photo} "
+                     "(Pillow unpacks libtiff's YCbCr as RGBX: its pixels "
+                     "are not the file's)")
+    return "YCbCr" if spp == 3 else raw
+
+
 def _orientation(tags: Dict[int, tuple]) -> int:
     o = tags.get(274, (1,))[0]
     return o if o in range(2, 9) else 1
@@ -351,7 +405,16 @@ def _segment_bytes(comp: int, raw: bytes, nbytes: int, tags, rows: int,
         except zlib.error as err:
             raise OSError(f"TIFF: Deflate data: {err}") from err
         return np.frombuffer(out, np.uint8)
-    raise refuse(f"compression {comp}")
+    if comp == 34925:
+        # tif_lzma.c: an xz stream decoder run until the segment is full
+        # or the stream ends; a decoding error fails the segment
+        try:
+            out = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(raw,
+                                                                   nbytes)
+        except lzma.LZMAError as err:
+            raise OSError(f"TIFF: LZMA data: {err}") from err
+        return np.frombuffer(out, np.uint8)
+    return imgdec.zstd(raw, nbytes)
 
 
 def _jpeg_segment(raw: bytes, tables: Optional[bytes], photo: int,
@@ -377,6 +440,230 @@ def _jpeg_segment(raw: bytes, tables: Optional[bytes], photo: int,
     px = imgdec.decode_jpeg(data, (sh, sw, spp), color=1 if photo == 6
                             else 2, where="TIFF JPEG segment", segment=True)
     return px[:rows].reshape(rows, w, spp)
+
+
+class _OJpegSource:
+    """The bytes tif_ojpeg.c reads, in its order: the
+    ``JPEGInterchangeFormat`` stream (513 / 514, clipped to the file),
+    then each strip (offset 0 or past the file: skipped; byte count 0:
+    to the file's end); ``rest`` gives them from the read position with
+    the restart markers libtiff puts between strips."""
+
+    def __init__(self, data: bytes, tags):
+        size = len(data)
+        jif, jlen = tags.get(513, (0,))[0], tags.get(514, (0,))[0]
+        if jif >= size:
+            jif = jlen = 0
+        elif jlen == 0 or jif + jlen > size:
+            jlen = size - jif
+        self.parts = [data[jif:jif + jlen]] if jif else []
+        self.strips = []            # index in parts of each strip read
+        for off, cnt in zip(tags.get(273, ()), tags.get(279, ())):
+            if off == 0 or off >= size:
+                continue
+            cnt = size - off if cnt == 0 else min(cnt, size - off)
+            self.strips.append(len(self.parts))
+            self.parts.append(data[off:off + cnt])
+        self.part, self.pos = 0, 0
+
+    def read(self, n: int) -> bytes:
+        out = b""
+        while len(out) < n and self.part < len(self.parts):
+            chunk = self.parts[self.part][self.pos:self.pos + n - len(out)]
+            out += chunk
+            self.pos += len(chunk)
+            if self.pos >= len(self.parts[self.part]):
+                self.part, self.pos = self.part + 1, 0
+        if len(out) < n:
+            raise OSError("TIFF: old-style JPEG data end inside its "
+                          "markers")
+        return out
+
+    def peek(self) -> int:
+        while self.part < len(self.parts) and self.pos >= len(
+                self.parts[self.part]):
+            self.part, self.pos = self.part + 1, 0
+        return (self.parts[self.part][self.pos]
+                if self.part < len(self.parts) else -1)
+
+    def rest(self) -> bytes:
+        out, rst = [], 0
+        for i in range(self.part, len(self.parts)):
+            out.append(self.parts[i][self.pos if i == self.part else 0:])
+            later = [k for k in self.strips if k > i]
+            if i in self.strips and later:
+                out.append(bytes([0xFF, 0xD0 + rst]))
+                rst = (rst + 1) % 8
+        return b"".join(out)
+
+
+def _ojpeg_tables(data: bytes, tags, tag: int, spp: int):
+    """JPEGQTables (519) / JPEGDCTables (520) / JPEGACTables (521) as
+    libtiff reads them: a table a sample (one shared where the offsets
+    repeat), each as the marker segment it writes (DQT of 64 bytes, DHT
+    of class 0 or 1), and each sample's table number."""
+    offs = list(tags.get(tag, ()))
+    if not offs or offs[0] == 0:
+        raise OSError("TIFF: old-style JPEG: missing JPEG tables")
+    segs, ids = [], []
+    for m in range(spp):
+        o = offs[m] if m < len(offs) else 0
+        if o == 0 or (m > 0 and o == offs[m - 1]):
+            ids.append(ids[-1] if ids else 0)
+            continue
+        if o in offs[:max(m - 1, 0)]:
+            raise OSError(f"TIFF: old-style JPEG: corrupt tag {tag}")
+        if tag == 519:
+            body = data[o:o + 64]
+            if len(body) < 64:
+                raise OSError("TIFF: old-style JPEG table past the file")
+            segs.append(b"\xff\xdb\x00\x43" + bytes([m]) + body)
+        else:
+            counts = data[o:o + 16]
+            q = sum(counts)
+            body = data[o:o + 16 + q]
+            if len(counts) < 16 or len(body) < 16 + q:
+                raise OSError("TIFF: old-style JPEG table past the file")
+            segs.append(b"\xff\xc4" + struct.pack(">H", 19 + q) + bytes(
+                [(tag - 520) << 4 | m]) + body)
+        ids.append(m)
+    return segs, ids
+
+
+def _ojpeg_stream(data: bytes, tags, h: int, w: int, spp: int
+                  ) -> Tuple[bytes, Tuple[int, int], int]:
+    """The JPEG stream tif_ojpeg.c gives libjpeg for the whole image (one
+    stream across the strips: its markers, then the scan data of the
+    interchange-format stream and of the strips, restart markers between
+    strips, an EOI after them), the subsampling, and the stream's height."""
+    src = _OJpegSource(data, tags)
+    rps = tags.get(278, (2**32 - 1,))[0]
+    rps = h if rps == 2**32 - 1 else rps
+    # OJPEGSubsamplingCorrect: the frame's sampling factors for YCbCr
+    sub = _subsampling(tags) if spp == 3 else (1, 1)
+    restart = None
+    dqt, dht, sof, sos = {}, {}, None, None
+    while src.peek() == 0xFF:
+        src.read(1)
+        m = src.read(1)[0]
+        while m == 0xFF:
+            m = src.read(1)[0]
+        if m == 0xD8:
+            continue
+        if m not in (0xC4, 0xDB, 0xDD, 0xC0, 0xC1, 0xC3, 0xDA, 0xFE) and not (
+                0xE0 <= m <= 0xEF):
+            raise OSError(f"TIFF: old-style JPEG: unknown marker {m:#x}")
+        n = struct.unpack(">H", src.read(2))[0]
+        if n < 2:
+            raise OSError("TIFF: old-style JPEG: corrupt marker length")
+        if m == 0xDA:
+            body = src.read(n - 2)
+            if n != 6 + 2 * spp or body[0] != spp:
+                raise OSError("TIFF: old-style JPEG: corrupt SOS marker")
+            sos = [(body[1 + 2 * k], body[2 + 2 * k]) for k in range(spp)]
+            break
+        body = src.read(n - 2)
+        if m == 0xDD:
+            if n != 4:
+                raise OSError("TIFF: old-style JPEG: corrupt DRI marker")
+            restart = struct.unpack(">H", body)[0]
+        elif m == 0xDB:
+            if len(body) % 65 or not body:
+                raise OSError("TIFF: old-style JPEG: corrupt DQT marker")
+            for i in range(0, len(body), 65):
+                if body[i] & 0xF0 or body[i] > 3:
+                    raise OSError("TIFF: old-style JPEG: corrupt DQT marker")
+                dqt[body[i]] = b"\xff\xdb\x00\x43" + body[i:i + 65]
+        elif m == 0xC4:
+            tc = body[0]
+            if tc >> 4 > 1 or tc & 15 > 3:
+                raise OSError("TIFF: old-style JPEG: corrupt DHT marker")
+            dht[tc] = b"\xff\xc4" + struct.pack(">H", n) + body
+        elif m in (0xC0, 0xC1, 0xC3):
+            if sof is not None or n < 11 or (n - 8) % 3:
+                raise OSError("TIFF: old-style JPEG: corrupt SOF marker")
+            if (n - 8) // 3 != spp or body[5] != spp:
+                raise OSError("TIFF: old-style JPEG: unexpected number of "
+                              "samples")
+            if body[0] != 8:
+                raise OSError("TIFF: old-style JPEG: unexpected bits per "
+                              "sample")
+            y, x = struct.unpack(">HH", body[1:5])
+            if y < h or x < w or x > w:
+                raise OSError(f"TIFF: old-style JPEG frame of {x} x {y} for "
+                              f"{w} x {h}")
+            comps = [tuple(body[6 + 3 * k:9 + 3 * k]) for k in range(spp)]
+            hv = comps[0][1]
+            if spp == 3:
+                sub = (hv >> 4, hv & 15)
+                if (any(v not in (1, 2, 4) for v in sub)
+                        or any(c[1] != 0x11 for c in comps[1:])):
+                    # libtiff has libjpeg upsample these, then finds the
+                    # frame's factors unequal to its subsampling (1x1)
+                    raise OSError("TIFF: old-style JPEG sampled otherwise "
+                                  "than TIFF allows (Pillow: decoder error)")
+            elif hv != 0x11:
+                raise OSError("TIFF: old-style JPEG compressed data indicate "
+                              "unexpected subsampling values")
+            sof = (m, y, x, comps)
+    if sof is None:
+        # the tables of the TIFF tags; the frame and scan libtiff writes
+        q, tq = _ojpeg_tables(data, tags, 519, spp)
+        dc, td = _ojpeg_tables(data, tags, 520, spp)
+        ac, ta = _ojpeg_tables(data, tags, 521, spp)
+        tables = q + dc + ac
+        hvs = [(sub[0] << 4) | sub[1]] + [0x11] * (spp - 1)
+        sof = (0xC0, h, w, [(k, hvs[k], tq[k]) for k in range(spp)])
+        sos = [(k, td[k] << 4 | ta[k]) for k in range(spp)]
+    else:
+        # libtiff's order: quantization 0-3, DC 0-3 (keys 0-3), AC 0-3
+        # (keys 16-19)
+        tables = [dqt[k] for k in sorted(dqt)] + [dht[k] for k in sorted(dht)]
+    if sos is None:
+        raise OSError("TIFF: old-style JPEG without a scan")
+    if rps < h:
+        if any(v not in (1, 2, 4) for v in sub) or rps % (8 * sub[1]):
+            raise OSError("TIFF: old-style JPEG strips of a length that is "
+                          "no multiple of the vertical subsampling's MCU")
+        if restart is None:     # libtiff's interval: one strip
+            restart = -(-w // (8 * sub[0])) * (rps // (8 * sub[1]))
+    m, y, x, comps = sof
+    head = [b"\xff\xd8"] + tables
+    if restart:
+        head.append(b"\xff\xdd\x00\x04" + struct.pack(">H", restart))
+    head.append(b"\xff" + bytes([m]) + struct.pack(
+        ">HBHHB", 8 + 3 * spp, 8, y, x, spp) + b"".join(
+            bytes(c) for c in comps))
+    head.append(b"\xff\xda" + struct.pack(">HB", 6 + 2 * spp, spp)
+                + b"".join(bytes(c) for c in sos) + b"\x00\x3f\x00")
+    return b"".join(head) + src.rest() + b"\xff\xd9", sub, y
+
+
+def _ojpeg(data: bytes, tags, lay: Layout, spp: int, photo: int
+           ) -> np.ndarray:
+    """uint8 [h, w, spp] samples of an old-style JPEG file: gray as
+    decoded, YCbCr as libjpeg's raw data output gives libtiff (each
+    component at its own sampling, no upsampling), each pixel with its
+    block's Cb and Cr."""
+    h, w = lay.h, lay.w
+    if spp == 1 and photo == 6:
+        raise OSError("TIFF: one-sample YCbCr under old-style JPEG, which "
+                      "libtiff does not size (Pillow: decoder error)")
+    stream, (sh, sv), y = _ojpeg_stream(data, tags, h, w, spp)
+    if spp == 1:
+        px = imgdec.decode_jpeg(stream, (y, w, 1), color=2,
+                                where="TIFF old-style JPEG", segment=True,
+                                first_scan=True)
+        return np.ascontiguousarray(px[:h])
+    dims = [(y, w), (-(-y // sv), -(-w // sh)), (-(-y // sv), -(-w // sh))]
+    flat = imgdec.decode_jpeg_raw(stream, (y, w), sum(a * b for a, b in dims))
+    ys = flat[:y * w].reshape(y, w)
+    cb = flat[y * w:].reshape(2, *dims[1])
+    out = np.empty((h, w, 3), np.uint8)
+    out[..., 0] = ys[:h]
+    for k in (0, 1):
+        out[..., 1 + k] = cb[k].repeat(sv, 0).repeat(sh, 1)[:h, :w]
+    return out
 
 
 def _frame_end(data: bytes) -> int:
@@ -449,6 +736,20 @@ def decode(data: bytes) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
     photo = tags.get(262, (0,))[0]
     spp = tags.get(277, (1,))[0]
     predictor = _predictor(tags, comp, lay)
+    if comp in _FAILING:
+        raise OSError(f"TIFF: compression {comp}: {_FAILING[comp]} "
+                      "(Pillow: decoder error)")
+    if comp in (32771, 32809) and bits != (1 if comp == 32771 else 4):
+        raise OSError(f"TIFF: compression {comp} with {bits}-bit samples, "
+                      "which libtiff's decoder refuses (Pillow: decoder "
+                      "error)")
+    if comp == 32809 and (324 in tags or 322 in tags):
+        raise OSError("TIFF: ThunderScan tiles, which libtiff does not "
+                      "decode (Pillow: decoder error)")
+    if comp == 6:
+        samples = _ojpeg(data, tags, lay, spp, photo)
+        px, palette = _pixels(samples, lay, tags, False)
+        return _orient(px, _orientation(tags)), mode, palette
     tiled = 324 in tags or 322 in tags
     if tiled:
         try:
@@ -478,7 +779,7 @@ def decode(data: bytes) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
     tables = tags.get(347, (None,))[0]
     row_bytes = (tw * seg_spp * bits + 7) // 8
     sub = _subsampling(tags) if lay.raw == "YCbCr" else (1, 1)
-    if comp in (2, 3, 4):
+    if comp in _FAX:
         # libtiff decodes each strip or tile into the one buffer Pillow
         # keeps for them all, so rows a cut segment does not reach hold the
         # segment before's (zeros before the first); libtiff's codec state
@@ -512,16 +813,21 @@ def decode(data: bytes) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
                 px = _jpeg_segment(raw, tables, photo, rows, tw, seg_spp)
                 samples[region] = px[:ry, :rx]
                 continue
-            if comp in (2, 3, 4):
+            if comp in _FAX:
                 # an empty segment fails to load in libtiff; a failed
                 # decode fails a strip, not a tile (TIFFReadEncodedTile
-                # takes the decoder's -1 for success)
+                # takes the decoder's -1 for success).  RLEW aligns to
+                # words of the file Pillow's libtiff maps: its offset
                 if not raw or not (imgdec.ccitt(
-                        raw, comp, fax_opts, tags.get(266, (1,))[0],
-                        fax_rows[:rows], fax_state) or tiled):
+                        raw, comp, off if comp == 32771 else fax_opts,
+                        tags.get(266, (1,))[0], fax_rows[:rows],
+                        fax_state) or tiled):
                     raise OSError(f"TIFF: CCITT data of segment {i} end "
                                   f"before its rows")
                 buf = np.packbits(fax_rows[:rows], axis=1)
+            elif comp == 32809:
+                buf = imgdec.thunderscan(raw, rows, w, row_bytes).reshape(
+                    rows, row_bytes)
             elif sub != (1, 1):
                 need = (-(-tw // sub[0]) * -(-rows // sub[1])
                         * (sub[0] * sub[1] + 2))

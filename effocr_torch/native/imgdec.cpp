@@ -24,9 +24,12 @@
 // dequantised and inverse-transformed, upsampled and colour-converted.
 //
 // TIFF: PackBits, LZW (MSB-first, the old LSB-first variant refused),
-// CCITT modified Huffman (compression 2), T.4 1-D / 2-D (3) and T.6 (4)
-// as libtiff decodes them, damaged or cut data included.
-// GIF: LZW.  Deflate stays with Python's zlib.
+// CCITT modified Huffman (compression 2, and 32771 word-aligned), T.4
+// 1-D / 2-D (3) and T.6 (4) as libtiff decodes them, damaged or cut data
+// included; ThunderScan (32809); ZSTD (50000, RFC 8878, as libzstd 1.5.7
+// decodes it under libtiff); the component planes of a JPEG stream for
+// old-style JPEG (6).
+// GIF: LZW.  Deflate and LZMA stay with Python's zlib and lzma.
 //
 // Errors cross the C boundary as a status and a message: 1 corrupt data,
 // 2 truncated file, 3 a feature this decoder refuses, 4 I/O.
@@ -103,6 +106,8 @@ struct Huff {
     for (int l = 1; l <= 16; ++l) {
       valoff[l] = k - code;
       for (int i = 0; i < bits[l]; ++i) {
+        // jdhuff.c's check, before the code indexes the fast table
+        if (code >= (1 << l)) fail(CORRUPT, "JPEG: bad Huffman table");
         if (l <= 9) {
           int shift = 9 - l;
           for (int j = 0; j < (1 << shift); ++j) {
@@ -113,7 +118,6 @@ struct Huff {
         ++k;
       }
       maxcode[l] = bits[l] ? code - 1 : -1;
-      if (code > (1 << l)) fail(CORRUPT, "JPEG: bad Huffman table");
       code <<= 1;
     }
     maxcode[17] = 0x7fffffff;
@@ -360,11 +364,19 @@ const char* sof_name(int m) {
 // of a restart marker is libtiff's (jdmarker.c resync action 3: the
 // marker stays, and each interval after it is an empty segment)
 constexpr int kSegment = 8;
+// plus kRaw: each component's samples at its own sampling, as libjpeg's
+// jpeg_read_raw_data gives them to libtiff's old-style JPEG codec (any
+// sampling factors: nothing is upsampled); plus kFirstScan: nothing past
+// the first scan is read (that codec stops once its rows are decoded)
+constexpr int kRaw = 16;
+constexpr int kFirstScan = 32;
 
 class JpegDecoder {
  public:
   JpegDecoder(const uint8_t* d, size_t n, int color) : d_(d), n_(n),
-      color_(color & ~kSegment), segment_(color & kSegment) {}
+      color_(color & ~(kSegment | kRaw | kFirstScan)),
+      segment_(color & kSegment), raw_(color & kRaw),
+      first_scan_(color & kFirstScan) {}
 
   // parse and entropy-decode the whole file
   void read() {
@@ -411,6 +423,7 @@ class JpegDecoder {
       } else if (m == 0xDA) {
         pos_ += len;
         sos(s, sl);
+        if (first_scan_) break;
         continue;
       }
       pos_ += len;
@@ -427,6 +440,26 @@ class JpegDecoder {
   int height() const { return h_; }
   // channels of the decoded mode: 1 (L), 3 (RGB) or 4 (CMYK)
   int channels() const { return nc_ == 1 ? 1 : nc_ == 3 ? 3 : 4; }
+
+  // bytes of output_raw
+  size_t raw_size() const {
+    size_t n = 0;
+    for (int c = 0; c < nc_; ++c) n += size_t(comp_[c].dsw) * comp_[c].dsh;
+    return n;
+  }
+  // each component's samples [dsh, dsw], one plane after another, neither
+  // upsampled nor colour-converted
+  void output_raw(uint8_t* out) {
+    check_block_smoothing();
+    for (int c = 0; c < nc_; ++c) {
+      const Comp& k = comp_[c];
+      std::vector<uint8_t> plane = blocks(k);
+      for (int y = 0; y < k.dsh; ++y) {
+        std::memcpy(out, &plane[size_t(y) * k.wib * 8], k.dsw);
+        out += k.dsw;
+      }
+    }
+  }
 
   // pixels as uint8 [h, w, channels()], converted to out_ch channels:
   // equal channels as they are, L -> 3 replicated, RGB -> 1 the
@@ -488,7 +521,7 @@ class JpegDecoder {
   const uint8_t* d_;
   size_t n_;
   int color_;
-  bool segment_;
+  bool segment_, raw_, first_scan_;
   size_t pos_ = 0;
   bool frame_ = false, progressive_ = false;
   int scans_ = 0;
@@ -564,7 +597,7 @@ class JpegDecoder {
                  std::to_string(k.v);
       if (hmax_ % k.h || vmax_ % k.v) ok = false;
     }
-    if (!ok && nc_ > 1) {
+    if (!ok && nc_ > 1 && !raw_) {
       fail(UNSUPPORTED, "JPEG uses sampling factors " + factors +
                             " (this decoder reads 1x1, 2x1, 1x2 and 2x2 "
                             "luma over 1x1 chroma)");
@@ -871,8 +904,8 @@ class JpegDecoder {
     return true;
   }
 
-  // one component's samples at full size [h_, w_] (jdsample.c)
-  std::vector<uint8_t> upsampled(const Comp& k) const {
+  // one component's inverse-transformed blocks [hib * 8, wib * 8]
+  std::vector<uint8_t> blocks(const Comp& k) const {
     const int stride = k.wib * 8;
     std::vector<uint8_t> plane(size_t(stride) * k.hib * 8);
     for (int by = 0; by < k.hib; ++by) {
@@ -881,6 +914,13 @@ class JpegDecoder {
                    &plane[size_t(by) * 8 * stride + bx * 8], stride);
       }
     }
+    return plane;
+  }
+
+  // one component's samples at full size [h_, w_] (jdsample.c)
+  std::vector<uint8_t> upsampled(const Comp& k) const {
+    const int stride = k.wib * 8;
+    std::vector<uint8_t> plane = blocks(k);
     const int hr = hmax_ / k.h, vr = vmax_ / k.v;
     if (hr == 1 && vr == 1) {
       if (stride == w_) {
@@ -965,6 +1005,13 @@ int jpeg_decode_impl(const uint8_t* data, size_t n, int color, uint8_t* out,
   dec.read();
   if (dec.height() != h || dec.width() != w) {
     fail(CORRUPT, "JPEG: size differs from its header");
+  }
+  if (color & kRaw) {  // ch: the bytes of out
+    if (dec.raw_size() != size_t(ch)) {
+      fail(CORRUPT, "JPEG: raw planes of another size than expected");
+    }
+    dec.output_raw(out);
+    return OK;
   }
   dec.output(out, ch);
   return OK;
@@ -1381,15 +1428,24 @@ struct Fax {
     return 0;
   }
 
-  // Fax3DecodeRLE: 1 or -1, as libtiff returns
-  int rle(uint8_t* dst, int rows) {
+  // Fax3DecodeRLE: 1 or -1, as libtiff returns.  word < 0: rows start on
+  // a byte (compression 2); else on a 16-bit word (32771,
+  // FAXMODE_WORDALIGN), where libtiff also steps past a byte when no bit
+  // is left and the next byte's address is odd: word is the parity of the
+  // data's first byte in the file, which Pillow's libtiff maps
+  int rle(uint8_t* dst, int rows, int word) {
     for (int y = 0; y < rows; ++y, dst += lastx) {
       start_row();
       End end = expand1d();
       if (end == kOverflow) return -1;
       fill(dst);
       if (end == kData) return -1;
-      clr(BitsAvail & 7);  // rows start on a byte
+      if (word < 0) {
+        clr(BitsAvail & 7);
+      } else {
+        clr(BitsAvail & 15);
+        if (BitsAvail == 0 && ((cp + size_t(word)) & 1)) ++cp;
+      }
     }
     return 1;
   }
@@ -1465,6 +1521,700 @@ size_t fax_nruns(int width, bool two_d) {
   size_t n = (size_t(width) + 1 + 31) / 32 * 32;
   return two_d ? 2 * n : n;
 }
+
+// ------------------------------------------------------------- ThunderScan
+
+// tif_thunder.c ThunderDecode: one row of `width` 4-bit pixels into op
+// (two a byte, high nibble first); false where libtiff reports too few or
+// too many pixels.  *bp / *cc: the data left, carried from row to row.
+bool thunder_row(const uint8_t*& bp, size_t& cc, uint8_t* op, int64_t width) {
+  static const int twobit[4] = {0, 1, 0, -1};
+  static const int threebit[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  unsigned lastpixel = 0;
+  int64_t npixels = 0;
+  auto setpixel = [&](unsigned v) {
+    lastpixel = v & 0xf;
+    if (npixels < width) {
+      if (npixels++ & 1) {
+        *op++ |= uint8_t(lastpixel);
+      } else {
+        op[0] = uint8_t(lastpixel << 4);
+      }
+    }
+  };
+  while (cc > 0 && npixels < width) {
+    int n = *bp++;
+    --cc;
+    switch (n & 0xc0) {
+      case 0x00: {  // a run of the last pixel, n & 63 long
+        n &= 0x3f;
+        if (npixels & 1) {
+          op[0] |= uint8_t(lastpixel);
+          lastpixel = *op++;
+          ++npixels;
+          --n;
+        } else {
+          lastpixel |= lastpixel << 4;
+        }
+        npixels += n;
+        if (npixels <= width) {
+          for (; n > 0; n -= 2) *op++ = uint8_t(lastpixel);
+        }
+        if (n == -1) *--op &= 0xf0;
+        lastpixel &= 0xf;
+        break;
+      }
+      case 0x40:  // three 2-bit deltas (2: none)
+        for (int sh = 4; sh >= 0; sh -= 2) {
+          int d = (n >> sh) & 3;
+          if (d != 2) setpixel(unsigned(int(lastpixel) + twobit[d]));
+        }
+        break;
+      case 0x80:  // two 3-bit deltas (4: none)
+        for (int sh = 3; sh >= 0; sh -= 3) {
+          int d = (n >> sh) & 7;
+          if (d != 4) setpixel(unsigned(int(lastpixel) + threebit[d]));
+        }
+        break;
+      default:  // a raw pixel
+        setpixel(unsigned(n));
+        break;
+    }
+  }
+  return npixels == width;
+}
+
+// ------------------------------------------------------------------ ZSTD
+// RFC 8878 as libzstd 1.5.7 decodes it, driven as libtiff's tif_zstd.c
+// ZSTDDecode drives ZSTD_decompressStream over one strip or tile: output
+// goes to a buffer of the segment's size; decoding stops once it is full
+// (the block that filled it, and one more block, or the checksum, where
+// it filled exactly at a block's end, are still decoded and checked) or
+// when the first frame ends.  The checks libzstd makes are made: frame
+// header (reserved bit, a window above ZSTD_WINDOWLOG_LIMIT_DEFAULT, a
+// dictionary ID, which no dictionary loaded matches), block sizes against
+// min(window, 128 KiB), literals and sequence headers, FSE and Huffman
+// table descriptions, bit streams consumed exactly (sequences may run
+// past their start, reading zeros, as libzstd's do), offsets within the
+// frame's output, the content size and the XXH64 checksum.
+
+inline uint64_t rotl64(uint64_t x, int r) {
+  return (x << r) | (x >> (64 - r));
+}
+
+inline uint64_t le_n(const uint8_t* p, int n) {
+  uint64_t v = 0;
+  for (int i = n - 1; i >= 0; --i) v = (v << 8) | p[i];
+  return v;
+}
+
+inline int highbit(uint32_t v) { return 31 - __builtin_clz(v); }
+
+uint64_t xxh64(const uint8_t* p, size_t len) {
+  const uint64_t P1 = 11400714785074694791ULL, P2 = 14029467366897019727ULL,
+                 P3 = 1609587929392839161ULL, P4 = 9650029242287828579ULL,
+                 P5 = 2870177450012600261ULL;
+  auto round = [&](uint64_t acc, uint64_t in) {
+    return rotl64(acc + in * P2, 31) * P1;
+  };
+  const uint8_t* end = p + len;
+  uint64_t h;
+  if (len >= 32) {
+    uint64_t v[4] = {P1 + P2, P2, 0, 0 - P1};
+    for (; p + 32 <= end; p += 32) {
+      for (int k = 0; k < 4; ++k) v[k] = round(v[k], le_n(p + 8 * k, 8));
+    }
+    h = rotl64(v[0], 1) + rotl64(v[1], 7) + rotl64(v[2], 12) +
+        rotl64(v[3], 18);
+    for (int k = 0; k < 4; ++k) h = (h ^ round(0, v[k])) * P1 + P4;
+  } else {
+    h = P5;
+  }
+  h += len;
+  for (; p + 8 <= end; p += 8) {
+    h = rotl64(h ^ round(0, le_n(p, 8)), 27) * P1 + P4;
+  }
+  if (p + 4 <= end) {
+    h = rotl64(h ^ (le_n(p, 4) * P1), 23) * P2 + P3;
+    p += 4;
+  }
+  for (; p < end; ++p) h = rotl64(h ^ (*p * P5), 11) * P1;
+  h ^= h >> 33;
+  h *= P2;
+  h ^= h >> 29;
+  h *= P3;
+  return h ^ (h >> 32);
+}
+
+[[noreturn]] void zfail(const std::string& msg) {
+  fail(CORRUPT, "ZSTD: " + msg);
+}
+
+// a bit stream read backwards from its last byte, whose highest set bit
+// marks its end; bits before its start read as the `before` bytes that
+// precede it there (libzstd's fast Huffman decoder reads on into the
+// stream before), then as zeros
+struct BackBits {
+  const uint8_t* d = nullptr;
+  size_t n = 0, before = 0;
+  int64_t pos = 0;  // bits left
+  void init(const uint8_t* src, size_t len, size_t lead = 0) {
+    if (len == 0) zfail("empty bit stream");
+    if (src[len - 1] == 0) zfail("bit stream without its end marker");
+    d = src;
+    n = len;
+    before = lead;
+    pos = int64_t(len - 1) * 8 + highbit(src[len - 1]);
+  }
+  uint32_t peek(int nb) const {
+    if (nb == 0) return 0;
+    int64_t lo = pos - nb;
+    uint64_t v = 0;
+    if (lo >= 0) {
+      size_t b = size_t(lo >> 3);
+      int take = int(std::min<size_t>(8, n - b));
+      v = le_n(d + b, take) >> (lo & 7);
+    } else {
+      if (pos <= 0 && int64_t(before) * 8 + pos <= 0) return 0;
+      int64_t first = lo >> 3;  // floor
+      for (int64_t i = first + 7; i >= first; --i) {
+        bool in = i >= -int64_t(before) && i < int64_t(n);
+        v = (v << 8) | (in ? d[i] : 0);
+      }
+      v >>= lo - first * 8;
+    }
+    return uint32_t(v & ((uint64_t(1) << nb) - 1));
+  }
+  uint32_t get(int nb) {
+    uint32_t v = peek(nb);
+    pos -= nb;
+    return v;
+  }
+};
+
+struct FseCell {
+  uint16_t sym;
+  uint8_t nb;
+  uint16_t base;
+};
+
+struct FseTable {
+  int al = 0;
+  std::vector<FseCell> t;
+};
+
+// FSE_buildDTable
+void fse_build(const int16_t* norm, int nsym, int al, FseTable& f) {
+  const uint32_t size = 1u << al, mask = size - 1;
+  f.al = al;
+  f.t.assign(size, FseCell{0, 0, 0});
+  uint32_t high = size - 1;
+  uint32_t next[256];
+  for (int s = 0; s < nsym; ++s) {
+    if (norm[s] == -1) {
+      f.t[high--].sym = uint16_t(s);
+      next[s] = 1;
+    } else {
+      next[s] = uint32_t(std::max<int16_t>(norm[s], 0));
+    }
+  }
+  const uint32_t step = (size >> 1) + (size >> 3) + 3;
+  uint32_t p = 0;
+  for (int s = 0; s < nsym; ++s) {
+    for (int i = 0; i < norm[s]; ++i) {
+      f.t[p].sym = uint16_t(s);
+      do p = (p + step) & mask; while (p > high);
+    }
+  }
+  if (p != 0) zfail("FSE table does not fill");
+  for (uint32_t u = 0; u < size; ++u) {
+    uint32_t ns = next[f.t[u].sym]++;
+    int nb = al - highbit(ns);
+    f.t[u].nb = uint8_t(nb);
+    f.t[u].base = uint16_t((ns << nb) - size);
+  }
+}
+
+// FSE_readNCount: a table description -> bytes it takes
+size_t fse_read(const uint8_t* s, size_t n, int max_sym, int max_al,
+                FseTable& f) {
+  if (n == 0) zfail("FSE table description past the block");
+  size_t bit = 0;
+  auto peek = [&](int k) {
+    size_t b = bit >> 3;
+    uint64_t v = b < n ? le_n(s + b, int(std::min<size_t>(8, n - b))) : 0;
+    return uint32_t((v >> (bit & 7)) & ((1u << k) - 1));
+  };
+  int al = int(peek(4)) + 5;
+  bit += 4;
+  if (al > max_al) zfail("FSE accuracy log too large");
+  int remaining = (1 << al) + 1, threshold = 1 << al, nbits = al + 1;
+  int sym = 0;
+  bool prev0 = false;
+  int16_t norm[256] = {0};
+  while (remaining > 1 && sym <= max_sym) {
+    if (prev0) {
+      uint32_t rep;
+      while ((rep = peek(2)) == 3) {
+        sym += 3;
+        bit += 2;
+        if (sym > max_sym) zfail("FSE zeros past the last symbol");
+      }
+      sym += int(rep);
+      bit += 2;
+      if (sym > max_sym) break;
+    }
+    int max = (2 * threshold - 1) - remaining;
+    uint32_t v = peek(nbits);
+    int count;
+    if (int(v & uint32_t(threshold - 1)) < max) {
+      count = int(v & uint32_t(threshold - 1));
+      bit += nbits - 1;
+    } else {
+      count = int(v & uint32_t(2 * threshold - 1));
+      if (count >= threshold) count -= max;
+      bit += nbits;
+    }
+    --count;
+    remaining -= count < 0 ? -count : count;
+    norm[sym++] = int16_t(count);
+    prev0 = count == 0;
+    while (remaining < threshold && threshold > 1) {
+      --nbits;
+      threshold >>= 1;
+    }
+  }
+  if (remaining != 1 || sym > max_sym + 1) {
+    zfail("FSE table description does not sum up");
+  }
+  size_t used = (bit + 7) / 8;
+  if (used > n) zfail("FSE table description past the block");
+  fse_build(norm, sym, al, f);
+  return used;
+}
+
+struct Huffman {
+  int bits = 0;
+  std::vector<uint16_t> t;  // symbol << 8 | length, by the next `bits` bits
+};
+
+// HUF_readStats + HUF_readDTableX1: a tree description -> bytes it takes
+size_t huf_read(const uint8_t* s, size_t n, Huffman& h) {
+  if (n == 0) zfail("Huffman tree description past the block");
+  uint8_t w[256];
+  int nw = 0;
+  size_t used;
+  int hb = s[0];
+  if (hb >= 128) {
+    nw = hb - 127;
+    used = 1 + size_t(nw + 1) / 2;
+    if (used > n) zfail("Huffman weights past the block");
+    for (int i = 0; i < nw; ++i) {
+      w[i] = (i & 1) ? s[1 + i / 2] & 15 : s[1 + i / 2] >> 4;
+    }
+  } else {
+    used = 1 + size_t(hb);
+    if (used > n || hb == 0) zfail("Huffman weights past the block");
+    FseTable f;
+    size_t k = fse_read(s + 1, size_t(hb), 255, 6, f);
+    if (k >= size_t(hb)) zfail("Huffman weights without a bit stream");
+    BackBits br;
+    br.init(s + 1 + k, size_t(hb) - k);
+    uint32_t st[2] = {br.get(f.al), br.get(f.al)};
+    for (int which = 0;; which ^= 1) {
+      if (nw > 253) zfail("too many Huffman weights");
+      const FseCell& c = f.t[st[which]];
+      w[nw++] = uint8_t(c.sym);
+      st[which] = c.base + br.get(c.nb);
+      if (br.pos < 0) {
+        w[nw++] = uint8_t(f.t[st[which ^ 1]].sym);
+        break;
+      }
+    }
+  }
+  uint32_t total = 0, rank[16] = {0};
+  for (int i = 0; i < nw; ++i) {
+    if (w[i] > 12) zfail("Huffman weight above 12");
+    ++rank[w[i]];
+    total += (1u << w[i]) >> 1;
+  }
+  if (total == 0) zfail("Huffman weights all zero");
+  int bits = highbit(total) + 1;
+  if (bits > 12) zfail("Huffman codes longer than 12 bits");
+  uint32_t rest = (1u << bits) - total;
+  if (rest != (1u << highbit(rest))) zfail("Huffman weights do not sum up");
+  w[nw] = uint8_t(highbit(rest) + 1);
+  ++rank[w[nw]];
+  const int nsym = nw + 1;
+  if (rank[1] < 2 || (rank[1] & 1)) zfail("Huffman weights do not sum up");
+  h.bits = bits;
+  h.t.assign(size_t(1) << bits, 0);
+  size_t p = 0;
+  for (int wt = 1; wt <= bits; ++wt) {
+    for (int sym = 0; sym < nsym; ++sym) {
+      if (w[sym] != wt) continue;
+      size_t len = size_t(1) << (wt - 1);
+      uint16_t e = uint16_t(sym << 8 | (bits + 1 - wt));
+      for (size_t i = 0; i < len; ++i) h.t[p + i] = e;
+      p += len;
+    }
+  }
+  return used;
+}
+
+// one Huffman stream of `count` literals; exact: its bits must all be read
+// (libzstd's fast 4-stream decoder, which takes streams of 8 bytes or
+// more, only checks that none is read past its start)
+void huf_stream(const Huffman& h, const uint8_t* s, size_t n, uint8_t* out,
+                size_t count, bool exact, size_t lead = 0) {
+  BackBits br;
+  br.init(s, n, exact ? 0 : lead);
+  for (size_t i = 0; i < count; ++i) {
+    uint16_t e = h.t[br.peek(h.bits)];
+    out[i] = uint8_t(e >> 8);
+    br.pos -= e & 0xff;
+  }
+  if ((exact && br.pos != 0) || br.pos < -64) {
+    zfail("Huffman stream not consumed exactly");
+  }
+}
+
+// the predefined distributions and the codes' baselines and extra bits
+const int16_t kLLNorm[36] = {4, 3, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+                             2, 1, 1, 1, 2, 2, 2, 2, 2, 2, 2, 2,
+                             2, 3, 2, 1, 1, 1, 1, 1, -1, -1, -1, -1};
+const int16_t kMLNorm[53] = {1, 4, 3, 2, 2, 2, 2, 2, 2, 1, 1, 1, 1, 1,
+                             1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                             1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                             1, 1, 1, 1, -1, -1, -1, -1, -1, -1, -1};
+const int16_t kOFNorm[29] = {1, 1, 1, 1, 1, 1, 2, 2, 2, 1, 1, 1, 1, 1, 1,
+                             1, 1, 1, 1, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
+const uint32_t kLLBase[36] = {
+    0,  1,  2,   3,   4,   5,   6,    7,    8,    9,     10,    11,
+    12, 13, 14,  15,  16,  18,  20,   22,   24,   28,    32,    40,
+    48, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536};
+const uint8_t kLLBits[36] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,  0,
+                             0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3,  3,
+                             4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+const uint32_t kMLBase[53] = {
+    3,  4,  5,  6,  7,  8,  9,  10,  11,  12,  13,   14,   15,   16,
+    17, 18, 19, 20, 21, 22, 23, 24,  25,  26,  27,   28,   29,   30,
+    31, 32, 33, 34, 35, 37, 39, 41,  43,  47,  51,   59,   67,   83,
+    99, 131, 259, 515, 1027, 2051, 4099, 8195, 16387, 32771, 65539};
+const uint8_t kMLBits[53] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                             0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                             0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3, 3, 4, 4,
+                             5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+
+const FseTable& predefined(int kind) {
+  static const FseTable* t = [] {
+    static FseTable tabs[3];
+    fse_build(kLLNorm, 36, 6, tabs[0]);
+    fse_build(kOFNorm, 29, 5, tabs[1]);
+    fse_build(kMLNorm, 53, 6, tabs[2]);
+    return tabs;
+  }();
+  return t[kind];
+}
+
+class ZstdSegment {
+ public:
+  ZstdSegment(const uint8_t* src, size_t n, uint8_t* dst, size_t occ)
+      : s_(src), n_(n), dst_(dst), occ_(occ) {}
+
+  // bytes written into dst: occ, or fewer where the data end first
+  size_t run() {
+    if (n_ < 4) return 0;
+    uint32_t magic = uint32_t(le_n(s_, 4));
+    if ((magic & 0xFFFFFFF0u) == 0x184D2A50u) return 0;  // skippable
+    if (magic != 0xFD2FB528u) zfail("unknown frame magic");
+    if (n_ < 5) return 0;
+    const int fhd = s_[4];
+    const int fcs_flag = fhd >> 6, did_flag = fhd & 3;
+    const bool single = fhd & 0x20, checksum = fhd & 4;
+    static const int kDid[4] = {0, 1, 2, 4}, kFcs[4] = {0, 2, 4, 8};
+    size_t hsize = 5 + (single ? 0 : 1) + kDid[did_flag] +
+                   (fcs_flag == 0 && single ? 1 : kFcs[fcs_flag]);
+    if (n_ < hsize) return 0;
+    if (fhd & 8) zfail("reserved frame header bit set");
+    size_t p = 5;
+    uint64_t window = 0;
+    if (!single) {
+      int wd = s_[p++];
+      int wlog = 10 + (wd >> 3);
+      if (wlog > 31) zfail("window too large");
+      uint64_t base = uint64_t(1) << wlog;
+      window = base + (base >> 3) * uint64_t(wd & 7);
+    }
+    uint64_t did = le_n(s_ + p, kDid[did_flag]);
+    p += kDid[did_flag];
+    bool has_fcs = single || fcs_flag != 0;
+    int fcs_bytes = fcs_flag == 0 ? (single ? 1 : 0) : kFcs[fcs_flag];
+    uint64_t fcs = le_n(s_ + p, fcs_bytes) + (fcs_flag == 1 ? 256 : 0);
+    p += fcs_bytes;
+    if (single) window = fcs;
+    if (std::max<uint64_t>(window, 1024) > (uint64_t(1) << 27) + 1) {
+      zfail("frame window of " + std::to_string(window) +
+            " bytes, above libzstd's default limit (2^27 + 1)");
+    }
+    if (did) zfail("frame needs dictionary " + std::to_string(did));
+    const size_t block_max = size_t(std::min<uint64_t>(window, 128 << 10));
+    size_t written = 0;
+    for (;;) {
+      if (p + 3 > n_) return written;
+      uint32_t bh = uint32_t(le_n(s_ + p, 3));
+      p += 3;
+      const bool last = bh & 1;
+      const int type = (bh >> 1) & 3;
+      const size_t bsize = bh >> 3;
+      if (type == 3) zfail("reserved block type");
+      if (type != 1 && bsize > block_max) {
+        zfail("block larger than its maximum");
+      }
+      const size_t start = out_.size();
+      if (type == 0) {  // raw: libzstd streams what there is of it
+        size_t have = std::min(bsize, n_ - p);
+        if (has_fcs && start + bsize > fcs) {
+          zfail("frame larger than its content size");
+        }
+        out_.insert(out_.end(), s_ + p, s_ + p + have);
+        p += have;
+        if (have < bsize) return deliver(written, start);
+      } else if (type == 1) {
+        // libzstd holds an RLE block to its buffer, not to block_max
+        if (p + 1 > n_) return written;
+        if (has_fcs && start + bsize > fcs) {
+          zfail("frame larger than its content size");
+        }
+        out_.resize(start + bsize, s_[p]);
+        p += 1;
+      } else {
+        if (p + bsize > n_) return written;
+        block(s_ + p, bsize, block_max);
+        p += bsize;
+        if (has_fcs && out_.size() > fcs) {
+          zfail("frame larger than its content size");
+        }
+      }
+      size_t before = written;
+      written = deliver(written, start);
+      if (written - before < out_.size() - start) return written;  // full
+      if (last) break;
+    }
+    if (has_fcs && out_.size() != fcs) {
+      zfail("frame of another size than its content size");
+    }
+    if (checksum) {
+      if (p + 4 > n_) return written;
+      if (uint32_t(le_n(s_ + p, 4)) !=
+          uint32_t(xxh64(out_.data(), out_.size()))) {
+        zfail("checksum wrong");
+      }
+    }
+    return written;
+  }
+
+ private:
+  const uint8_t* s_;
+  size_t n_;
+  uint8_t* dst_;
+  size_t occ_;
+  std::vector<uint8_t> out_;  // the frame's output
+  Huffman huf_;
+  bool huf_set_ = false;
+  FseTable seq_[3];  // literal lengths, offsets, match lengths
+  bool seq_set_[3] = {false, false, false};
+  uint64_t rep_[3] = {1, 4, 8};
+  std::vector<uint8_t> lit_;
+
+  // out_ from `from` into dst, as far as it has room
+  size_t deliver(size_t written, size_t from) {
+    size_t take = std::min(occ_ - written, out_.size() - from);
+    if (take) std::memcpy(dst_ + written, out_.data() + from, take);
+    return written + take;
+  }
+
+  void block(const uint8_t* b, size_t n, size_t block_max) {
+    if (n < 2) zfail("compressed block under 2 bytes");
+    size_t p = literals(b, n, block_max);
+    sequences(b + p, n - p, block_max);
+  }
+
+  size_t literals(const uint8_t* b, size_t n, size_t block_max) {
+    const int type = b[0] & 3, sf = (b[0] >> 2) & 3;
+    size_t regen, csize = 0, hsize;
+    bool four = false;
+    if (type < 2) {
+      if (sf == 1) {
+        hsize = 2;
+      } else if (sf == 3) {
+        hsize = 3;
+      } else {
+        hsize = 1;
+      }
+      if (hsize + (type == 1 ? 1 : 0) > n) zfail("literals header cut");
+      regen = hsize == 1 ? b[0] >> 3 : size_t(le_n(b, int(hsize))) >> 4;
+    } else {
+      if (n < 5) zfail("compressed literals in a block under 5 bytes");
+      hsize = sf < 2 ? 3 : sf == 2 ? 4 : 5;
+      four = sf != 0;
+      uint64_t v = le_n(b, int(hsize));
+      int wid = hsize == 3 ? 10 : hsize == 4 ? 14 : 18;
+      regen = size_t((v >> 4) & ((1u << wid) - 1));
+      csize = size_t((v >> (4 + wid)) & ((1u << wid) - 1));
+    }
+    if (regen > block_max) zfail("more literals than a block holds");
+    lit_.resize(regen);
+    if (type == 0) {
+      if (hsize + regen > n) zfail("raw literals past the block");
+      std::memcpy(lit_.data(), b + hsize, regen);
+      return hsize + regen;
+    }
+    if (type == 1) {
+      std::memset(lit_.data(), b[hsize], regen);
+      return hsize + 1;
+    }
+    if (four && regen < 6) zfail("under 6 literals in 4 streams");
+    if (hsize + csize > n) zfail("compressed literals past the block");
+    const uint8_t* c = b + hsize;
+    size_t cn = csize;
+    if (type == 2) {
+      size_t k = huf_read(c, cn, huf_);
+      huf_set_ = true;
+      c += k;
+      cn -= k;
+    } else if (!huf_set_) {
+      zfail("treeless literals without an earlier Huffman table");
+    }
+    if (!four) {
+      huf_stream(huf_, c, cn, lit_.data(), regen, true);
+    } else {
+      if (cn < 10) zfail("4-stream literals under 10 bytes");
+      size_t l[4] = {size_t(le_n(c, 2)), size_t(le_n(c + 2, 2)),
+                     size_t(le_n(c + 4, 2)), 0};
+      if (6 + l[0] + l[1] + l[2] > cn) zfail("literal streams past the block");
+      l[3] = cn - 6 - l[0] - l[1] - l[2];
+      size_t seg = (regen + 3) / 4;
+      const uint8_t* q = c + 6;
+      const bool fast = l[0] >= 8 && l[1] >= 8 && l[2] >= 8 && l[3] >= 8 &&
+                        huf_.bits <= 11;
+      for (int k = 0; k < 4; ++k) {
+        huf_stream(huf_, q, l[k], lit_.data() + seg * k,
+                   k < 3 ? seg : regen - 3 * seg, !fast, size_t(q - c - 6));
+        q += l[k];
+      }
+    }
+    return hsize + csize;
+  }
+
+  void sequences(const uint8_t* b, size_t n, size_t block_max) {
+    const size_t start = out_.size();
+    if (n < 1) zfail("sequences section missing");
+    size_t nseq, p;
+    if (b[0] < 128) {
+      nseq = b[0];
+      p = 1;
+    } else if (b[0] < 255) {
+      if (n < 2) zfail("sequences header cut");
+      nseq = ((b[0] - 128) << 8) + b[1];
+      p = 2;
+    } else {
+      if (n < 3) zfail("sequences header cut");
+      nseq = b[1] + (b[2] << 8) + 0x7F00;
+      p = 3;
+    }
+    if (nseq == 0) {
+      if (p != n) zfail("data after an empty sequences section");
+      append_literals(0, lit_.size(), start, block_max);
+      return;
+    }
+    if (p + 1 > n) zfail("sequences header cut");
+    const int modes = b[p++];
+    if (modes & 3) zfail("reserved sequences bits set");
+    static const int kMax[3] = {35, 31, 52}, kAl[3] = {9, 8, 9};
+    const int shift[3] = {6, 4, 2};
+    for (int k = 0; k < 3; ++k) {
+      int m = (modes >> shift[k]) & 3;
+      if (m == 0) {
+        seq_[k] = predefined(k);
+      } else if (m == 1) {
+        if (p + 1 > n) zfail("sequences header cut");
+        if (b[p] > kMax[k]) zfail("RLE sequence code out of range");
+        seq_[k].al = 0;
+        seq_[k].t.assign(1, FseCell{b[p], 0, 0});
+        ++p;
+      } else if (m == 2) {
+        p += fse_read(b + p, n - p, kMax[k], kAl[k], seq_[k]);
+      } else if (!seq_set_[k]) {
+        zfail("repeated sequence table without an earlier one");
+      }
+      seq_set_[k] = true;
+    }
+    if (p >= n) zfail("sequences bit stream missing");
+    BackBits br;
+    br.init(b + p, n - p);
+    FseTable &ll = seq_[0], &of = seq_[1], &ml = seq_[2];
+    uint32_t sll = br.get(ll.al), sof = br.get(of.al), sml = br.get(ml.al);
+    size_t lit = 0;
+    for (size_t i = 0; i < nseq; ++i) {
+      const FseCell &cl = ll.t[sll], &co = of.t[sof], &cm = ml.t[sml];
+      const int ofcode = co.sym;
+      uint64_t ofv = (uint64_t(1) << ofcode) + br.get(ofcode);
+      uint64_t mlen = kMLBase[cm.sym] + br.get(kMLBits[cm.sym]);
+      uint64_t llen = kLLBase[cl.sym] + br.get(kLLBits[cl.sym]);
+      uint64_t off;
+      if (ofv > 3) {
+        off = ofv - 3;
+        rep_[2] = rep_[1];
+        rep_[1] = rep_[0];
+        rep_[0] = off;
+      } else {
+        uint64_t idx = ofv - 1 + (llen == 0 ? 1 : 0);
+        if (idx == 0) {
+          off = rep_[0];
+        } else {
+          off = idx == 3 ? rep_[0] - 1 : rep_[idx];
+          if (off == 0) zfail("offset 0");
+          if (idx != 1) rep_[2] = rep_[1];
+          rep_[1] = rep_[0];
+          rep_[0] = off;
+        }
+      }
+      if (i + 1 < nseq) {
+        sll = cl.base + br.get(cl.nb);
+        sml = cm.base + br.get(cm.nb);
+        sof = co.base + br.get(co.nb);
+      }
+      if (llen > lit_.size() - lit) zfail("literal length past the literals");
+      append_literals(lit, size_t(llen), start, block_max);
+      lit += size_t(llen);
+      const size_t have = out_.size();
+      if (off > have) zfail("offset before the frame's start");
+      if (have - start + mlen > block_max) {
+        zfail("block larger than its maximum");
+      }
+      out_.resize(have + size_t(mlen));
+      uint8_t* o = out_.data() + have;
+      const uint8_t* from = o - off;
+      if (off >= mlen) {
+        std::memcpy(o, from, size_t(mlen));
+      } else {
+        for (size_t k = 0; k < mlen; ++k) o[k] = from[k];
+      }
+    }
+    if (br.pos > 0) zfail("sequences bit stream not consumed");
+    append_literals(lit, lit_.size() - lit, start, block_max);
+  }
+
+  void append_literals(size_t from, size_t count, size_t start,
+                       size_t block_max) {
+    if (out_.size() - start + count > block_max) {
+      zfail("block larger than its maximum");
+    }
+    out_.insert(out_.end(), lit_.begin() + from, lit_.begin() + from + count);
+  }
+};
+
 
 }  // namespace
 
@@ -1608,7 +2358,9 @@ long tiff_lzw_decode(const uint8_t* src, size_t n, uint8_t* dst, size_t dn,
 // CCITT rows into dst (rows x width bytes, one byte a pixel, 1 in a
 // black run) as libtiff 4.7.1 decodes one strip or tile of them: mode 2
 // modified Huffman (rows byte-aligned), 3 T.4 (t4_options bit 0: 2-D),
-// 4 T.6.  Pixels the decoder does not reach keep what dst held.  state
+// 4 T.6, 32771 modified Huffman word-aligned (t4_options: the offset of
+// the data in the file).  Pixels the decoder does not reach keep what dst
+// held.  state
 // (state_words long, zeroed for each image): word 0 the codec's flags,
 // then its run arrays, carried from one segment to the next as libtiff
 // carries them.  T.4's uncompressed-mode option changes nothing: libtiff
@@ -1638,8 +2390,8 @@ long ccitt_decode(const uint8_t* src, size_t n, int mode, int t4_options,
     f.runs[f.ref + 1] = 0;
   }
   int got;
-  if (mode == 2) {
-    got = f.rle(dst, rows);
+  if (mode == 2 || mode == 32771) {
+    got = f.rle(dst, rows, mode == 2 ? -1 : t4_options & 1);
   } else if (mode == 3) {
     bool no_eol = state[0] & 1;
     got = f.t4(dst, rows, two_d, no_eol);
@@ -1648,6 +2400,37 @@ long ccitt_decode(const uint8_t* src, size_t n, int mode, int t4_options,
     got = f.t6(dst, rows);
   }
   return got > 0 ? 1 : 0;
+}
+
+// ThunderScan (tif_thunder.c ThunderDecodeRow): rows of `width` 4-bit
+// pixels, row_bytes apart, into dst.  Returns 1, or 0 where libtiff's
+// decoder fails the segment.
+long thunder_decode(const uint8_t* src, size_t n, uint8_t* dst, int rows,
+                    int width, size_t row_bytes) {
+  if (width <= 0 || rows < 0 || row_bytes < size_t(width + 1) / 2) return 0;
+  const uint8_t* bp = src;
+  size_t cc = n;
+  for (int r = 0; r < rows; ++r) {
+    if (!thunder_row(bp, cc, dst + size_t(r) * row_bytes, width)) return 0;
+  }
+  return 1;
+}
+
+// ZSTD, one strip or tile as tif_zstd.c decodes it into occ bytes: the
+// bytes written into dst (occ, or fewer where the data end first), or
+// -status with the message in err where libzstd fails
+long zstd_decode(const uint8_t* src, size_t n, uint8_t* dst, size_t occ,
+                 char* err, int errlen) {
+  try {
+    ZstdSegment z(src, n, dst, occ);
+    return long(z.run());
+  } catch (const DecodeError& e) {
+    set_err(err, errlen, e.msg);
+    return -e.status;
+  } catch (const std::bad_alloc&) {
+    set_err(err, errlen, "ZSTD: out of memory");
+    return -CORRUPT;
+  }
 }
 
 // GIF LZW (LSB-first codes): pixels written into dst (at most dn), or

@@ -1,6 +1,7 @@
 """ctypes binding for the image decoders of imgdec.cpp: JPEG (the pixels
-libjpeg-turbo gives Pillow) and the entropy codecs of TIFF (PackBits,
-LZW, CCITT) and GIF (LZW).
+libjpeg-turbo gives Pillow, or its component planes for old-style JPEG
+in TIFF) and the entropy codecs of TIFF (PackBits, LZW, CCITT, RLEW,
+ThunderScan, ZSTD) and GIF (LZW).
 
 The library is compiled with g++ on first use into ``libimgdec.so`` next
 to its source (git-ignored), rebuilt when the source is newer, written
@@ -89,6 +90,10 @@ def _load():
         lib.ccitt_decode.restype = ctypes.c_long
         lib.gif_lzw_decode.argtypes = [u8p, sz, ci, u8p, sz, cp, ci]
         lib.gif_lzw_decode.restype = ctypes.c_long
+        lib.thunder_decode.argtypes = [u8p, sz, u8p, ci, ci, sz]
+        lib.thunder_decode.restype = ctypes.c_long
+        lib.zstd_decode.argtypes = [u8p, sz, u8p, sz, cp, ci]
+        lib.zstd_decode.restype = ctypes.c_long
         _lib = lib
         return _lib
 
@@ -111,18 +116,21 @@ def _error(status: int, msg: str, where: str) -> Exception:
 
 
 def decode_jpeg(data: bytes, shape: Tuple[int, int, int], color: int = 0,
-                where: str = "JPEG", segment: bool = False) -> np.ndarray:
+                where: str = "JPEG", segment: bool = False,
+                first_scan: bool = False) -> np.ndarray:
     """JPEG bytes -> uint8 [h, w, ch].  ``ch`` is the file's own channel
     count (1 L, 3 RGB, 4 CMYK as stored), or 3 for an L file (replicated)
     or 1 for an RGB file (the truncating channel mean).  ``color``: 0 the
     file's colour space, 1 YCbCr whatever it says, 2 no conversion.
     ``segment``: the bytes are a TIFF strip or tile, which may end inside
-    its scan (read as libjpeg reads the EOI libtiff puts there)."""
+    its scan (read as libjpeg reads the EOI libtiff puts there).
+    ``first_scan``: nothing past the first scan is read."""
     lib = _load()
     out = np.empty(shape, np.uint8)
     err = ctypes.create_string_buffer(_ERRLEN)
     src = _src(data)
-    st = lib.decode_jpeg(_u8(src), len(data), color | (8 if segment else 0),
+    flags = color | (8 if segment else 0) | (32 if first_scan else 0)
+    st = lib.decode_jpeg(_u8(src), len(data), flags,
                          _u8(out), shape[0], shape[1], shape[2], err,
                          _ERRLEN)
     if st:
@@ -192,7 +200,9 @@ def ccitt(data: bytes, mode: int, t4_options: int, fill_order: int,
     C-contiguous; 1 where a black run lies) as libtiff decodes it: data
     that end early or go wrong give libtiff's rows, and the pixels it does
     not reach keep their values.  ``mode`` is the TIFF compression: 2
-    modified Huffman, 3 T.4, 4 T.6.  ``state``: ``ccitt_state(width)``,
+    modified Huffman, 3 T.4, 4 T.6, 32771 modified Huffman with rows on
+    16-bit words (``t4_options``: the data's offset in the file, whose
+    parity libtiff aligns against).  ``state``: ``ccitt_state(width)``,
     passed to each segment of the image in turn.  False where libtiff's
     decoder fails the segment."""
     rows, width = out.shape
@@ -206,6 +216,53 @@ def ccitt(data: bytes, mode: int, t4_options: int, fill_order: int,
     if got < 0:
         raise _error(-got, err.value.decode(errors="replace"), where)
     return got == 1
+
+
+def decode_jpeg_raw(data: bytes, size: Tuple[int, int], nbytes: int,
+                    where: str = "TIFF old-style JPEG") -> np.ndarray:
+    """A JPEG stream's component planes, as libjpeg's raw data output
+    gives them: each component's samples [ceil(h * h_c / h_max),
+    ceil(w * w_c / w_max)], flat, one after another (``nbytes`` in all),
+    the stream read as a TIFF segment up to its first scan
+    (``decode_jpeg``'s ``segment`` and ``first_scan``)."""
+    lib = _load()
+    out = np.empty(max(nbytes, 1), np.uint8)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    st = lib.decode_jpeg(_u8(_src(data)), len(data), 2 | 8 | 16 | 32,
+                         _u8(out), size[0], size[1], nbytes, err, _ERRLEN)
+    if st:
+        raise _error(st, err.value.decode(errors="replace"), where)
+    return out[:nbytes]
+
+
+def thunderscan(data: bytes, rows: int, width: int, row_bytes: int,
+                where: str = "TIFF") -> np.ndarray:
+    """ThunderScan bytes -> ``rows`` rows of ``width`` 4-bit pixels, each
+    ``row_bytes`` long (uint8 [rows * row_bytes]); OSError where libtiff's
+    decoder fails (too few or too many pixels in a row)."""
+    out = np.zeros(max(rows * row_bytes, 1), np.uint8)
+    if not _load().thunder_decode(_u8(_src(data)), len(data), _u8(out),
+                                  rows, width, row_bytes):
+        raise OSError(f"{where}: ThunderScan data of another pixel count "
+                      "than its rows")
+    return out[:rows * row_bytes]
+
+
+def zstd(data: bytes, nbytes: int, where: str = "TIFF") -> np.ndarray:
+    """ZSTD bytes -> ``nbytes`` decoded bytes, as libtiff's ZSTD codec
+    drives libzstd over one strip or tile: the first frame's bytes, until
+    the segment is full; OSError where libzstd fails or the data end
+    first."""
+    out = np.zeros(max(nbytes, 1), np.uint8)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    got = _load().zstd_decode(_u8(_src(data)), len(data), _u8(out), nbytes,
+                              err, _ERRLEN)
+    if got < 0:
+        raise _error(-got, err.value.decode(errors="replace"), where)
+    if got < nbytes:
+        raise OSError(f"{where}: ZSTD data end after {got} of {nbytes} "
+                      "bytes")
+    return out[:nbytes]
 
 
 def gif_lzw(data: bytes, min_code_size: int, npixels: int,

@@ -769,7 +769,7 @@ def test_fixture_directory_is_small_and_complete():
                      for r, _, fs in os.walk(FIXTURES) for f in fs
                      if f != "golden.npz")
     assert names == on_disk and len(names) == 2 * mi.N_LINES + 30 + len(
-        mi.LAYOUT_FILES) + len(mi.SAMPLE_FILES)
+        mi.LAYOUT_FILES) + len(mi.SAMPLE_FILES) + len(mi.COMPRESSION_FILES)
     total = sum(os.path.getsize(os.path.join(FIXTURES, n)) for n in names)
     assert total + os.path.getsize(os.path.join(FIXTURES, "golden.npz")) \
         < 2 * 2**20

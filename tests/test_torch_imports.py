@@ -3,14 +3,15 @@
 In a fresh interpreter where importing ``jax``, ``flax``, ``optax``,
 ``msgpack``, ``PIL``, ``pytesseract``, ``cv2``, ``safetensors``,
 ``transformers``, ``tokenizers``, ``sentencepiece``, ``regex``, ``timm``,
-``onnx``, ``onnxruntime``, ``faiss``, ``fontTools`` or ``freetype``
-fails, every module of
+``onnx``, ``onnxruntime``, ``faiss``, ``fontTools``, ``freetype``,
+``zstandard``, ``pyzstd`` or ``backports.zstd`` fails, every module of
 effocr_torch (the training slice's data, train and CLI modules included)
 and chip_smoke.py (imported, not run) must import, the artifact
 importers must read what the port's writers write (FAISS, ONNX,
 safetensors, a full module pickle), the glyph renderer must draw text
-and write a make-corpus line without loading any shared library named
-like FreeType, HarfBuzz, raqm or Pillow's bundled libraries, and no
+and write a make-corpus line and the TIFF reader decode ZSTD and LZMA
+files without loading any shared library named like FreeType,
+HarfBuzz, raqm or Pillow's bundled libraries (libzstd among them), and no
 ``effocr_tpu`` module may get loaded.  Entry points with the
 default device (the engine, ``serve``'s engine loading) must raise when
 CUDA is absent instead of running on the CPU.
@@ -30,7 +31,8 @@ _GUARD = textwrap.dedent("""
     for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL",
                  "pytesseract", "cv2", "safetensors", "transformers", "timm",
                  "onnx", "onnxruntime", "faiss", "tokenizers",
-                 "sentencepiece", "regex", "fontTools", "freetype"):
+                 "sentencepiece", "regex", "fontTools", "freetype",
+                 "zstandard", "pyzstd", "backports.zstd"):
         sys.modules[name] = None
     import effocr_torch
     # Python modules only: the built native libraries sit in the tree too
@@ -96,13 +98,21 @@ _GUARD = textwrap.dedent("""
     assert F.draw_single_char("g", font, 32).shape == (32, 32)
     make_corpus.main(["--out_dir", d + "/corpus", "--font_dir", fdir,
                       "--n_lines", "2", "--blur_sigma", "1"])
+    # the TIFF codecs with decoders of their own (ZSTD) or the standard
+    # library's (LZMA)
+    from effocr_torch.data import tiff
+    cdir = os.path.join("tests", "torch_fixtures", "images", "compressions")
+    for name in ("zstd_pred2.tif", "lzma.tif"):
+        with open(os.path.join(cdir, name), "rb") as f:
+            assert tiff.decode(f.read())[0].shape == (23, 41), name
     with open("/proc/self/maps") as f:
         maps = f.read().lower()
     for lib in ("freetype", "harfbuzz", "raqm", "pillow.libs"):
         assert lib not in maps, lib
     for name in ("safetensors", "transformers", "timm", "onnx",
                  "onnxruntime", "faiss", "tokenizers", "sentencepiece",
-                 "regex", "fontTools", "freetype", "PIL"):
+                 "regex", "fontTools", "freetype", "PIL", "zstandard",
+                 "pyzstd", "backports.zstd"):
         assert sys.modules[name] is None, name
     leaked = sorted(k for k in sys.modules if k.startswith("effocr_tpu"))
     assert not leaked, leaked

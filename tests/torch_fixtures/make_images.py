@@ -25,6 +25,12 @@ the golden ``_LazyImage`` arrays), into ``tests/torch_fixtures/images/``:
   32-bit samples, extra and associated alpha, PX / PA, 16-bit and
   extra-sample CMYK, YCbCr (one sample, 2x2 and 1x1), CIELab, and JPEG
   segments and CCITT strips and tiles cut inside their byte counts;
+- ``compressions/`` ``COMPRESSION_FILES``, from a seed of their own
+  (``--compressions`` writes only these): TIFF ZSTD and LZMA (strips,
+  tiles, planes, both byte orders, predictors 2 and 3), CCITT RLEW (one
+  file at odd offsets), ThunderScan and old-style JPEG (interchange
+  format and tables, YCbCr 2x2 / 2x1 / 1x1, gray); and
+  ``page/page_zstd.tif``, the page's group 4 pixels as ZSTD tiles;
 - ``golden.npz``: for every file, the SHA-256 digest and shape of
   Pillow's ``convert("RGB")`` and ``convert("L")`` and of the JAX
   package's ``_LazyImage(path, gray).load()`` for gray True and False;
@@ -49,8 +55,11 @@ sampling factors, any TIFF tag set and byte order, TIFF strips or tiles
 (BigTIFF too) of 1 / 2 / 4 / 8 / 16-bit samples, interleaved or in
 planes, under none, PackBits, LZW or Deflate with predictor 2 (numpy and
 zlib only, so that chip_smoke.py writes with them where Pillow is not
-installed), BMP headers, bitfields and RLE streams, GIF frames with
-local palettes and offsets.
+installed; LZMA through the standard library's lzma, ZSTD through
+libzstd), BMP headers, bitfields and RLE streams, GIF frames with
+local palettes and offsets; ``ojpeg``, ``thunderscan`` and ``rlew``
+write old-style JPEG (from Pillow's JPEG bytes taken apart),
+ThunderScan and CCITT RLEW (from Pillow's modified Huffman rows).
 """
 
 from __future__ import annotations
@@ -61,7 +70,7 @@ import json
 import os
 import struct
 import sys
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -304,24 +313,40 @@ _TTYPE = {1: "B", 2: "B", 3: "H", 4: "I", 5: "I", 7: "B", 11: "f", 16: "Q"}
 
 def tiff_bytes(strips: Sequence[bytes], tags: Dict[int, Tuple[int, list]],
                order: str = "<", big: bool = False,
-               tiled: bool = False) -> bytes:
+               tiled: bool = False, lead: int = 0,
+               blobs: Optional[Dict[int, Sequence[bytes]]] = None,
+               jif: bool = False) -> bytes:
     """A TIFF (or BigTIFF) of the given strips (``tiled``: tiles):
     ``tags`` maps tag -> (type, values) (RATIONAL, type 5: numerator,
     denominator, ...); StripOffsets and StripByteCounts (TileOffsets and
-    TileByteCounts) are filled in."""
+    TileByteCounts) are filled in.  ``lead`` zero bytes go before each
+    strip (``lead`` 1: strips at odd offsets); ``blobs`` {tag: [bytes]}
+    are written before the strips, the tag holding their offsets (LONG);
+    ``jif``: JPEGInterchangeFormat / Length (513 / 514) give strip 0."""
     e = order
     magic = (b"II" if e == "<" else b"MM") + struct.pack(e + "H",
                                                          43 if big else 42)
     head = magic + (struct.pack(e + "HHQ", 8, 0, 16) if big else
                     struct.pack(e + "I", 8))
     data = bytearray(head)
+    tags = dict(tags)
+    for tag, parts in (blobs or {}).items():
+        at = []
+        for b in parts:
+            at.append(len(data))
+            data += b
+            if len(data) % 2:
+                data += b"\0"
+        tags[tag] = (4, at)
     offs = []
     for s in strips:
+        data += b"\0" * lead
         offs.append(len(data))
         data += s
         if len(data) % 2:
             data += b"\0"
-    tags = dict(tags)
+    if jif:
+        tags[513], tags[514] = (4, [offs[0]]), (4, [len(strips[0])])
     tags[324 if tiled else 273] = (16 if big else 4, offs)
     tags[325 if tiled else 279] = (16 if big else 4, [len(s) for s in strips])
     ifd_at = len(data)
@@ -428,7 +453,22 @@ def tiff_compress(raw: bytes, compression: int) -> bytes:
     if compression == 32773:
         return b"".join(bytes([len(raw[i:i + 128]) - 1]) + raw[i:i + 128]
                         for i in range(0, len(raw), 128))
+    if compression == 34925:
+        import lzma
+
+        return lzma.compress(raw, lzma.FORMAT_XZ)
+    if compression == 50000:
+        return zstd_frame(raw)
     raise ValueError(f"compression {compression}")
+
+
+def zstd_frame(raw: bytes, level: int = 3, **kw) -> bytes:
+    """A zstd frame of ``raw`` from libzstd (tests/zstd_oracle.py: ctypes
+    into the library Pillow ships)."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    import zstd_oracle
+
+    return zstd_oracle.compress(raw, level, **kw)
 
 
 def pack_samples(a: np.ndarray, bits: int, order: str = "<") -> np.ndarray:
@@ -1053,6 +1093,318 @@ def make_sample_files(out: str) -> List[str]:
     return list(SAMPLE_FILES)
 
 
+# ------------------------------------------ TIFF compression writers
+def jpeg_parts(data: bytes) -> dict:
+    """A baseline JPEG stream taken apart: ``dqt`` {table id: 64 bytes},
+    ``dht`` {(class, id): counts + values}, ``sof`` [(component id,
+    sampling, table)], ``sos`` [(component id, tables)], ``dri`` and the
+    scan data (``scan``, up to the EOI)."""
+    out = {"dqt": {}, "dht": {}, "dri": 0}
+    pos = 2
+    while True:
+        m = data[pos + 1]
+        n = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        body = data[pos + 4:pos + 2 + n]
+        pos += 2 + n
+        if m == 0xDB:
+            for i in range(0, len(body), 65):
+                out["dqt"][body[i] & 15] = body[i + 1:i + 65]
+        elif m == 0xC4:
+            i = 0
+            while i < len(body):
+                k = sum(body[i + 1:i + 17])
+                out["dht"][(body[i] >> 4, body[i] & 15)] = body[
+                    i + 1:i + 17 + k]
+                i += 17 + k
+        elif m == 0xDD:
+            out["dri"] = struct.unpack(">H", body[:2])[0]
+        elif m in (0xC0, 0xC1):
+            out["sof"] = [tuple(body[6 + 3 * c:9 + 3 * c])
+                          for c in range(body[5])]
+        elif m == 0xDA:
+            out["sos"] = [tuple(body[1 + 2 * c:3 + 2 * c])
+                          for c in range(body[0])]
+            out["scan"] = data[pos:data.rindex(b"\xff\xd9")]
+            return out
+
+
+def _split_rst(scan: bytes) -> List[bytes]:
+    """Scan data cut at its restart markers (which are dropped)."""
+    segs, start, i = [], 0, 0
+    while i < len(scan) - 1:
+        if scan[i] == 0xFF and 0xD0 <= scan[i + 1] <= 0xD7:
+            segs.append(scan[start:i])
+            start = i = i + 2
+            continue
+        i += 1
+    return segs + [scan[start:]]
+
+
+def ojpeg(img: np.ndarray, sub: Tuple[int, int] = (2, 2), form: str = "jif",
+          rows_per_strip: Optional[int] = None, photometric=None,
+          tag_sub=None, quality: int = 90) -> bytes:
+    """An old-style JPEG (compression 6) TIFF of ``img`` ([H, W] gray or
+    [H, W, 3] RGB, which Pillow's encoder turns into YCbCr sampled
+    ``sub``) from Pillow's JPEG bytes.  ``form`` "jif": the whole stream
+    as JPEGInterchangeFormat, one strip; "tables": the tables in
+    JPEGQTables / DCTables / ACTables and each strip the bare scan data of
+    its rows (Pillow's restart markers every strip, dropped: libtiff puts
+    its own there).  ``tag_sub``: the YCbCrSubSampling tag's values (None:
+    ``sub``; () no tag)."""
+    import io
+
+    from PIL import Image
+
+    h, w = img.shape[:2]
+    spp = 1 if img.ndim == 2 else 3
+    rps = rows_per_strip or h
+    mcu = (8 * sub[0], 8 * sub[1]) if spp == 3 else (8, 8)
+    kw = {}
+    if spp == 3:
+        kw["subsampling"] = {(1, 1): 0, (2, 1): 1, (2, 2): 2}[sub]
+    if form == "tables" and rps < h:
+        kw["restart_marker_blocks"] = -(-w // mcu[0]) * (rps // mcu[1])
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG", quality=quality, **kw)
+    j = buf.getvalue()
+    tags = _ojpeg_tags(h, w, spp, rps, photometric,
+                       sub if tag_sub is None else tag_sub)
+    if form == "jif":
+        return tiff_bytes([j], tags, jif=True)
+    p = jpeg_parts(j)
+    tq = [c[2] for c in p["sof"]]
+    td, ta = [c[1] >> 4 for c in p["sos"]], [c[1] & 15 for c in p["sos"]]
+    tags[512] = (3, [1])
+    # a table a sample, each where the sample's is (shared tables repeat)
+    blobs = {519: [p["dqt"][t] for t in tq],
+             520: [p["dht"][(0, t)] for t in td],
+             521: [p["dht"][(1, t)] for t in ta]}
+    data = tiff_bytes(_split_rst(p["scan"]), tags, blobs=blobs)
+    return _share_tables(data, blobs)
+
+
+def _ojpeg_tags(h, w, spp, rps, photometric, sub):
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * spp),
+            259: (3, [6]), 262: (3, [photometric if photometric is not None
+                                     else 6 if spp == 3 else 1]),
+            277: (3, [spp]), 278: (4, [rps])}
+    if spp == 3 and sub:
+        tags[530] = (3, list(sub))
+    return tags
+
+
+def ojpeg_jif(jpeg: bytes) -> bytes:
+    """An old-style JPEG TIFF, one strip, of a baseline JPEG file as it is
+    (its JPEGInterchangeFormat): gray, or YCbCr sampled as its frame says
+    (numpy-free, no Pillow: chip_smoke.py writes these)."""
+    pos = 2
+    while jpeg[pos + 1] not in (0xC0, 0xC1):
+        pos += 2 + struct.unpack(">H", jpeg[pos + 2:pos + 4])[0]
+    h, w, spp = struct.unpack(">HHB", jpeg[pos + 5:pos + 10])
+    hv = jpeg[pos + 11]
+    return tiff_bytes([jpeg], _ojpeg_tags(h, w, spp, h, None,
+                                          (hv >> 4, hv & 15)), jif=True)
+
+
+def _share_tables(data: bytes, blobs) -> bytes:
+    """Point each of 519-521's entries at the first copy of an equal
+    table, as a writer sharing the chroma tables does."""
+    e = "<"
+    off = struct.unpack(e + "I", data[4:8])[0]
+    n = struct.unpack(e + "H", data[off:off + 2])[0]
+    out = bytearray(data)
+    for i in range(n):
+        p = off + 2 + 12 * i
+        tag, typ, cnt = struct.unpack(e + "HHI", data[p:p + 8])
+        if tag not in blobs or cnt < 2:
+            continue
+        at = struct.unpack(e + "I", data[p + 8:p + 12])[0] if cnt > 1 else 0
+        vals = list(struct.unpack(e + "I" * cnt, data[at:at + 4 * cnt]))
+        for k in range(1, cnt):
+            for j in range(k):
+                if blobs[tag][j] == blobs[tag][k]:
+                    vals[k] = vals[j]
+                    break
+        out[at:at + 4 * cnt] = struct.pack(e + "I" * cnt, *vals)
+    return bytes(out)
+
+
+def thunderscan(t: np.ndarray, seed: int = 0) -> bytes:
+    """ThunderScan (32809) codes of 4-bit samples [rows, cols, 1], each
+    row from a last pixel of 0: runs of the last pixel (up to 63), three
+    2-bit or two 3-bit deltas (their skip codes where a row ends first),
+    raw pixels; a seeded choice among the codes that fit."""
+    rng = np.random.default_rng(seed)
+    d2 = {0: 0, 1: 1, 15: 3}
+    d3 = {0: 0, 1: 1, 2: 2, 3: 3, 13: 5, 14: 6, 15: 7}
+    out = bytearray()
+    for row in t.reshape(t.shape[0], -1).astype(int):
+        last, i, n = 0, 0, len(row)
+        while i < n:
+            run = 0
+            while i + run < n and run < 63 and row[i + run] == last:
+                run += 1
+            if run >= 2 or (run == 1 and rng.random() < 0.5):
+                out.append(run)
+                i += run
+                continue
+            opts = []
+            for per, table, skip, shift in ((3, d2, 2, 2), (2, d3, 4, 3)):
+                codes, prev = [], last
+                while len(codes) < per and i + len(codes) < n:
+                    d = (row[i + len(codes)] - prev) % 16
+                    if d not in table:
+                        break
+                    codes.append(table[d])
+                    prev = row[i + len(codes) - 1]
+                if len(codes) == per or (codes and i + len(codes) == n):
+                    k = len(codes)
+                    codes += [skip] * (per - k)
+                    v = 0
+                    for c in codes:
+                        v = v << shift | c
+                    opts.append((0x40 if per == 3 else 0x80) | v)
+                    opts.append(k)
+            if opts and rng.random() < 0.85:
+                j = 2 * int(rng.integers(0, len(opts) // 2))
+                out.append(opts[j])
+                i += opts[j + 1]
+                last = row[i - 1]
+                continue
+            out.append(0xC0 | row[i])
+            last = row[i]
+            i += 1
+    return bytes(out)
+
+
+def rlew(t: np.ndarray, parity: int = 0) -> bytes:
+    """CCITT RLEW (32771) data of 1-bit samples [rows, cols, 1], for a
+    strip at a file offset of the given parity: each row's modified
+    Huffman codes as Pillow's encoder writes them (compression 2, rows on
+    bytes), then the zero bytes (0-3) after which Pillow's libtiff reads
+    the next row (its decoder reads up to two bytes ahead, then drops
+    them or word-aligns against the file), found by decoding the rows so
+    far with Pillow."""
+    import io
+
+    from PIL import Image
+
+    rows, w = t.shape[:2]
+    codes = [pillow_segment(t[r:r + 1] * 255, "1",
+                            compression="tiff_ccitt")[0] for r in range(rows)]
+    out = codes[0]
+    for r in range(1, rows):
+        for pad in range(4):
+            cand = out + b"\0" * pad + codes[r]
+            data = tiff_bytes([cand], {
+                256: (4, [w]), 257: (4, [r + 1]), 258: (3, [1]),
+                259: (3, [32771]), 262: (3, [1]), 277: (3, [1]),
+                278: (4, [r + 1])}, lead=parity)
+            try:
+                with Image.open(io.BytesIO(data)) as im:
+                    ok = np.array_equal(np.asarray(im), t[:r + 1, :, 0] > 0)
+            except OSError:
+                ok = False
+            if ok:
+                out = cand
+                break
+        else:
+            raise ValueError(f"RLEW: no padding reads row {r}")
+    return out
+
+
+# the compressions Pillow 12.1 reads beyond those it writes, and the
+# page as ZSTD tiles, from a seed of their own
+COMPRESSION_SEED = 59
+COMPRESSION_FILES = tuple(f"compressions/{n}.tif" for n in (
+    "zstd_pred2", "zstd_mm_rgb_tiles", "zstd_rgb_planes",
+    "zstd_mm_float_pred3", "lzma", "lzma_mm_rgb_tiles_pred2",
+    "lzma_float_pred3", "rlew", "rlew_odd_offsets", "thunderscan",
+    "thunderscan_miniswhite", "ojpeg_jif_22", "ojpeg_jif_21",
+    "ojpeg_tables_11", "ojpeg_tables_22_strips", "ojpeg_gray_jif",
+    "ojpeg_gray_tables", "line_zstd", "line_ojpeg")) + (
+        "page/page_zstd.tif",)
+
+
+def _line_pixels(name: str) -> np.ndarray:
+    from PIL import Image
+
+    with Image.open(os.path.join(OUT, name)) as im:
+        return np.asarray(im.convert("L"))
+
+
+def page_zstd(level: int = 19) -> bytes:
+    """The 2550 x 3300 page's group 4 pixels (page/page_g4.tif, 0 / 255)
+    as L samples in 256 x 256 ZSTD tiles."""
+    from PIL import Image
+
+    with Image.open(os.path.join(OUT, "page", "page_g4.tif")) as im:
+        px = np.asarray(im.convert("L"))
+    return tiff_layout(px, compression=50000, tile=(256, 256),
+                       encode=lambda t: zstd_frame(t.tobytes(), level))
+
+
+def make_compression_files(out: str) -> List[str]:
+    """``COMPRESSION_FILES``, written under ``out``, 23 x 41 (edge tiles
+    padded), and the page."""
+    rng = np.random.default_rng(COMPRESSION_SEED)
+    hw = (23, 41)
+    tex = textured(rng, *hw)
+    gray = tex[..., 1]
+    fl = rng.normal(120, 140, hw).astype(np.float32)
+    fl[0, :4] = [np.inf, -0.0, 1e30, 0.5]
+    bw = (gray > 128).astype(np.uint8)
+    nib = gray >> 4
+    files = {
+        "zstd_pred2": tiff_layout(gray, compression=50000, predictor=2,
+                                  rows_per_strip=8),
+        "zstd_mm_rgb_tiles": tiff_layout(tex, photometric=2, order=">",
+                                         compression=50000, predictor=2,
+                                         tile=(16, 16)),
+        "zstd_rgb_planes": tiff_layout(tex, photometric=2, planar=2,
+                                       compression=50000),
+        "zstd_mm_float_pred3": tiff_layout(fl, bits=32, sample_format=3,
+                                           order=">", compression=50000,
+                                           predictor=3, tile=(16, 16)),
+        "lzma": tiff_layout(gray, compression=34925, rows_per_strip=8),
+        "lzma_mm_rgb_tiles_pred2": tiff_layout(
+            tex, photometric=2, order=">", compression=34925, predictor=2,
+            tile=(16, 16)),
+        "lzma_float_pred3": tiff_layout(fl, bits=32, sample_format=3,
+                                        compression=34925, predictor=3),
+        "rlew": tiff_layout(bw, bits=1, compression=32771,
+                            rows_per_strip=8, encode=rlew),
+        "rlew_odd_offsets": tiff_bytes(
+            [rlew(bw[y:y + 8, :, None], 1) for y in range(0, hw[0], 8)],
+            {256: (4, [hw[1]]), 257: (4, [hw[0]]), 258: (3, [1]),
+             259: (3, [32771]), 262: (3, [0]), 277: (3, [1]),
+             278: (3, [8])}, lead=1),
+        "thunderscan": tiff_layout(nib, bits=4, compression=32809,
+                                   rows_per_strip=5, encode=thunderscan),
+        "thunderscan_miniswhite": tiff_layout(
+            nib, bits=4, photometric=0, compression=32809,
+            encode=lambda t: thunderscan(t, 1)),
+        "ojpeg_jif_22": ojpeg(tex, (2, 2)),
+        "ojpeg_jif_21": ojpeg(tex, (2, 1), tag_sub=()),
+        "ojpeg_tables_11": ojpeg(tex, (1, 1), "tables", rows_per_strip=8),
+        "ojpeg_tables_22_strips": ojpeg(tex, (2, 2), "tables",
+                                        rows_per_strip=16),
+        "ojpeg_gray_jif": ojpeg(gray),
+        "ojpeg_gray_tables": ojpeg(gray, form="tables", rows_per_strip=8),
+        # two fixture lines: a gray one's pixels as ZSTD strips with
+        # predictor 2, an RGB 4:2:0 one's JPEG bytes as old-style JPEG
+        "line_zstd": tiff_layout(_line_pixels("lines/g05.jpg"),
+                                 compression=50000, predictor=2,
+                                 rows_per_strip=16),
+        "line_ojpeg": ojpeg_jif(open(os.path.join(OUT, "lines", "c05.jpg"),
+                                     "rb").read()),
+    }
+    for name in COMPRESSION_FILES[:-1]:
+        _write(os.path.join(out, name), files[name[13:-4]])
+    _write(os.path.join(out, COMPRESSION_FILES[-1]), page_zstd())
+    return list(COMPRESSION_FILES)
+
+
 def rle8_stream() -> bytes:
     """12 x 6 RLE8 pixels with every escape (bottom row first): encoded
     runs, an absolute run of odd length (word-padded), a delta (as Pillow
@@ -1256,6 +1608,9 @@ def main(argv=None) -> int:
     p.add_argument("--samples", action="store_true",
                    help="write only SAMPLE_FILES and add their entries to "
                         "golden.npz")
+    p.add_argument("--compressions", action="store_true",
+                   help="write only COMPRESSION_FILES and add their entries "
+                        "to golden.npz")
     args = p.parse_args(argv)
     if args.mode_pages:
         out = MODE_PAGES_DIR if args.out == OUT else args.out
@@ -1265,6 +1620,7 @@ def main(argv=None) -> int:
         return 0
     names = (make_layout_files(args.out) if args.layouts
              else make_sample_files(args.out) if args.samples
+             else make_compression_files(args.out) if args.compressions
              else make_files(args.out))
     # entries are added, never rewritten: a file that decodes otherwise
     # than its golden entry says stops the script
